@@ -1,0 +1,101 @@
+"""Polynomial-optics forward camera (port of
+:mod:`pota_tpu.models.po_camera`).
+
+The reference's vignetting-retry loop becomes K = ``vignetting_retries + 1``
+candidate aperture samples per ray, all traced by the PO forward kernel
+(``ops.po_kernels.po_forward``), then a first-success select.
+"""
+from __future__ import annotations
+
+import torch
+
+from pota_tpu.config import CameraConfig
+
+from ..optics import geometry as geo
+from ..optics import samplers
+from ..optics.polynomial import PolyLens, inner_pupil_ok, pt_evaluate
+from ..utils import rng as prng
+
+
+def po_sample_aperture_disk(cfg: CameraConfig, r1, r2):
+    """PO aperture sampler: plain concentric disk, or the blade fan
+    (ref src/lentil.h:312-324).  Image bokeh is not ported yet."""
+    if cfg.bokeh_enable_image:
+        raise NotImplementedError(
+            "image bokeh is not ported to pota_tpu_torch yet")
+    if cfg.aperture_blades < 2:
+        return samplers.concentric_disk_sample(r1, r2)
+    return samplers.triangular_aperture_sample(r1, r2, 1.0,
+                                               cfg.aperture_blades)
+
+
+def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
+                retry_key, po_state, newton_iterations: int = 3, ops=None):
+    """Forward PO trace, batched over rays [N].
+
+    Returns (origin [N, 3], dir [N, 3], weight [N], tries [N]) scaled to
+    scene units, camera looking down -z.  ``ops`` selects the kernel set
+    (default: the kernel wrappers, :data:`pota_tpu_torch.ops.KERNELS`).
+    """
+    if ops is None:
+        from ..ops import KERNELS as ops
+    aperture_radius = po_state.aperture_radius
+    sensor_shift = po_state.sensor_shift
+    n_tries = cfg.vignetting_retries + 1
+    n = sx.shape[0]
+    hsw = cfg.sensor_width * 0.5
+    x = sx * hsw
+    y = sy * hsw
+    lam = torch.full((n,), cfg.lambda_um, dtype=x.dtype, device=x.device)
+
+    if cfg.enable_dof:
+        tries_idx = torch.arange(1, n_tries, dtype=torch.int64,
+                                 device=x.device)
+        us = prng.uniforms(retry_key[:, None], tries_idx[None, :], 2)
+        r1k = torch.cat([r1[:, None], us[..., 0]], 1)
+        r2k = torch.cat([r2[:, None], us[..., 1]], 1)
+        aperture = po_sample_aperture_disk(cfg, r1k, r2k) * aperture_radius
+        rep = lambda a: a[:, None].expand(n, n_tries).reshape(-1)
+        out4, trans, dx, dy = ops.po_forward(
+            lens, rep(x), rep(y), aperture[..., 0].reshape(-1).contiguous(),
+            aperture[..., 1].reshape(-1).contiguous(), rep(lam), sensor_shift,
+            newton_iterations,
+        )
+        out4 = out4.reshape(n, n_tries, 4)
+        trans = trans.reshape(n, n_tries)
+        dx = dx.reshape(n, n_tries)
+        dy = dy.reshape(n, n_tries)
+        xk = x[:, None] + dx * sensor_shift
+        yk = y[:, None] + dy * sensor_shift
+    else:
+        # no depth of field: zero sensor directions, no aperture solve
+        zero = torch.zeros((n, n_tries), dtype=x.dtype, device=x.device)
+        dx = dy = zero
+        xk = x[:, None] + zero
+        yk = y[:, None] + zero
+        out4, trans = pt_evaluate(
+            lens, torch.stack([xk, yk, dx, dy, lam[:, None] + zero], -1))
+    shifted = torch.stack([xk, yk, dx, dy], -1)
+
+    ok = trans > 0.0
+    ok &= out4[..., 0] ** 2 + out4[..., 1] ** 2 <= lens.outer_pupil_radius ** 2
+    ok &= inner_pupil_ok(lens, shifted)
+
+    # first-success select over the K candidates
+    first = torch.argmax(ok.to(torch.int32), -1)
+    any_ok = ok.any(-1)
+    out_sel = torch.gather(out4, 1, first[:, None, None].expand(n, 1, 4))[:, 0]
+
+    R = lens.outer_pupil_curvature_radius
+    origin, direction = geo.chart_to_cs(out_sel[..., :2], out_sel[..., 2:4],
+                                        -R, R, lens.outer_chart)
+    scale = cfg.unit_scale_po  # negative: reverses rays + converts mm->units
+    origin = origin * scale
+    direction = direction * scale
+    dir_n2 = torch.sum(direction * direction, -1, keepdim=True)
+    direction = direction / torch.sqrt(torch.clamp(dir_n2, min=1e-24))
+
+    finite = torch.all(torch.isfinite(origin) & torch.isfinite(direction), -1)
+    weight = torch.where(any_ok & finite, 1.0, 0.0)
+    tries = torch.where(any_ok, first, n_tries).to(torch.int32)
+    return origin, direction, weight, tries

@@ -1,0 +1,28 @@
+"""Kernel wrappers of the port and their plain versions.
+
+:data:`KERNELS` is the set the render path calls by default: CPU tensors go
+to each kernel's plain version, CUDA tensors launch the kernel.
+:data:`PLAIN` holds the plain versions themselves, so a check on the card can
+render the same frame without the kernels and compare.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from . import po_kernels, splat_accum
+from ._build import LAUNCHES, reset_launches
+
+
+class KernelOps(NamedTuple):
+    po_forward: Callable
+    expand: Callable
+    po_splat: Callable
+    segment_accum: Callable
+
+
+KERNELS = KernelOps(po_kernels.po_forward, po_kernels.expand,
+                    po_kernels.po_splat, splat_accum.segment_accum)
+PLAIN = KernelOps(po_kernels.po_forward_plain, po_kernels.expand_plain,
+                  po_kernels.po_splat_plain, splat_accum.segment_accum_plain)
+
+__all__ = ["KERNELS", "PLAIN", "KernelOps", "LAUNCHES", "reset_launches"]

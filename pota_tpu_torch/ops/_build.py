@@ -1,0 +1,146 @@
+"""Build and bind the port's CUDA kernels.
+
+At first use the sources in ``pota_tpu_torch/csrc`` are compiled by nvcc
+into one shared library with a plain C interface, under
+``pota_tpu_torch/build/<hash of sources and flags>/``, and loaded with
+ctypes.  Nothing is built at import: the CPU tests import every module, and
+a machine without a GPU may have no nvcc.
+
+Every kernel wrapper counts its launches in :data:`LAUNCHES` (one per launch,
+counted where the kernel is launched and nowhere else), so a run can show
+that the main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(PKG_DIR, "build")
+LIB_NAME = "libpota_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+KERNEL_NAMES = ("po_forward", "expand", "po_splat", "segment_accum")
+LAUNCHES = {name: 0 for name in KERNEL_NAMES}
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+_ll = ctypes.c_longlong
+# C signatures of the entry points (csrc/*.cu); each returns cudaError_t
+SIGNATURES = {
+    "pota_po_forward": [_p, _p, _p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _p,
+                        _f, _f, _i, _p, _p, _p, _p, _p],
+    "pota_expand": [_p, _i, _p, _i, _p, _i, _i, _p, _p, _p],
+    "pota_po_splat": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _i, _p,
+                      _p, _i, _i, _p, _p, _i, _p, _p, _p],
+    "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i, _p, _p, _p, _p, _p],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list:
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet; return
+    the library's path.  The compiler's ``-Xptxas -v`` report (registers,
+    spills) is kept in ``ptxas.log`` beside it."""
+    out_dir = os.path.join(BUILD_ROOT, source_hash())
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    log_path = os.path.join(out_dir, "ptxas.log")
+    if os.path.exists(lib_path):
+        build_info.update(path=lib_path, seconds=0.0, cached=True,
+                          log_path=log_path)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC_DIR)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    with open(log_path, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)
+    build_info.update(path=lib_path, seconds=seconds, cached=False,
+                      log_path=log_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def ptxas_report() -> str:
+    """The registers / spills lines of the last build, or ''."""
+    path = build_info.get("log_path")
+    if not path or not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return "\n".join(
+        ln.strip() for ln in lines
+        if "Compiling entry function" in ln or "registers" in ln
+        or "spill" in ln)

@@ -1,0 +1,91 @@
+"""Sorted splat accumulator (K4) with its plain PyTorch version.
+
+Port of :mod:`pota_tpu.ops.splat_accum`.  The writer stream is sorted once
+(``torch.sort`` with ``stable=True``, as JAX sorts with ``lax.sort`` outside
+its kernel) on one int64 key ``pixel << 32 | float_bits(|z|)``: depths are
+>= 0, so their bits order like the floats, and equal keys keep writer
+order.  Over the sorted stream the accumulator sums the payload per pixel
+and takes each pixel's closest winner from its first row.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .po_kernels import _check, _stream
+
+
+def writer_keys(pix, depth):
+    """int64 sort keys ``pixel << 32 | float_bits(depth)`` (depth >= 0)."""
+    bits = depth.to(torch.float32).contiguous().view(torch.int32)
+    return (pix.to(torch.int64) << 32) | bits.to(torch.int64)
+
+
+def sort_writers(pix, depth):
+    """The shared stable (pixel, depth) sort.  Returns (sorted keys, perm)."""
+    return torch.sort(writer_keys(pix, depth), stable=True)
+
+
+def segment_accum_plain(keys_sorted, perm, payload, sample_id, npix: int):
+    """Plain K4: per-pixel payload sums (summed in sorted order on the CPU)
+    and the closest winner of each pixel's segment."""
+    pix_s = keys_sorted >> 32
+    live = pix_s < npix
+    rows = payload[perm]
+    acc = torch.zeros((npix + 1, payload.shape[1]), dtype=payload.dtype,
+                      device=payload.device)
+    acc.index_add_(0, torch.clamp(pix_s, max=npix), rows)
+    first = torch.ones_like(live)
+    first[1:] = pix_s[1:] != pix_s[:-1]
+    first &= live
+    win_pix = pix_s[first]
+    depth_bits = (keys_sorted[first] & 0xFFFFFFFF).to(torch.int32)
+    winner_depth = torch.zeros((npix,), dtype=torch.float32,
+                               device=payload.device)
+    winner_depth[win_pix] = depth_bits.view(torch.float32)
+    winner_sample = torch.zeros((npix,), dtype=torch.int32,
+                                device=payload.device)
+    winner_sample[win_pix] = sample_id[perm[first]].to(torch.int32)
+    has_winner = torch.zeros((npix,), dtype=torch.bool, device=payload.device)
+    has_winner[win_pix] = True
+    return acc[:npix], winner_depth, winner_sample, has_winner
+
+
+def segment_accum(keys_sorted, perm, payload, sample_id, npix: int):
+    """K4 wrapper.  ``keys_sorted`` int64 [W] (from :func:`sort_writers`),
+    ``perm`` int64 [W], ``payload`` f32 [W, K] and ``sample_id`` int32 [W]
+    in writer order.  Returns (accum [npix, K], winner_depth [npix],
+    winner_sample int32 [npix], has_winner bool [npix])."""
+    dev = keys_sorted.device
+    w = keys_sorted.shape[0]
+    k = payload.shape[1]
+    _check("keys_sorted", keys_sorted, torch.int64, dev, (w,))
+    _check("perm", perm, torch.int64, dev, (w,))
+    _check("payload", payload, torch.float32, dev, (w, k))
+    _check("sample_id", sample_id, torch.int32, dev, (w,))
+    if dev.type == "cpu":
+        return segment_accum_plain(keys_sorted, perm, payload, sample_id,
+                                   npix)
+    accum = torch.empty((npix, k), dtype=torch.float32, device=dev)
+    winner_depth = torch.empty((npix,), dtype=torch.float32, device=dev)
+    winner_sample = torch.empty((npix,), dtype=torch.int32, device=dev)
+    has_winner = torch.empty((npix,), dtype=torch.bool, device=dev)
+    err = _build.lib().pota_segment_accum(
+        keys_sorted.data_ptr(), perm.data_ptr(), w, payload.data_ptr(), k,
+        sample_id.data_ptr(), npix, accum.data_ptr(), winner_depth.data_ptr(),
+        winner_sample.data_ptr(), has_winner.data_ptr(), _stream(dev))
+    _build.check(err, "segment_accum")
+    _build.LAUNCHES["segment_accum"] += 1
+    return accum, winner_depth, winner_sample, has_winner
+
+
+def accumulate_sorted(pix, depth, payload, sample_id, npix: int, ops=None):
+    """Segment sum + closest winner over a writer stream (the counterpart of
+    ``pota_tpu.ops.splat_accum.accumulate_sorted``).
+
+    ``pix`` [W] target pixel per writer, dead writers carry ``npix``;
+    ``depth`` [W] >= 0; ``payload`` [W, K]; ``sample_id`` [W]."""
+    accum_fn = segment_accum if ops is None else ops.segment_accum
+    keys, perm = sort_writers(pix, depth)
+    return accum_fn(keys, perm, payload.to(torch.float32).contiguous(),
+                    sample_id.to(torch.int32).contiguous(), npix)

@@ -1,0 +1,174 @@
+"""End-to-end render pipeline: camera rays -> shading -> splat -> resolve
+(port of :mod:`pota_tpu.render.renderer`).
+
+The device is the scene's: every tensor of a render is made there.  The
+port runs the polynomial-optics camera only; configurations it does not
+handle yet raise ``NotImplementedError`` (see :func:`check_supported`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pota_tpu.config import CameraConfig, CameraType, RenderConfig
+
+from . import sampling
+
+
+def check_supported(cfg: CameraConfig, rc: RenderConfig, aovs=None,
+                    cam_to_world_end=None, differentiable: bool = False):
+    """Raise ``NotImplementedError`` for configurations the port does not
+    run yet, so nothing silently takes another path."""
+    from .aov import DEFAULT_AOVS, GAUSSIAN
+
+    reasons = []
+    if cfg.camera_type != CameraType.POLYNOMIAL_OPTICS:
+        reasons.append("the thin-lens camera")
+    if cfg.abb_chromatic > 0.0:
+        reasons.append("chromatic PO splats (abb_chromatic > 0)")
+    if cfg.bokeh_enable_image:
+        reasons.append("image bokeh")
+    if cfg.aperture_blades > 2:
+        reasons.append("blade apertures (aperture_blades > 2)")
+    if cam_to_world_end is not None:
+        reasons.append("motion blur")
+    if rc.enable_id_matte:
+        reasons.append("the id-matte")
+    gauss = [s.name for s in (aovs or DEFAULT_AOVS) if s.filter == GAUSSIAN]
+    if gauss != ["RGBA"]:
+        reasons.append(f"gaussian AOVs other than ['RGBA'] (got {gauss})")
+    if differentiable:
+        reasons.append("differentiable=True")
+    if reasons:
+        raise NotImplementedError(
+            "not ported to pota_tpu_torch yet: " + "; ".join(reasons))
+
+
+def _transform_rays(cam_to_world, origins, dirs):
+    """Apply a 4x4 camera -> world transform to ray origins/directions."""
+    rot = cam_to_world[:3, :3]
+    trans = cam_to_world[:3, 3]
+    o = origins @ rot.T + trans
+    d = dirs @ rot.T
+    d = d / torch.sqrt(torch.clamp(torch.sum(d * d, -1, keepdim=True),
+                                   min=1e-24))
+    return o, d
+
+
+def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
+                      po_state=None, ops=None):
+    """Camera-space rays for a sample stream (PO camera)."""
+    if cfg.camera_type != CameraType.POLYNOMIAL_OPTICS:
+        raise NotImplementedError(
+            "the thin-lens camera is not ported to pota_tpu_torch yet")
+    if po_lens is None or po_state is None:
+        raise ValueError("the polynomial camera needs po_lens and po_state")
+    from ..models.po_camera import trace_fw_po
+
+    origin, direction, weight, _tries = trace_fw_po(
+        cfg, po_lens, samples["sx"], samples["sy"], samples["r1"],
+        samples["r2"], samples["key"], po_state, ops=ops,
+    )
+    return origin, direction, weight * cfg.exposure
+
+
+def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
+                         cam_to_world, seed: int = 0, po_lens=None,
+                         po_state=None, ops=None) -> dict:
+    """Trace + shade the whole frame; returns the per-sample AOV stream."""
+    samples = sampling.frame_samples(rc, seed, device=scene.device)
+    origin_cs, dir_cs, weight = trace_camera_rays(
+        cfg, samples, po_lens=po_lens, po_state=po_state, ops=ops)
+    origin_ws, dir_ws = _transform_rays(cam_to_world, origin_cs, dir_cs)
+    shaded = scene.shade(origin_ws, dir_ws)
+    return {
+        **samples,
+        "rgba": shaded["rgba"] * weight[:, None],
+        "z": shaded["z"],
+        "P": shaded["P"],
+        "raydir": dir_ws,
+        "weight": weight,
+        "hit": shaded["hit"],
+        "obj_id": shaded["obj_id"],
+    }
+
+
+def resolve_gaussian(rc: RenderConfig, stream: dict) -> torch.Tensor:
+    """Cross-pixel gaussian filter over the filter footprint (the
+    reference's passthrough filter, src/lentil.h:736-775)."""
+    h, wres, spp = rc.yres_region, rc.xres_region, rc.spp
+    ox = stream["ox"].reshape(h, wres, spp)
+    oy = stream["oy"].reshape(h, wres, spp)
+    rgba = stream["rgba"].reshape(h, wres, spp, 4)
+    inv_w2 = (2.0 / rc.filter_width) ** 2
+    reach = int(rc.filter_width / 2.0 + 0.5)
+
+    num = torch.zeros((h, wres, 4), dtype=rgba.dtype, device=rgba.device)
+    den = torch.zeros((h, wres), dtype=rgba.dtype, device=rgba.device)
+    for dy in range(-reach, reach + 1):
+        for dx in range(-reach, reach + 1):
+            r = inv_w2 * ((ox - dx) ** 2 + (oy - dy) ** 2)
+            w = torch.where(r > 1.0, 0.0, torch.exp(-2.0 * r))
+            n = (rgba * w[..., None]).sum(2)
+            d = w.sum(2)
+            if dx or dy:
+                n = torch.roll(n, (dy, dx), (0, 1))
+                d = torch.roll(d, (dy, dx), (0, 1))
+                if dy:
+                    row = slice(0, 1) if dy > 0 else slice(h - 1, h)
+                    n[row] = 0.0
+                    d[row] = 0.0
+                if dx:
+                    col = slice(0, 1) if dx > 0 else slice(wres - 1, wres)
+                    n[:, col] = 0.0
+                    d[:, col] = 0.0
+            num = num + n
+            den = den + d
+    return num / torch.clamp(den, min=1e-12)[..., None]
+
+
+def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
+                 seed: int = 0, po_lens=None, po_state=None, bokeh_cdf=None,
+                 cam_to_world_end=None, differentiable: bool = False,
+                 ops=None):
+    """Full pipeline: forward trace + bidirectional redistribution +
+    resolve.  Returns (resolved RGBA image [H, W, 4], framebuffer dict).
+
+    ``ops`` is the kernel set the path calls (default
+    :data:`pota_tpu_torch.ops.KERNELS`; :data:`~pota_tpu_torch.ops.PLAIN`
+    runs the plain versions, for parity checks on the card)."""
+    from .splat import resolve_imager, splat_frame
+
+    if bokeh_cdf is not None:
+        raise NotImplementedError(
+            "image bokeh is not ported to pota_tpu_torch yet")
+    check_supported(cfg, rc, cam_to_world_end=cam_to_world_end,
+                    differentiable=differentiable)
+    cam_to_world = cam_to_world.to(scene.device, torch.float32)
+    with torch.no_grad():
+        stream = render_sample_stream(cfg, rc, scene, cam_to_world, seed,
+                                      po_lens=po_lens, po_state=po_state,
+                                      ops=ops)
+        if not rc.enable_redistribution:
+            return resolve_gaussian(rc, stream), {}
+        fb = splat_frame(cfg, rc, scene, stream, cam_to_world,
+                         po_lens=po_lens, po_state=po_state, ops=ops)
+        return resolve_imager(rc, fb), fb
+
+
+def look_at(eye, target, up=(0.0, 1.0, 0.0), device=None) -> torch.Tensor:
+    """Camera -> world matrix for a camera looking down -z."""
+    eye = np.asarray(eye, np.float32)
+    target = np.asarray(target, np.float32)
+    up = np.asarray(up, np.float32)
+    fwd = target - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    right = right / np.linalg.norm(right)
+    true_up = np.cross(right, fwd)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 0] = right
+    m[:3, 1] = true_up
+    m[:3, 2] = -fwd
+    m[:3, 3] = eye
+    return torch.as_tensor(m, device=device)

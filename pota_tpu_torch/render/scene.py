@@ -1,0 +1,153 @@
+"""Analytic sphere scene: the forward pass's shading source and the backward
+splat's occlusion oracle (port of :mod:`pota_tpu.render.scene`).
+
+Thin-glass transmission is not ported yet: a scene with ``transmission``
+raises in :meth:`SphereScene.shade`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..optics.geometry import safe_sqrt
+
+INF = 1e30
+
+
+@dataclasses.dataclass
+class SphereScene:
+    centers: torch.Tensor       # [S, 3] world space
+    radii: torch.Tensor         # [S]
+    emission: torch.Tensor      # [S, 3]
+    albedo: torch.Tensor        # [S, 3]
+    sky_color: torch.Tensor     # [3]
+    light_dir: torch.Tensor     # [3] direction toward the light
+    light_color: torch.Tensor   # [3]
+    transmission: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.centers.device
+
+    @property
+    def n_objects(self) -> int:
+        return int(self.centers.shape[0])
+
+    def intersect(self, origins, dirs, t_min=1e-3):
+        """Nearest hit. Returns (t [N], idx [N], hit [N])."""
+        oc = origins[:, None, :] - self.centers[None, :, :]      # [N, S, 3]
+        b = torch.sum(oc * dirs[:, None, :], -1)                  # [N, S]
+        c = torch.sum(oc * oc, -1) - self.radii[None, :] ** 2
+        disc = b * b - c
+        sq = safe_sqrt(disc)
+        t0 = -b - sq
+        t1 = -b + sq
+        t = torch.where(t0 > t_min, t0, t1)
+        valid = (disc > 0.0) & (t > t_min)
+        t = torch.where(valid, t, INF)
+        idx = torch.argmin(t, -1)
+        tbest = torch.gather(t, 1, idx[:, None])[:, 0]
+        return tbest, idx, tbest < INF
+
+    def occluded(self, p_from, p_to, t_min=1e-3):
+        """Segment occlusion probe between two world points -> bool [N]."""
+        seg = p_to - p_from
+        dist = torch.sqrt(torch.clamp(torch.sum(seg * seg, -1), min=1e-24))
+        d = seg / dist[..., None]
+        t, _, hit = self.intersect(p_from, d, t_min)
+        return hit & (t < dist - t_min)
+
+    def shade(self, origins, dirs):
+        """Shade primary rays: emission + lambert direct light + sky.
+        Returns rgba [N, 4], z [N] (distance along the ray, 1e30 on a miss),
+        P [N, 3], hit [N] and obj_id [N]."""
+        if self.transmission is not None:
+            raise NotImplementedError(
+                "thin-glass transmission is not ported to pota_tpu_torch yet")
+        t, idx, hit = self.intersect(origins, dirs)
+        p = origins + dirs * t[:, None]
+        n = (p - self.centers[idx]) / self.radii[idx][:, None]
+        ndotl = torch.clamp(torch.sum(n * self.light_dir[None, :], -1),
+                            min=0.0)
+        shadow_hit = self._occluded_dir(p + n * 1e-3, self.light_dir)
+        direct = self.albedo[idx] * self.light_color[None, :] * torch.where(
+            shadow_hit, 0.0, ndotl)[:, None]
+        rgb = torch.where(hit[:, None], self.emission[idx] + direct,
+                          self.sky_color[None, :])
+        alpha = torch.where(hit, 1.0, 0.0)
+        return {
+            "rgba": torch.cat([rgb, alpha[:, None]], -1),
+            "z": torch.where(hit, t, INF),
+            "P": torch.where(hit[:, None], p, 0.0),
+            "hit": hit,
+            "obj_id": torch.where(hit, idx, -1).to(torch.int32),
+        }
+
+    def _occluded_dir(self, origins, direction):
+        _, _, hit = self.intersect(origins, direction[None, :].expand_as(origins))
+        return hit
+
+
+def sphere_scene_from_numpy(centers, radii, emission, albedo, sky_color,
+                            light_dir, light_color, transmission=None,
+                            device=None) -> SphereScene:
+    """A :class:`SphereScene` from numpy arrays (a JAX ``SphereScene``'s
+    fields as numpy)."""
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return SphereScene(
+        centers=f(centers), radii=f(radii), emission=f(emission),
+        albedo=f(albedo), sky_color=f(sky_color), light_dir=f(light_dir),
+        light_color=f(light_color),
+        transmission=None if transmission is None else f(transmission),
+    )
+
+
+def lightgrid_scene(n: int = 5, spacing: float = 12.0, radius: float = 0.35,
+                    z: float = -220.0, intensity: float = 30.0,
+                    sky: float = 0.0, device=None) -> SphereScene:
+    """Grid of small bright emissive spheres (the reference's bokeh
+    acceptance scene)."""
+    xs = (np.arange(n) - (n - 1) / 2.0) * spacing
+    cx, cy = np.meshgrid(xs, xs)
+    centers = np.stack([cx.ravel(), cy.ravel(), np.full(n * n, z)], -1)
+    s = n * n
+    rng = np.random.default_rng(7)
+    colors = 0.5 + 0.5 * rng.uniform(size=(s, 3)).astype(np.float32)
+    return sphere_scene_from_numpy(
+        centers=centers, radii=np.full((s,), radius),
+        emission=colors * np.float32(intensity), albedo=np.zeros((s, 3)),
+        sky_color=np.full((3,), sky), light_dir=[0.0, 1.0, 0.0],
+        light_color=np.zeros(3), device=device,
+    )
+
+
+def teapot_scene(device=None) -> SphereScene:
+    """Five diffuse spheres at staggered depths plus three bright
+    out-of-focus emitters."""
+    centers, radii, emission, albedo = [], [], [], []
+    for i, (x, zdepth) in enumerate(
+        [(-30, -120), (-15, -160), (0, -200), (15, -260), (30, -330)]
+    ):
+        centers.append([x, -5.0, zdepth])
+        radii.append(10.0)
+        emission.append([0.0, 0.0, 0.0])
+        albedo.append([0.4 + 0.1 * (i % 3), 0.5, 0.7 - 0.1 * (i % 2)])
+    for x, y, zdepth, c in [
+        (-25, 18, -300, [40.0, 30.0, 8.0]),
+        (0, 22, -350, [10.0, 35.0, 45.0]),
+        (28, 16, -280, [45.0, 12.0, 30.0]),
+    ]:
+        centers.append([x, y, zdepth])
+        radii.append(0.6)
+        emission.append(c)
+        albedo.append([0.0, 0.0, 0.0])
+    light_dir = (np.asarray([0.3, 0.8, 0.52], np.float32)
+                 / np.float32(np.linalg.norm([0.3, 0.8, 0.52])))
+    return sphere_scene_from_numpy(
+        centers=centers, radii=radii, emission=emission, albedo=albedo,
+        sky_color=[0.02, 0.02, 0.03], light_dir=light_dir,
+        light_color=[1.2, 1.1, 1.0], device=device,
+    )

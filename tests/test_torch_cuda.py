@@ -1,0 +1,143 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips without a GPU.  The GPU host has no JAX,
+so this file imports none, and is run there without the suite's conftest:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances match chip_smoke.py: masks agree on >= 99.9% of items, the
+forward trace to 1e-3 mm on rays both versions keep, the accumulator's sums
+to 1e-4 of their scale (the plain version adds with atomics, in another
+order), gathers and winners exactly.
+"""
+import numpy as np
+import pytest
+import torch
+
+import pota_tpu_torch as pt
+from pota_tpu_torch import ops
+from pota_tpu_torch.ops import po_kernels as pk
+from pota_tpu_torch.ops import splat_accum as acc
+from pota_tpu_torch.optics.fit import load_poly_lens
+from pota_tpu_torch.optics.focus import POState
+from pota_tpu_torch.render import scene as sc
+from pota_tpu_torch.render.renderer import look_at, render_frame
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(2)
+
+FLAGSHIP = "angenieux__double_gauss__1953__49mm"
+ANAMORPHIC = "unknown__anamorphic__1960__50mm"
+CFG = pt.CameraConfig(
+    camera_type=pt.CameraType.POLYNOMIAL_OPTICS, lens_model=FLAGSHIP,
+    fstop=2.8, focus_distance=20.0, vignetting_retries=3, splat_queue_mult=8,
+)
+STATE = POState(aperture_radius=4.672678708153359,
+                sensor_shift=15.091056449990935, focus_distance=200.0,
+                tan_fov=0.36734693877551)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _t(a, dev):
+    return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+
+def test_po_forward_kernel_matches_plain(dev):
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    rng = np.random.default_rng(0)
+    n = 20000
+    x, y = (rng.uniform(-14, 14, n).astype(np.float32) for _ in range(2))
+    r = lens.aperture_housing_radius * 0.6
+    ax, ay = (rng.uniform(-r, r, n).astype(np.float32) for _ in range(2))
+    lam = np.full(n, 0.55, np.float32)
+    args = [_t(a, dev) for a in (x, y, ax, ay, lam)]
+    got = pk.po_forward(lens, *args, STATE.sensor_shift, 3)
+    ref = pk.po_forward_plain(lens, *args, STATE.sensor_shift, 3)
+    ok_g, ok_p = got[1] > 0, ref[1] > 0
+    assert float((ok_g == ok_p).double().mean()) >= 0.999
+    both = ok_g & ok_p
+    assert int(both.sum()) > n // 4
+    for g, r_ in zip(got, ref):
+        assert float((g[both] - r_[both]).abs().max()) < 1e-3
+
+
+def test_expand_kernel_is_exact(dev):
+    rng = np.random.default_rng(1)
+    n, s = 5000, 40000
+    src = np.sort(rng.integers(0, n, s)).astype(np.int32)
+    tf = rng.normal(size=(pk.TF_ROWS, n)).astype(np.float32)
+    ti = rng.integers(-(1 << 30), 1 << 30, (pk.TI_ROWS, n)).astype(np.int32)
+    got = pk.expand(_t(src, dev), _t(tf, dev), _t(ti, dev))
+    ref = pk.expand_plain(_t(src, dev), _t(tf, dev), _t(ti, dev))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
+def test_po_splat_kernel_matches_plain(dev, name):
+    lens = load_poly_lens(name, device=dev)
+    rng = np.random.default_rng(2)
+    n = 50000
+    pc = np.stack([rng.uniform(-60, 60, n), rng.uniform(-35, 35, n),
+                   rng.uniform(-400, -60, n)], 0).astype(np.float32)
+    seed = rng.integers(0, 2 ** 31, n).astype(np.int32)
+    ctr = rng.integers(0, 200, n).astype(np.int32)
+    sky = (rng.uniform(size=n) < 0.05).astype(np.float32)
+    rc = pt.RenderConfig(xres=1920, yres=1080, spp=1)
+    params = pk.splat_kernel_params(CFG, rc, STATE, torch.eye(4, device=dev))
+    spheres = _t(np.array([[x, y, -150.0, 0.8] for x in (-12.0, 0.0, 12.0)
+                           for y in (-12.0, 0.0, 12.0)], np.float32), dev)
+    args = (lens, *(_t(a, dev) for a in pc), *(_t(a, dev) for a in pc),
+            _t(seed, dev), _t(ctr, dev), _t(sky, dev), params, spheres, 3)
+    lin_g, ok_g = pk.po_splat(*args)
+    lin_p, ok_p = pk.po_splat_plain(*args)
+    assert 0.05 < float(ok_p.double().mean()) < 0.99
+    assert float((ok_g == ok_p).double().mean()) >= 0.999
+    both = ok_g & ok_p
+    assert float((lin_g[both] == lin_p[both]).double().mean()) >= 0.999
+
+
+def test_segment_accum_kernel_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    npix, w = 3000, 200000
+    pix = rng.integers(0, npix + 1, w)        # npix = dead writer
+    pix[:5000] = 17                           # a hot pixel
+    depth = np.round(rng.uniform(1, 50, w)).astype(np.float32)  # ties
+    payload = rng.normal(size=(w, 5)).astype(np.float32)
+    sid = rng.integers(0, 1 << 30, w).astype(np.int32)
+    keys, perm = acc.sort_writers(_t(pix, dev), _t(depth, dev))
+    args = (keys, perm, _t(payload, dev), _t(sid, dev), npix)
+    got = acc.segment_accum(*args)
+    ref = acc.segment_accum_plain(*args)
+    scale = max(float(ref[0].abs().max()), 1.0)
+    assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * scale
+    for g, r_ in zip(got[1:], ref[1:]):
+        assert torch.equal(g, r_)
+    # two runs give identical bits (no atomics)
+    assert torch.equal(acc.segment_accum(*args)[0], got[0])
+
+
+def test_render_kernels_match_plain(dev):
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    scene = sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0, radius=1.0,
+                               intensity=40.0, device=dev)
+    rc = pt.RenderConfig(xres=96, yres=64, spp=2)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    ops.reset_launches()
+    img_k, fb_k = render_frame(CFG, rc, scene, m, po_lens=lens,
+                               po_state=STATE)
+    assert all(v == 1 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    img_p, fb_p = render_frame(CFG, rc, scene, m, po_lens=lens,
+                               po_state=STATE, ops=ops.PLAIN)
+    assert all(v == 1 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    npix = rc.xres * rc.yres
+    assert abs(float(fb_k["filter_weight"].sum()) - npix) <= 1e-4 * npix
+    scale = max(float(img_p.abs().max()), 1.0)
+    off = ((img_k - img_p).abs().amax(-1) > 2e-3 * scale).double().mean()
+    assert float(off) <= 0.02
