@@ -3,31 +3,54 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
-  1. device   needs CUDA; prints the card's name and power limit
-  2. build    compiles the four kernels from pota_tpu_torch/csrc (nvcc)
-  3. kernels  captures each kernel's arguments from one flagship frame,
-              then runs kernel and plain PyTorch version on those inputs,
-              asserts the tolerances and times both (CUDA events, median
-              of 5 after a warm-up)
-  4. parity   renders 256x256 @ 1 spp twice, through the kernels and
-              through the plain versions on CUDA tensors, and compares
-  5. flagship the full 1920x1080 @ 1 spp bidirectional render (BASELINE
-              config 4): launch counts, finite planes, valid splats, energy
+  1. device    needs CUDA; prints the card's name and power limit
+  2. build     compiles the kernels from pota_tpu_torch/csrc (nvcc, one
+               process per source) and prints each entry's registers/spills
+  3. kernels   captures each kernel's arguments from a full-width frame of
+               its own path (K1-K4 the flagship, K5 config 1, K3's
+               per-slot-wavelength variant config 3 with image bokeh off,
+               K3's external-aperture variant config 3), then runs kernel
+               and plain PyTorch version on those inputs, asserts the
+               tolerances and times both (CUDA events, median of 5 after a
+               warm-up)
+  4. parity    renders small frames twice, through the kernels and through
+               the plain versions on CUDA tensors, and compares: the
+               flagship at 256x256 @ 1 spp, config 1 at 64x64 @ 4 spp,
+               config 3 at 128x128 @ 2 spp
+  5. flagship  the full 1920x1080 @ 1 spp bidirectional render (BASELINE
+               config 4): launch counts, finite planes, valid splats, energy
+  6. configs   BASELINE config 1 (thin-lens teapot, 256x256 @ 16 spp),
+               config 3 with image bokeh off (its chromatic PO path) and
+               config 3 (chromatic image-bokeh lightgrid, 512x512 @ 2 spp):
+               launch counts, finite planes, energy, frame ms, AA samples/s
 The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
+
 FLAGSHIP = "angenieux__double_gauss__1953__49mm"
 PLAIN_CHUNK = 1 << 20           # plain K1 / K3 run in 1M-item chunks
 PIXEL_TOL, MAX_PIXELS_OFF = 2e-3, 0.02
 ENERGY_TOL = 1e-4
+MASK_AGREE = 0.999
+TPU_KERNELS = "pota_tpu/ops/po_pallas.py"
+# the kernels each path must launch, and those it must not
+PATH_KERNELS = {
+    "flagship": ("po_forward", "expand", "po_splat", "segment_accum"),
+    "config1": ("expand", "tl_splat", "segment_accum"),
+    "config3_no_bokeh": ("po_forward", "expand", "po_splat_lam",
+                         "segment_accum"),
+    "config3": ("po_forward", "expand", "po_splat_ext", "segment_accum"),
+}
 
 
 def fail(msg: str) -> None:
@@ -78,21 +101,21 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def plain_chunked(fn, args, n_items: int):
-    """fn(lens, *items, *rest) over 1M-item chunks of the ``n_items``
-    per-item tensors after the lens (a whole queue at once would not fit
-    the plain versions' intermediates); returns the joined outputs."""
+def plain_chunked(fn, args, items: slice):
+    """fn(*args) over 1M-item chunks of the per-item tensors args[items] (a
+    whole queue at once would not fit the plain versions' intermediates);
+    returns the joined outputs."""
     import torch
 
-    lens, items, rest = args[0], args[1:1 + n_items], args[1 + n_items:]
-    parts = [fn(lens, *(t[i:i + PLAIN_CHUNK] for t in items), *rest)
-             for i in range(0, items[0].shape[0], PLAIN_CHUNK)]
+    lo, hi = items.start, items.stop
+    n = args[lo].shape[0]
+    parts = [fn(*args[:lo], *(t[i:i + PLAIN_CHUNK] for t in args[lo:hi]),
+                *args[hi:])
+             for i in range(0, n, PLAIN_CHUNK)]
     return [torch.cat(p) for p in zip(*parts)]
 
 
 def frac_pixels_off(got, want) -> float:
-    import torch
-
     got = got.reshape(got.shape[0] * got.shape[1], -1).double()
     want = want.reshape(got.shape).double()
     scale = max(float(want.abs().max()), 1.0)
@@ -114,6 +137,37 @@ class Recorder:
             self.args.setdefault(name, args)
             return fn(*args)
         return call
+
+
+def ring_pixels(n: int = 32) -> np.ndarray:
+    """The procedural 32x32 ring aperture config 3 falls back to
+    (bench.py:145-151)."""
+    yy, xx = np.mgrid[0:n, 0:n]
+    r = np.sqrt((xx - (n - 1) / 2) ** 2 + (yy - (n - 1) / 2) ** 2) / (n / 2)
+    ring = ((r > 0.5) & (r < 0.95)).astype(np.float32)
+    return np.stack([ring] * 3, -1)
+
+
+def check_splat_kernel(name, kern, plain, args, items, source, replaces):
+    """Hold a splat kernel (K3, its variants, K5) to its plain version on
+    captured main-path arguments; return its record."""
+    lin_g, ok_g = kern(*args)
+    lin_p, ok_p = plain_chunked(plain, args, items)
+    s = lin_g.shape[0]
+    ok_agree = float((ok_g == ok_p).double().mean())
+    both = ok_g & ok_p
+    lin_agree = float((lin_g[both] == lin_p[both]).double().mean())
+    err = float((lin_g[both] - lin_p[both]).abs().max())
+    print(f"{name} S={s} ok agree={ok_agree:.6f} lin agree={lin_agree:.6f} "
+          f"max_abs_err(lin)={err} (ok rate "
+          f"{float(ok_g.double().mean()):.4f})", flush=True)
+    if ok_agree < MASK_AGREE or lin_agree < MASK_AGREE:
+        fail(f"{name} disagrees with its plain version")
+    del lin_g, ok_g, lin_p, ok_p, both
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=median_ms(lambda: kern(*args)),
+                plain_ms=median_ms(lambda: plain_chunked(plain, args, items)),
+                n=int(s), ok_agree=ok_agree, lin_agree=lin_agree)
 
 
 def main() -> int:
@@ -138,6 +192,7 @@ def main() -> int:
     from pota_tpu_torch.optics.fit import load_poly_lens
     from pota_tpu_torch.optics.focus import setup_po_camera
     from pota_tpu_torch.render import scene as sc
+    from pota_tpu_torch.render.bokeh_image import build_bokeh_cdf
     from pota_tpu_torch.render.renderer import (
         look_at, render_frame, render_sample_stream)
     from pota_tpu_torch.render.splat import resolve_aovs, splat_frame
@@ -148,7 +203,17 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0:.2f} "
           f"(nvcc {_build.build_info['seconds']:.2f} s, "
           f"cached={_build.build_info['cached']})", flush=True)
-    print(_build.ptxas_report(), flush=True)
+    entries = _build.ptxas_entries()
+    for mangled, info in sorted(entries.items()):
+        print(f"ptxas {mangled}: {info}", flush=True)
+    flag_k3 = [v for k, v in entries.items() if "po_splat_kernelILi0E" in k]
+    if len(flag_k3) != 1:
+        fail("no ptxas report for the flagship K3 instantiation")
+    print(f"K3 flagship instantiation (SPLAT_DISK): "
+          f"{flag_k3[0].get('registers')} registers, "
+          f"{flag_k3[0].get('stack')} bytes stack frame, "
+          f"{flag_k3[0].get('spill_stores')} bytes spill stores, "
+          f"{flag_k3[0].get('spill_loads')} bytes spill loads", flush=True)
 
     # the flagship configuration (bench.py:192-201)
     cfg = pt.CameraConfig(
@@ -168,19 +233,40 @@ def main() -> int:
           flush=True)
     rc_full = pt.RenderConfig(xres=1920, yres=1080, spp=1)
 
+    # BASELINE config 1 (bench.py:58-83): thin-lens teapot
+    cfg1 = pt.CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
+                           vignetting_retries=3, splat_queue_mult=8)
+    scene1 = sc.teapot_scene(device=dev)
+    rc1 = pt.RenderConfig(xres=256, yres=256, spp=16)
+    # BASELINE config 3 (bench.py:117-169): chromatic image-bokeh lightgrid;
+    # bench.py's splat_chunks only chunks the TPU's memory (same output)
+    cfg3 = dataclasses.replace(cfg, abb_chromatic=0.6,
+                               bokeh_enable_image=True)
+    cfg3_nb = dataclasses.replace(cfg3, bokeh_enable_image=False)
+    scene3 = sc.lightgrid_scene(n=4, spacing=14.0, z=-150.0, radius=0.8,
+                                intensity=40.0, device=dev)
+    state3 = setup_po_camera(lens, cfg3, scene=scene3)
+    print(f"setup_po_camera (config 3) {state3}", flush=True)
+    cdf3 = build_bokeh_cdf(ring_pixels(), device=dev)
+    rc3 = pt.RenderConfig(xres=512, yres=512, spp=2)
+    po3 = dict(po_lens=lens, po_state=state3)
+
+    def capture(cfg_, rc_, scene_, **kw):
+        rec_ = Recorder(ops.KERNELS)
+        with torch.no_grad():
+            render_frame(cfg_, rc_, scene_, m, seed=0, ops=rec_, **kw)
+        torch.cuda.synchronize()
+        return rec_.args
+
     phase("kernels vs plain versions (main-path inputs)")
-    rec = Recorder(ops.KERNELS)
-    with torch.no_grad():
-        render_frame(cfg, rc_full, scene, m, seed=0, po_lens=lens,
-                     po_state=state, ops=rec)
-    torch.cuda.synchronize()
+    rec = capture(cfg, rc_full, scene, po_lens=lens, po_state=state)
     records = []
 
     with torch.no_grad():
         # K1: PO forward, M = N * K rays
-        a1 = rec.args["po_forward"]
+        a1 = rec["po_forward"]
         got = pk.po_forward(*a1)
-        ref = plain_chunked(pk.po_forward_plain, a1, 5)
+        ref = plain_chunked(pk.po_forward_plain, a1, slice(1, 6))
         ok_g, ok_p = got[1] > 0, ref[1] > 0
         agree = float((ok_g == ok_p).double().mean())
         both = ok_g & ok_p
@@ -188,20 +274,21 @@ def main() -> int:
                    for g, r in zip(got, ref))
         print(f"K1 po_forward M={a1[1].shape[0]} trans>0 agree={agree:.6f} "
               f"max_abs_err(valid rays)={err1:.3e} mm", flush=True)
-        if agree < 0.999 or err1 > 1e-3:
+        if agree < MASK_AGREE or err1 > 1e-3:
             fail("K1 po_forward disagrees with its plain version")
         ms = median_ms(lambda: pk.po_forward(*a1))
         plain_ms = median_ms(
-            lambda: plain_chunked(pk.po_forward_plain, a1, 5))
+            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 6)))
         records.append(dict(
             name="po_forward", route="cuda",
             source="pota_tpu_torch/csrc/po_forward.cu",
-            replaces="pota_tpu/ops/po_pallas.py:83", max_abs_err=err1,
+            replaces=f"{TPU_KERNELS}:83", max_abs_err=err1,
             ms=ms, plain_ms=plain_ms, n=int(a1[1].shape[0]),
             mask_agree=agree))
+        del got, ref, ok_g, ok_p, both
 
         # K2: expand, S slots
-        a2 = rec.args["expand"]
+        a2 = rec["expand"]
         got = pk.expand(*a2)
         ref = pk.expand_plain(*a2)
         err2 = max(float((got[0] - ref[0]).abs().max()),
@@ -212,37 +299,20 @@ def main() -> int:
         records.append(dict(
             name="expand", route="cuda",
             source="pota_tpu_torch/csrc/expand.cu",
-            replaces="pota_tpu/ops/po_pallas.py:877", max_abs_err=err2,
+            replaces=f"{TPU_KERNELS}:877", max_abs_err=err2,
             ms=median_ms(lambda: pk.expand(*a2)),
             plain_ms=median_ms(lambda: pk.expand_plain(*a2)),
             n=int(a2[0].shape[0])))
+        del got, ref
 
         # K3: PO splat, S slots
-        a3 = rec.args["po_splat"]
-        s = a3[1].shape[0]
-        lin_g, ok_g = pk.po_splat(*a3)
-        lin_p, ok_p = plain_chunked(pk.po_splat_plain, a3, 9)
-        ok_agree = float((ok_g == ok_p).double().mean())
-        both = ok_g & ok_p
-        lin_agree = float((lin_g[both] == lin_p[both]).double().mean())
-        err3 = float((lin_g[both] - lin_p[both]).abs().max())
-        print(f"K3 po_splat S={s} ok agree={ok_agree:.6f} lin agree="
-              f"{lin_agree:.6f} max_abs_err(lin)={err3} (ok rate "
-              f"{float(ok_g.double().mean()):.4f})", flush=True)
-        if ok_agree < 0.999 or lin_agree < 0.999:
-            fail("K3 po_splat disagrees with its plain version")
-        records.append(dict(
-            name="po_splat", route="cuda",
-            source="pota_tpu_torch/csrc/po_splat.cu",
-            replaces="pota_tpu/ops/po_pallas.py:697", max_abs_err=err3,
-            ms=median_ms(lambda: pk.po_splat(*a3)),
-            plain_ms=median_ms(
-                lambda: plain_chunked(pk.po_splat_plain, a3, 9)),
-            n=int(s), ok_agree=ok_agree, lin_agree=lin_agree))
-        del lin_g, ok_g, lin_p, ok_p, both
+        records.append(check_splat_kernel(
+            "po_splat", pk.po_splat, pk.po_splat_plain, rec["po_splat"],
+            slice(1, 10), "pota_tpu_torch/csrc/po_splat.cu",
+            f"{TPU_KERNELS}:697"))
 
         # K4: segment accumulate, W writers
-        a4 = rec.args["segment_accum"]
+        a4 = rec["segment_accum"]
         got = splat_accum.segment_accum(*a4)
         ref = splat_accum.segment_accum_plain(*a4)
         scale = max(float(ref[0].abs().max()), 1.0)
@@ -261,54 +331,96 @@ def main() -> int:
             ms=median_ms(lambda: splat_accum.segment_accum(*a4)),
             plain_ms=median_ms(lambda: splat_accum.segment_accum_plain(*a4)),
             n=int(a4[0].shape[0])))
+        del got, ref, rec, a1, a2, a4
+        torch.cuda.empty_cache()
+
+        # K5: thin-lens splat, config 1's S slots
+        a5 = capture(cfg1, rc1, scene1)["tl_splat"]
+        records.append(check_splat_kernel(
+            "tl_splat", pk.tl_splat, pk.tl_splat_plain, a5, slice(0, 9),
+            "pota_tpu_torch/csrc/tl_splat.cu", f"{TPU_KERNELS}:958"))
+        del a5
+        # K3 variants: config 3 with image bokeh off, and config 3
+        a3l = capture(cfg3_nb, rc3, scene3, **po3)["po_splat_lam"]
+        records.append(check_splat_kernel(
+            "po_splat_lam", pk.po_splat_lam, pk.po_splat_lam_plain, a3l,
+            slice(1, 11), "pota_tpu_torch/csrc/po_splat.cu",
+            f"{TPU_KERNELS}:697"))
+        del a3l
+        a3e = capture(cfg3, rc3, scene3, bokeh_cdf=cdf3, **po3)["po_splat_ext"]
+        records.append(check_splat_kernel(
+            "po_splat_ext", pk.po_splat_ext, pk.po_splat_ext_plain, a3e,
+            slice(1, 11), "pota_tpu_torch/csrc/po_splat.cu",
+            f"{TPU_KERNELS}:697"))
+        del a3e
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms {tag}", flush=True)
-    del rec, a1, a2, a3, a4
     torch.cuda.empty_cache()
 
-    phase("slice parity 256x256 @ 1 spp: kernels vs plain versions")
-    rc_small = pt.RenderConfig(xres=256, yres=256, spp=1)
-    with torch.no_grad():
-        img_k, fb_k = render_frame(cfg, rc_small, scene, m, seed=0,
-                                   po_lens=lens, po_state=state)
-        img_p, fb_p = render_frame(cfg, rc_small, scene, m, seed=0,
-                                   po_lens=lens, po_state=state,
-                                   ops=ops.PLAIN)
-    aov_k, aov_p = resolve_aovs(rc_small, fb_k), resolve_aovs(rc_small, fb_p)
-    for k in aov_p:
-        off = frac_pixels_off(aov_k[k], aov_p[k])
-        print(f"  {k}: pixels off {off:.5f}", flush=True)
-        if not bool(torch.isfinite(aov_k[k]).all()) or off > MAX_PIXELS_OFF:
-            fail(f"256x256 parity: plane {k}")
-    for k in ("RGBA", "filter_weight"):
-        e_k, e_p = float(fb_k[k].double().sum()), float(fb_p[k].double().sum())
-        print(f"  energy {k}: kernels {e_k:.6f} plain {e_p:.6f}", flush=True)
-        if abs(e_k - e_p) > 2e-3 * abs(e_p):
-            fail(f"256x256 parity: energy {k}")
-    del img_k, fb_k, img_p, fb_p, aov_k, aov_p
+    def parity(label, cfg_, rc_, scene_, **kw):
+        phase(f"parity {label}: kernels vs plain versions")
+        with torch.no_grad():
+            _, fb_k = render_frame(cfg_, rc_, scene_, m, seed=0, **kw)
+            _, fb_p = render_frame(cfg_, rc_, scene_, m, seed=0,
+                                   ops=ops.PLAIN, **kw)
+        aov_k, aov_p = resolve_aovs(rc_, fb_k), resolve_aovs(rc_, fb_p)
+        for k in aov_p:
+            off = frac_pixels_off(aov_k[k], aov_p[k])
+            print(f"  {k}: pixels off {off:.5f}", flush=True)
+            if not bool(torch.isfinite(aov_k[k]).all()) or off > MAX_PIXELS_OFF:
+                fail(f"{label} parity: plane {k}")
+        for k in ("RGBA", "filter_weight"):
+            e_k = float(fb_k[k].double().sum())
+            e_p = float(fb_p[k].double().sum())
+            print(f"  energy {k}: kernels {e_k:.6f} plain {e_p:.6f}",
+                  flush=True)
+            if abs(e_k - e_p) > 2e-3 * abs(e_p):
+                fail(f"{label} parity: energy {k}")
+
+    parity("flagship 256x256 @ 1 spp", cfg, pt.RenderConfig(
+        xres=256, yres=256, spp=1), scene, po_lens=lens, po_state=state)
+    parity("config 1 64x64 @ 4 spp", cfg1, pt.RenderConfig(
+        xres=64, yres=64, spp=4), scene1)
+    parity("config 3 128x128 @ 2 spp", cfg3, pt.RenderConfig(
+        xres=128, yres=128, spp=2), scene3, bokeh_cdf=cdf3, **po3)
+    torch.cuda.empty_cache()
+
+    def drive(label, path, cfg_, rc_, scene_, **kw):
+        """One main-path frame with the counters set to 0 just before it and
+        read just after; returns (launches, fb)."""
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            _, fb_ = render_frame(cfg_, rc_, scene_, m, seed=0, **kw)
+            aovs_ = resolve_aovs(rc_, fb_)
+            torch.cuda.synchronize()
+            launches_ = dict(ops.LAUNCHES)
+        print(f"launches in the {label} run: {launches_}", flush=True)
+        print(f"{path}_peak_device_gb "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30} {tag}",
+              flush=True)
+        missing = [k for k in PATH_KERNELS[path] if launches_[k] < 1]
+        stray = [k for k, v in launches_.items()
+                 if v and k not in PATH_KERNELS[path]]
+        if missing or stray:
+            fail(f"{label}: kernels not launched {missing}, "
+                 f"off-path kernels launched {stray}")
+        for k, v in aovs_.items():
+            if not bool(torch.isfinite(v).all()):
+                fail(f"{label}: plane {k} is not finite")
+        npix = rc_.xres * rc_.yres
+        w_sum = float(fb_["filter_weight"].double().sum())
+        print(f"{label} sum(filter_weight) {w_sum:.4f} vs {npix}", flush=True)
+        if abs(w_sum - npix) > ENERGY_TOL * npix:
+            fail(f"{label}: energy conservation, sum(filter_weight) != npix")
+        return launches_, fb_
 
     phase("flagship 1920x1080 @ 1 spp (BASELINE config 4)")
+    launches, fb = drive("flagship", "flagship", cfg, rc_full, scene,
+                         po_lens=lens, po_state=state)
+    del fb
     with torch.no_grad():
-        ops.reset_launches()
-        img, fb = render_frame(cfg, rc_full, scene, m, seed=0, po_lens=lens,
-                               po_state=state)
-        aovs = resolve_aovs(rc_full, fb)
-        torch.cuda.synchronize()
-        launches = dict(ops.LAUNCHES)
-        print(f"launches in the flagship run: {launches}", flush=True)
-        missing = [k for k, v in launches.items() if v < 1]
-        if missing:
-            fail(f"kernels not launched on the main path: {missing}")
-        for k, v in aovs.items():
-            if not bool(torch.isfinite(v).all()):
-                fail(f"flagship plane {k} is not finite")
-        npix = rc_full.xres * rc_full.yres
-        w_sum = float(fb["filter_weight"].double().sum())
-        print(f"sum(filter_weight) {w_sum:.4f} vs {npix}", flush=True)
-        if abs(w_sum - npix) > ENERGY_TOL * npix:
-            fail("energy conservation: sum(filter_weight) != npix")
-
         def e2e():
             _, fb_ = render_frame(cfg, rc_full, scene, m, seed=0,
                                   po_lens=lens, po_state=state)
@@ -333,16 +445,44 @@ def main() -> int:
         forward_ms = host_ms(lambda: render_sample_stream(
             cfg, rc_full, scene, m, 0, po_lens=lens, po_state=state))
         splat_ms = host_ms(splat_resolve)
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        del stream
     for label, val in (("frame_ms", frame_ms), ("forward_ms", forward_ms),
                        ("splat_resolve_ms", splat_ms),
                        ("issued_slots", n_issued), ("valid_splats", n_valid),
-                       ("valid_splats_per_s", n_valid / (splat_ms * 1e-3)),
-                       ("peak_device_gb", peak_gb)):
+                       ("valid_splats_per_s", n_valid / (splat_ms * 1e-3))):
         print(f"{label} {val} {tag}", flush=True)
+    torch.cuda.empty_cache()
 
+    path_launches = {"flagship": launches}
+    for label, path, cfg_, rc_, scene_, kw in (
+            ("config 1 thin-lens teapot 256x256 @ 16 spp", "config1", cfg1,
+             rc1, scene1, {}),
+            ("config 3 with image bokeh off, 512x512 @ 2 spp",
+             "config3_no_bokeh", cfg3_nb, rc3, scene3, po3),
+            ("config 3 chromatic image bokeh 512x512 @ 2 spp", "config3",
+             cfg3, rc3, scene3, dict(bokeh_cdf=cdf3, **po3))):
+        phase(label)
+        path_launches[path], fb = drive(label, path, cfg_, rc_, scene_, **kw)
+        del fb
+
+        def e2e():
+            with torch.no_grad():
+                _, fb_ = render_frame(cfg_, rc_, scene_, m, seed=0, **kw)
+                resolve_aovs(rc_, fb_)
+
+        e2e()
+        ms = host_ms(e2e)
+        n_aa = rc_.xres * rc_.yres * rc_.spp
+        print(f"{path}_frame_ms {ms} {tag}", flush=True)
+        print(f"{path}_aa_samples_per_s {n_aa / (ms * 1e-3)} {tag}",
+              flush=True)
+        torch.cuda.empty_cache()
+
+    path_of = {"tl_splat": "config1", "po_splat_lam": "config3_no_bokeh",
+               "po_splat_ext": "config3"}
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = path_launches[path_of.get(r["name"], "flagship")][
+            r["name"]]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

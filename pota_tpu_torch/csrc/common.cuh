@@ -1,7 +1,8 @@
 // Shared device helpers for the pota_tpu_torch kernels: launch sizing,
 // cooperative copies into shared memory, the TEA-8/LCG stream, the
-// concentric disk map, and a small forward-mode dual number (value plus four
-// tangents) for the Newton Jacobians.
+// concentric disk maps, the splat kernels' parameter layout, pixel map and
+// sphere occlusion probe, and a small forward-mode dual number (value plus
+// four tangents) for the Newton Jacobians.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,6 +61,22 @@ __device__ __forceinline__ float lcg_uniform(uint32_t& state) {
   return (float)(state & 0x00FFFFFFu) / 16777216.0f;
 }
 
+// Shirley's concentric square -> disk map in polar form: radius r, angle
+// phi, and the square point (a, b) the squircle lerp blends toward.
+__device__ __forceinline__ void concentric_polar(float r1, float r2, float& r,
+                                                 float& phi, float& a,
+                                                 float& b) {
+  a = 2.0f * r1 - 1.0f;
+  b = 2.0f * r2 - 1.0f;
+  const bool use_a = (a * a) > (b * b);
+  const float safe_a = (a == 0.0f) ? 1.0f : a;
+  const float safe_b = (b == 0.0f) ? 1.0f : b;
+  r = use_a ? a : b;
+  const float kPi4 = 0.78539816339744831f;
+  const float kPi2 = 1.5707963267948966f;
+  phi = use_a ? kPi4 * (b / safe_a) : kPi2 - kPi4 * (a / safe_b);
+}
+
 // Plain concentric disk point from the (seed, counter) stream's first two
 // uniforms (po_pallas.py _tea_concentric_disk).
 __device__ __forceinline__ void tea_concentric_disk(uint32_t seed, uint32_t ctr,
@@ -67,18 +84,96 @@ __device__ __forceinline__ void tea_concentric_disk(uint32_t seed, uint32_t ctr,
   uint32_t state = tea8(seed, ctr);
   const float r1 = lcg_uniform(state);
   const float r2 = lcg_uniform(state);
-  const float a = 2.0f * r1 - 1.0f;
-  const float b = 2.0f * r2 - 1.0f;
-  const bool use_a = (a * a) > (b * b);
-  const float safe_a = (a == 0.0f) ? 1.0f : a;
-  const float safe_b = (b == 0.0f) ? 1.0f : b;
-  const float r = use_a ? a : b;
-  const float kPi4 = 0.78539816339744831f;
-  const float kPi2 = 1.5707963267948966f;
-  const float phi = use_a ? kPi4 * (b / safe_a) : kPi2 - kPi4 * (a / safe_b);
+  float r, phi, a, b;
+  concentric_polar(r1, r2, r, phi, a, b);
   const bool both_zero = (a == 0.0f) && (b == 0.0f);
   x = both_zero ? 0.0f : r * cosf(phi);
   y = both_zero ? 0.0f : r * sinf(phi);
+}
+
+// Aberrated concentric disk point (po_pallas.py
+// _tea_concentric_disk_aberrated): with ``bias`` the radius becomes
+// sign(r) |r|^expo, expo = log(abb_spherical) / log(0.5), written as
+// exp(log(max(|r|, 1e-30)) * expo); then the squircle lerp by c2s.
+__device__ __forceinline__ void tea_concentric_disk_aberrated(
+    uint32_t seed, uint32_t ctr, bool bias, float expo, float c2s, float& x,
+    float& y) {
+  uint32_t state = tea8(seed, ctr);
+  const float r1 = lcg_uniform(state);
+  const float r2 = lcg_uniform(state);
+  float r, phi, a, b;
+  concentric_polar(r1, r2, r, phi, a, b);
+  if (bias) {
+    const float sgn = (r > 0.0f) ? 1.0f : ((r < 0.0f) ? -1.0f : 0.0f);
+    r = sgn * expf(logf(fmaxf(fabsf(r), 1e-30f)) * expo);
+  }
+  x = r * cosf(phi);
+  y = r * sinf(phi);
+  if (c2s > 0.0f) {
+    x = x + c2s * (a - x);
+    y = y + c2s * (b - y);
+  }
+  const bool both_zero = (a == 0.0f) && (b == 0.0f);
+  x = both_zero ? 0.0f : x;
+  y = both_zero ? 0.0f : y;
+}
+
+// ------------------------------------------------------------ splat helpers
+// Per-frame scalar layout of the splat kernels (po_pallas.py _SP_*,
+// SPLAT_PARAM_COUNT = 32).
+enum : int {
+  SP_ROT = 0, SP_TRANS = 9, SP_XRES = 12, SP_YRES = 13, SP_RMINX = 14,
+  SP_RMINY = 15, SP_XRES_R = 16, SP_YRES_R = 17, SP_INV_UNIT = 18,
+  SP_SHIFT = 19, SP_HSW = 20, SP_ASPECT = 21, SP_AP_RADIUS = 22,
+  SP_LAMBDA = 23, SP_TL_APR = 27, SP_TL_F = 28, SP_TL_IDFD = 29,
+  SP_TL_ANAM = 30, SP_COUNT = 32
+};
+
+// floor and clip to [0, hi] keeping NaN (jnp.clip does; fminf would not)
+__device__ __forceinline__ float floor_clip(float v, float hi) {
+  float f = floorf(v);
+  f = (f < 0.0f) ? 0.0f : f;
+  f = (f > hi) ? hi : f;
+  return f;
+}
+
+// Camera-space lens point (lcx, lcy, 0) -> world, by the params' matrix.
+__device__ __forceinline__ void lens_point_ws(const float* p, float lcx,
+                                              float lcy, float& cwx,
+                                              float& cwy, float& cwz) {
+  cwx = p[SP_ROT + 0] * lcx + p[SP_ROT + 1] * lcy + p[SP_TRANS + 0];
+  cwy = p[SP_ROT + 3] * lcx + p[SP_ROT + 4] * lcy + p[SP_TRANS + 1];
+  cwz = p[SP_ROT + 6] * lcx + p[SP_ROT + 7] * lcy + p[SP_TRANS + 2];
+}
+
+// Segment occlusion of (world point w -> world lens point cw) against the
+// sphere table [n_sph, 4] (po_pallas.py _occlude_spheres, t_min = 1e-3).
+__device__ __forceinline__ bool occluded_spheres(float wx, float wy, float wz,
+                                                 float cwx, float cwy,
+                                                 float cwz,
+                                                 const float* s_sph,
+                                                 int n_sph) {
+  const float t_min = 1e-3f;
+  const float segx = cwx - wx, segy = cwy - wy, segz = cwz - wz;
+  const float dist = sqrtf(fmaxf(segx * segx + segy * segy + segz * segz, 1e-24f));
+  const float inv_d = 1.0f / dist;
+  const float ddx = segx * inv_d, ddy = segy * inv_d, ddz = segz * inv_d;
+  bool occ = false;
+  for (int k = 0; k < n_sph; ++k) {
+    const float ocx = wx - s_sph[4 * k + 0];
+    const float ocy = wy - s_sph[4 * k + 1];
+    const float ocz = wz - s_sph[4 * k + 2];
+    const float rad = s_sph[4 * k + 3];
+    const float b = ocx * ddx + ocy * ddy + ocz * ddz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+    const float disc = b * b - c;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float t0 = -b - sq;
+    const float t1 = -b + sq;
+    const float tt = (t0 > t_min) ? t0 : t1;
+    occ = occ || ((disc > 0.0f) && (tt > t_min) && (tt < dist - t_min));
+  }
+  return occ;
 }
 
 // ------------------------------------------------------------- dual numbers

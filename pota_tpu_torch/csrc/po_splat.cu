@@ -1,13 +1,19 @@
 // PO splat kernel (K3): the whole per-slot program of the bidirectional
-// redistribution, in-kernel aperture sampling variant.
+// redistribution, in three variants chosen at compile time (SplatMode):
+//   SPLAT_DISK      in-kernel disk sample, one wavelength (the flagship);
+//   SPLAT_DISK_LAM  in-kernel disk sample, a wavelength per slot (chroma);
+//   SPLAT_EXTERNAL  aperture point and wavelength per slot (image bokeh,
+//                   blade apertures).
 //
 // Replaces: pota_tpu/ops/po_pallas.py::build_po_splat_kernel with
-// sample_aperture=True, lam_input=False (and its helpers
-// _emit_backward_solve, _solve4, _tea_lcg2, _tea_concentric_disk).
+// sample_aperture=True, lam_input=False / True, and sample_aperture=False
+// (and its helpers _emit_backward_solve, _solve4, _tea_lcg2,
+// _tea_concentric_disk).
 //
 // Per queue slot:
-//   1. a TEA-8/LCG concentric-disk aperture sample from (seed, counter),
-//      scaled by the aperture radius (bit-exact uniforms);
+//   1. the aperture point: a TEA-8/LCG concentric-disk sample from
+//      (seed, counter) scaled by the aperture radius (bit-exact uniforms),
+//      or the slot's own point;
 //   2. a fixed-iteration 4x4 Newton for the sensor (x, y, dx, dy) whose ray
 //      crosses the iris at that point and lands on -10 * p_cam: chief-ray
 //      init, residual through the outer-pupil chart;
@@ -30,7 +36,10 @@
 // branches, as JAX's `where` does.  The polynomial (int8 exponents, the
 // [7, T] coefficient rows apx, apy, o0..o3, trans) and the sphere table are
 // runtime data in shared memory: one build serves every lens and scene.
-// The pupil chart (sphere / cyl-x / cyl-y) is a runtime switch.
+// The pupil chart (sphere / cyl-x / cyl-y) is a runtime switch.  In the
+// per-slot-wavelength modes the conditioned wavelength is per thread; the
+// flagship keeps it block-uniform, out of the slot loop, which holds its
+// register count at 126.
 #include "common.cuh"
 
 namespace pota {
@@ -39,15 +48,9 @@ struct SplatLens {
   float R, R2, absR, r_outer2, front_z, bfl, inv_ap_z, r_inner2;
 };
 
-// scalar-parameter layout (po_pallas.py SPLAT_PARAM_COUNT = 32)
-enum : int {
-  SP_ROT = 0, SP_TRANS = 9, SP_XRES = 12, SP_YRES = 13, SP_RMINX = 14,
-  SP_RMINY = 15, SP_XRES_R = 16, SP_YRES_R = 17, SP_INV_UNIT = 18,
-  SP_SHIFT = 19, SP_HSW = 20, SP_ASPECT = 21, SP_AP_RADIUS = 22,
-  SP_LAMBDA = 23, SP_COUNT = 32
-};
-
 enum : int { CHART_SPHERE = 0, CHART_CYL_X = 1, CHART_CYL_Y = 2 };
+
+enum SplatMode : int { SPLAT_DISK = 0, SPLAT_DISK_LAM = 1, SPLAT_EXTERNAL = 2 };
 
 // Rows 0..5 (apx, apy, o0..o3) of the shared-term polynomial with tangents
 // along the raw unknowns.  u[] are the conditioned unknowns, ul the
@@ -166,20 +169,16 @@ __device__ __forceinline__ void solve4(const float J[4][4], const float r[4],
   x[1] = ia10 * t0 + ia11 * t1;
 }
 
-// floor and clip to [0, hi] keeping NaN (jnp.clip does; fminf would not)
-__device__ __forceinline__ float floor_clip(float v, float hi) {
-  float f = floorf(v);
-  f = (f < 0.0f) ? 0.0f : f;
-  f = (f > hi) ? hi : f;
-  return f;
-}
-
+// a_in / b_in: (seed, counter) uint32 words in the disk modes, the aperture
+// point (mm) in SPLAT_EXTERNAL; lam_in: the per-slot wavelength (um), unused
+// by SPLAT_DISK
+template <int MODE>
 __global__ void __launch_bounds__(128)
 po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
                 const float* __restrict__ pcz, const float* __restrict__ pwx,
                 const float* __restrict__ pwy, const float* __restrict__ pwz,
-                const uint32_t* __restrict__ seeds,
-                const uint32_t* __restrict__ ctrs, const float* __restrict__ sky,
+                const void* __restrict__ a_in, const void* __restrict__ b_in,
+                const float* __restrict__ lam_in, const float* __restrict__ sky,
                 int n, const int8_t* __restrict__ g_e,
                 const float* __restrict__ g_c, int T,
                 const float* __restrict__ cond, const float* __restrict__ lensc,
@@ -206,15 +205,23 @@ po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
   const float scale[4] = {s_cond[0], s_cond[1], s_cond[2], s_cond[3]};
   const float shift[4] = {s_cond[5], s_cond[6], s_cond[7], s_cond[8]};
   const float ap_radius = s_par[SP_AP_RADIUS];
-  const float ul = (s_par[SP_LAMBDA] - s_cond[9]) * s_cond[4];
-  const float t_min = 1e-3f;
+  const float ul_frame = (s_par[SP_LAMBDA] - s_cond[9]) * s_cond[4];
 
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    float ux_, uy_;
-    tea_concentric_disk(seeds[i], ctrs[i], ux_, uy_);
-    const float ax = ux_ * ap_radius;
-    const float ay = uy_ * ap_radius;
+    float ax, ay;
+    if constexpr (MODE == SPLAT_EXTERNAL) {
+      ax = static_cast<const float*>(a_in)[i];
+      ay = static_cast<const float*>(b_in)[i];
+    } else {
+      float ux_, uy_;
+      tea_concentric_disk(static_cast<const uint32_t*>(a_in)[i],
+                          static_cast<const uint32_t*>(b_in)[i], ux_, uy_);
+      ax = ux_ * ap_radius;
+      ay = uy_ * ap_radius;
+    }
+    float ul = ul_frame;
+    if constexpr (MODE != SPLAT_DISK) ul = (lam_in[i] - s_cond[9]) * s_cond[4];
 
     // backward target is -p_cam * 10 (ref src/lentil_filter.cpp:271)
     const float px = pcx[i] * -10.0f;
@@ -296,38 +303,41 @@ po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
     // occlusion probe from the world lens point: -ap * 0.1 (mm -> cm),
     // 1/unit like the reference's per-unit rescale, then cam_to_world
     const float inv_unit = s_par[SP_INV_UNIT];
-    const float lcx = -ax * 0.1f * inv_unit;
-    const float lcy = -ay * 0.1f * inv_unit;
-    const float cwx = s_par[SP_ROT + 0] * lcx + s_par[SP_ROT + 1] * lcy + s_par[SP_TRANS + 0];
-    const float cwy = s_par[SP_ROT + 3] * lcx + s_par[SP_ROT + 4] * lcy + s_par[SP_TRANS + 1];
-    const float cwz = s_par[SP_ROT + 6] * lcx + s_par[SP_ROT + 7] * lcy + s_par[SP_TRANS + 2];
-    const float wx = pwx[i], wy = pwy[i], wz = pwz[i];
-    const float segx = cwx - wx, segy = cwy - wy, segz = cwz - wz;
-    const float dist = sqrtf(fmaxf(segx * segx + segy * segy + segz * segz, 1e-24f));
-    const float inv_d = 1.0f / dist;
-    const float ddx = segx * inv_d, ddy = segy * inv_d, ddz = segz * inv_d;
-    bool occ = false;
-    for (int k = 0; k < n_sph; ++k) {
-      const float ocx = wx - s_sph[4 * k + 0];
-      const float ocy = wy - s_sph[4 * k + 1];
-      const float ocz = wz - s_sph[4 * k + 2];
-      const float rad = s_sph[4 * k + 3];
-      const float b = ocx * ddx + ocy * ddy + ocz * ddz;
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-      const float disc = b * b - c;
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float t0 = -b - sq;
-      const float t1 = -b + sq;
-      const float tt = (t0 > t_min) ? t0 : t1;
-      occ = occ || ((disc > 0.0f) && (tt > t_min) && (tt < dist - t_min));
-    }
-    occ = occ && (sky[i] < 0.5f);
+    float cwx, cwy, cwz;
+    lens_point_ws(s_par, -ax * 0.1f * inv_unit, -ay * 0.1f * inv_unit, cwx,
+                  cwy, cwz);
+    const bool occ = occluded_spheres(pwx[i], pwy[i], pwz[i], cwx, cwy, cwz,
+                                      s_sph, n_sph) &&
+                     (sky[i] < 0.5f);
 
     ok_out[i] = (tr > 0.0f) && inner_ok && in_bounds && !occ;
   }
 }
 
 }  // namespace pota
+
+template <int MODE>
+static int launch_po_splat(const float* pcx, const float* pcy, const float* pcz,
+                           const float* pwx, const float* pwy, const float* pwz,
+                           const void* a, const void* b, const float* lam,
+                           const float* sky, int n, const int8_t* exps,
+                           const float* coeffs, int T, const float* cond,
+                           const float* lensc, int chart, int iterations,
+                           const float* params, const float* spheres,
+                           int n_spheres, int* lin, uint8_t* ok,
+                           cudaStream_t stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const size_t smem = sizeof(float) * (7 * (size_t)T + 4 * (size_t)n_spheres +
+                                       pota::SP_COUNT + 10 + 8) +
+                      5 * (size_t)T;
+  if (smem > pota::kSmemDefaultMax) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  pota::po_splat_kernel<MODE>
+      <<<pota::grid_for(n, threads), threads, smem, stream>>>(
+          pcx, pcy, pcz, pwx, pwy, pwz, a, b, lam, sky, n, exps, coeffs, T,
+          cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int pota_po_splat(const float* pcx, const float* pcy, const float* pcz,
                              const float* pwx, const float* pwy, const float* pwz,
@@ -338,14 +348,42 @@ extern "C" int pota_po_splat(const float* pcx, const float* pcy, const float* pc
                              const float* params, const float* spheres,
                              int n_spheres, int* lin, uint8_t* ok,
                              cudaStream_t stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * (7 * (size_t)T + 4 * (size_t)n_spheres +
-                                       pota::SP_COUNT + 10 + 8) +
-                      5 * (size_t)T;
-  if (smem > pota::kSmemDefaultMax) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  pota::po_splat_kernel<<<pota::grid_for(n, threads), threads, smem, stream>>>(
-      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, n, exps, coeffs, T, cond,
-      lensc, chart, iterations, params, spheres, n_spheres, lin, ok);
-  return (int)cudaGetLastError();
+  return launch_po_splat<pota::SPLAT_DISK>(
+      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, nullptr, sky, n, exps, coeffs,
+      T, cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
+      stream);
+}
+
+extern "C" int pota_po_splat_lam(const float* pcx, const float* pcy,
+                                 const float* pcz, const float* pwx,
+                                 const float* pwy, const float* pwz,
+                                 const uint32_t* seed, const uint32_t* ctr,
+                                 const float* lam, const float* sky, int n,
+                                 const int8_t* exps, const float* coeffs,
+                                 int T, const float* cond, const float* lensc,
+                                 int chart, int iterations,
+                                 const float* params, const float* spheres,
+                                 int n_spheres, int* lin, uint8_t* ok,
+                                 cudaStream_t stream) {
+  return launch_po_splat<pota::SPLAT_DISK_LAM>(
+      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky, n, exps, coeffs, T,
+      cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
+      stream);
+}
+
+extern "C" int pota_po_splat_ext(const float* pcx, const float* pcy,
+                                 const float* pcz, const float* pwx,
+                                 const float* pwy, const float* pwz,
+                                 const float* ax, const float* ay,
+                                 const float* lam, const float* sky, int n,
+                                 const int8_t* exps, const float* coeffs,
+                                 int T, const float* cond, const float* lensc,
+                                 int chart, int iterations,
+                                 const float* params, const float* spheres,
+                                 int n_spheres, int* lin, uint8_t* ok,
+                                 cudaStream_t stream) {
+  return launch_po_splat<pota::SPLAT_EXTERNAL>(
+      pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky, n, exps, coeffs, T,
+      cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
+      stream);
 }

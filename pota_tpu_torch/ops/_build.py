@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-At first use the sources in ``pota_tpu_torch/csrc`` are compiled by nvcc
-into one shared library with a plain C interface, under
+At first use the sources in ``pota_tpu_torch/csrc`` are compiled by nvcc,
+one process per source side by side, and linked into one shared library
+with a plain C interface, under
 ``pota_tpu_torch/build/<hash of sources and flags>/``, and loaded with
 ctypes.  Nothing is built at import: the CPU tests import every module, and
 a machine without a GPU may have no nvcc.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,10 +28,11 @@ BUILD_ROOT = os.path.join(PKG_DIR, "build")
 LIB_NAME = "libpota_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_NAMES = ("po_forward", "expand", "po_splat", "segment_accum")
+KERNEL_NAMES = ("po_forward", "expand", "po_splat", "segment_accum",
+                "tl_splat", "po_splat_lam", "po_splat_ext")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _p = ctypes.c_void_p
@@ -44,6 +47,11 @@ SIGNATURES = {
     "pota_po_splat": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _i, _p,
                       _p, _i, _i, _p, _p, _i, _p, _p, _p],
     "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i, _p, _p, _p, _p, _p],
+    "pota_po_splat_lam": [_p] * 10 + [_i, _p, _p, _i, _p, _p, _i, _i, _p, _p,
+                                      _i, _p, _p, _p],
+    "pota_po_splat_ext": [_p] * 10 + [_i, _p, _p, _i, _p, _p, _i, _i, _p, _p,
+                                      _i, _p, _p, _p],
+    "pota_tl_splat": [_p] * 9 + [_i, _i, _f, _f, _p, _p, _i, _p, _p, _p],
 }
 
 _lock = threading.Lock()
@@ -83,10 +91,25 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _run(cmds: list) -> list:
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=CSRC_DIR)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+    return [out + err for out, err in outs]
+
+
 def build() -> str:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path.  The compiler's ``-Xptxas -v`` report (registers,
-    spills) is kept in ``ptxas.log`` beside it."""
+    the library's path.  Each source compiles in its own nvcc process, all
+    at once, then one link makes the library.  The compiler's
+    ``-Xptxas -v`` report (registers, spills) is kept in ``ptxas.log``
+    beside it."""
     out_dir = os.path.join(BUILD_ROOT, source_hash())
     lib_path = os.path.join(out_dir, LIB_NAME)
     log_path = os.path.join(out_dir, "ptxas.log")
@@ -95,18 +118,21 @@ def build() -> str:
                           log_path=log_path)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
     cus = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    objs = [os.path.join(out_dir, os.path.basename(c)[:-3] + f".{tag}.o")
+            for c in cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC_DIR)
+    logs = _run([[nvcc, *NVCC_FLAGS, "-c", c, "-o", o]
+                 for c, o in zip(cus, objs)])
+    tmp = f"{lib_path}.{tag}"
+    _run([[nvcc, "-shared", "-o", tmp, *objs]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    for o in objs:
+        os.remove(o)
     with open(log_path, "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(logs))
     os.replace(tmp, lib_path)
     build_info.update(path=lib_path, seconds=seconds, cached=False,
                       log_path=log_path)
@@ -133,14 +159,27 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def ptxas_report() -> str:
-    """The registers / spills lines of the last build, or ''."""
+def ptxas_entries() -> dict:
+    """Per kernel entry (mangled name) of the last build: registers, stack
+    frame and spill bytes, from the compiler's ``-Xptxas -v`` report."""
     path = build_info.get("log_path")
     if not path or not os.path.exists(path):
-        return ""
+        return {}
+    entries, name = {}, None
     with open(path) as f:
-        lines = f.read().splitlines()
-    return "\n".join(
-        ln.strip() for ln in lines
-        if "Compiling entry function" in ln or "registers" in ln
-        or "spill" in ln)
+        for ln in f:
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                name = m.group(1)
+                entries[name] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m and name:
+                entries[name].update(stack=int(m.group(1)),
+                                     spill_stores=int(m.group(2)),
+                                     spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name:
+                entries[name]["registers"] = int(m.group(1))
+    return entries

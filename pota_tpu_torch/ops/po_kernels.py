@@ -1,4 +1,5 @@
-"""Polynomial-optics kernels K1-K3 with their plain PyTorch versions.
+"""Polynomial-optics and thin-lens kernels K1-K3 and K5 with their plain
+PyTorch versions.
 
 Each wrapper takes the plain version for CPU tensors and launches its CUDA
 kernel (``csrc/``) for CUDA tensors; there is no fallback between the two.
@@ -10,9 +11,16 @@ code, and are what the CPU tests hold against the JAX package.
 * :func:`expand` — K2, compact source table -> queue slots
   (``po_pallas.py::build_expand_kernel``);
 * :func:`po_splat` — K3, the per-slot backward splat with in-kernel aperture
-  sampling (``po_pallas.py::build_po_splat_kernel``, ``sample_aperture=True``).
+  sampling (``po_pallas.py::build_po_splat_kernel``, ``sample_aperture=True``),
+  and its variants :func:`po_splat_lam` (a wavelength per slot,
+  ``lam_input=True``) and :func:`po_splat_ext` (the aperture point and
+  wavelength per slot, ``sample_aperture=False``);
+* :func:`tl_splat` — K5, the thin-lens backward splat
+  (``po_pallas.py::build_tl_splat_kernel``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,19 +54,25 @@ SP_ROT, SP_TRANS = 0, 9
 SP_XRES, SP_YRES, SP_RMINX, SP_RMINY = 12, 13, 14, 15
 SP_XRES_R, SP_YRES_R, SP_INV_UNIT, SP_SHIFT = 16, 17, 18, 19
 SP_HSW, SP_ASPECT, SP_AP_RADIUS, SP_LAMBDA = 20, 21, 22, 23
+SP_TL_APR, SP_TL_F, SP_TL_IDFD, SP_TL_ANAM = 27, 28, 29, 30
 
 
 def splat_kernel_params(cfg, rc, po_state, cam_to_world) -> torch.Tensor:
-    """The per-frame scalars the splat kernel reads ([32] f32, the layout of
-    ``po_pallas.py::splat_kernel_params``)."""
+    """The per-frame scalars the splat kernels read ([32] f32, the layout of
+    ``po_pallas.py::splat_kernel_params``); a thin-lens frame passes
+    ``po_state=None``."""
     m = cam_to_world.to(torch.float32)
     ca = cfg.abb_chromatic
+    if po_state is not None:
+        ap_radius, shift = po_state.aperture_radius, po_state.sensor_shift
+    else:
+        ap_radius = shift = 0.0
     tail = torch.tensor([
         rc.xres, rc.yres, rc.region_min_x, rc.region_min_y,
         rc.xres_region, rc.yres_region,
-        1.0 / cfg.unit_scale_filter, po_state.sensor_shift,
+        1.0 / cfg.unit_scale_filter, shift,
         cfg.sensor_width * 0.5, rc.xres / rc.yres,
-        po_state.aperture_radius, cfg.lambda_um,
+        ap_radius, cfg.lambda_um,
         0.35 + (1.0 - ca) * 0.2, 0.55, 0.55 + ca * 0.3,
         cfg.thinlens_aperture_radius, cfg.effective_focal_length,
         image_dist_focusdist(cfg), cfg.effective_anamorphic, 0.0,
@@ -222,36 +236,73 @@ def _floor_clip(v, hi):
     return torch.where(f > hi, hi, f)
 
 
-def po_splat_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
-                   sky, params, spheres, iterations: int = 3):
-    """Plain K3, composed of the port's sampler, ``lt_sample_aperture``, the
-    pixel map and the occlusion probe (as JAX's decomposed path is).
-    ``seed`` / ``ctr`` hold uint32 words (int32 or int64 tensors).
-    Returns (lin int32 [S], ok bool [S])."""
-    p = params
+def _pixel_lin(pixel_x, pixel_y, p):
+    """In-region test and linear pixel index of the splat kernels."""
+    xr, yr = p[SP_XRES_R], p[SP_YRES_R]
+    inside = ((pixel_x >= 0.0) & (pixel_x < xr) & (pixel_y >= 0.0)
+              & (pixel_y < yr))
+    lin = _floor_clip(pixel_y, yr - 1.0) * xr + _floor_clip(pixel_x, xr - 1.0)
+    lin = torch.where(torch.isfinite(lin), lin, 0.0).to(torch.int32)
+    return lin, inside
+
+
+def _lens_point_ws(lcx, lcy, p):
+    """Camera-space lens point (z = 0) -> world, by the params' matrix."""
+    return [p[SP_ROT + 3 * k] * lcx + p[SP_ROT + 3 * k + 1] * lcy
+            + p[SP_TRANS + k] for k in range(3)]
+
+
+def _disk_aperture(seed, ctr, radius):
+    """The (seed, counter) stream's concentric disk point times ``radius``
+    (``seed`` / ``ctr`` hold uint32 words in int32 or int64 tensors)."""
     u = prng.uniforms(seed.to(torch.int64) & prng.MASK32,
                       ctr.to(torch.int64) & prng.MASK32, 2)
-    disk = samplers.concentric_disk_sample(u[..., 0], u[..., 1])
-    ap = disk * p[SP_AP_RADIUS]
+    disk = samplers.concentric_disk_sample(u[..., 0], u[..., 1]) * radius
+    return disk[..., 0], disk[..., 1]
+
+
+def po_splat_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
+                   sky, params, spheres, iterations: int = 3):
+    """Plain K3: disk aperture from (seed, counter), one wavelength.
+    Returns (lin int32 [S], ok bool [S])."""
+    ax, ay = _disk_aperture(seed, ctr, params[SP_AP_RADIUS])
+    return po_splat_ext_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
+                              params[SP_LAMBDA], sky, params, spheres,
+                              iterations)
+
+
+def po_splat_lam_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed,
+                       ctr, lam, sky, params, spheres, iterations: int = 3):
+    """Plain K3 ``lam_input`` variant: disk aperture from (seed, counter),
+    wavelength ``lam`` [S] per slot."""
+    ax, ay = _disk_aperture(seed, ctr, params[SP_AP_RADIUS])
+    return po_splat_ext_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
+                              lam, sky, params, spheres, iterations)
+
+
+def po_splat_ext_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
+                       lam, sky, params, spheres, iterations: int = 3):
+    """Plain K3 external-aperture variant: the PO splat for the aperture
+    point ``ax, ay`` (mm) and wavelength ``lam`` [S] of each slot, composed
+    of ``lt_sample_aperture``, the pupil crops, the pixel map and the
+    occlusion probe (as JAX's decomposed path is).  The other two plain
+    variants draw the aperture point first and call it.
+    Returns (lin int32 [S], ok bool [S])."""
+    p = params
     target = torch.stack([pcx * -10.0, pcy * -10.0, pcz * -10.0], -1)
-    sensor5, _, trans = lt_sample_aperture(lens, target, ap, p[SP_LAMBDA],
-                                           iterations=iterations)
+    sensor5, _, trans = lt_sample_aperture(
+        lens, target, torch.stack([ax, ay], -1), lam, iterations=iterations)
     ok = (trans > 0.0) & inner_pupil_ok(lens, sensor5)
     x, y, dx, dy = (sensor5[..., k] for k in range(4))
     sx = (x + dx * -p[SP_SHIFT]) / p[SP_HSW]
     sy = (y + dy * -p[SP_SHIFT]) / p[SP_HSW] * p[SP_ASPECT]
     pixel_x = (sx + 1.0) * 0.5 * p[SP_XRES] - p[SP_RMINX]
     pixel_y = (-sy + 1.0) * 0.5 * p[SP_YRES] - p[SP_RMINY]
-    xr, yr = p[SP_XRES_R], p[SP_YRES_R]
-    ok &= (pixel_x >= 0.0) & (pixel_x < xr) & (pixel_y >= 0.0) & (pixel_y < yr)
-    lin = _floor_clip(pixel_y, yr - 1.0) * xr + _floor_clip(pixel_x, xr - 1.0)
-    lin = torch.where(torch.isfinite(lin), lin, 0.0).to(torch.int32)
+    lin, inside = _pixel_lin(pixel_x, pixel_y, p)
+    ok &= inside
 
     inv_unit = p[SP_INV_UNIT]
-    lcx = -ap[..., 0] * 0.1 * inv_unit
-    lcy = -ap[..., 1] * 0.1 * inv_unit
-    cw = [p[SP_ROT + 3 * k] * lcx + p[SP_ROT + 3 * k + 1] * lcy
-          + p[SP_TRANS + k] for k in range(3)]
+    cw = _lens_point_ws(-ax * 0.1 * inv_unit, -ay * 0.1 * inv_unit, p)
     occ = _occlude_spheres(pwx, pwy, pwz, *cw, spheres)
     ok &= ~(occ & (sky < 0.5))
     return lin, ok
@@ -268,26 +319,34 @@ def _splat_lens_consts(lens: PolyLens, device) -> torch.Tensor:
     ], dtype=torch.float32, device=device)
 
 
-def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
-             params, spheres, iterations: int = 3):
-    """K3 wrapper.  Per-slot inputs are f32 [S] (camera-space point, world
-    point, sky flag) and int32 [S] (seed, counter: uint32 bits);
-    ``params`` is :func:`splat_kernel_params`, ``spheres`` f32 [n, 4].
-    Returns (lin int32 [S], ok bool [S])."""
-    dev = pcx.device
-    s = pcx.shape[0]
-    for name, t in (("pcx", pcx), ("pcy", pcy), ("pcz", pcz), ("pwx", pwx),
-                    ("pwy", pwy), ("pwz", pwz), ("sky", sky)):
-        _check(name, t, torch.float32, dev, (s,))
-    _check("seed", seed, torch.int32, dev, (s,))
-    _check("ctr", ctr, torch.int32, dev, (s,))
+# C order of each K3 variant's per-slot inputs; seed / ctr are int32
+_PO_SPLAT_SLOTS = {
+    "po_splat": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "seed", "ctr",
+                 "sky"),
+    "po_splat_lam": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "seed", "ctr",
+                     "lam", "sky"),
+    "po_splat_ext": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "ax", "ay",
+                     "lam", "sky"),
+}
+
+
+def _po_splat_run(name, plain, args):
+    """Check the arguments of one K3 variant, then run its plain version
+    (CPU tensors) or launch its kernel (CUDA tensors)."""
+    names = _PO_SPLAT_SLOTS[name]
+    lens, slots = args[0], args[1:1 + len(names)]
+    params, spheres, iterations = args[1 + len(names):]
+    dev = slots[0].device
+    s = slots[0].shape[0]
+    for nm, t in zip(names, slots):
+        dtype = torch.int32 if nm in ("seed", "ctr") else torch.float32
+        _check(nm, t, dtype, dev, (s,))
     _check("params", params, torch.float32, dev, (SPLAT_PARAM_COUNT,))
     _check("spheres", spheres, torch.float32, dev, (spheres.shape[0], 4))
     if lens.device != dev:
         raise ValueError(f"lens on {lens.device}, slots on {dev}")
     if dev.type == "cpu":
-        return po_splat_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
-                              sky, params, spheres, iterations)
+        return plain(*args)
     if not torch.equal(lens.pt.exponents, lens.ap.exponents):
         raise ValueError(
             f"lens {lens.name!r}: pt/ap term sets must be shared for the "
@@ -298,14 +357,141 @@ def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
     lensc = _splat_lens_consts(lens, dev)
     lin = torch.empty((s,), dtype=torch.int32, device=dev)
     ok = torch.empty((s,), dtype=torch.bool, device=dev)
-    err = _build.lib().pota_po_splat(
+    err = getattr(_build.lib(), f"pota_{name}")(
+        *(t.data_ptr() for t in slots), s, exps.data_ptr(),
+        coeffs.data_ptr(), coeffs.shape[1], cond.data_ptr(),
+        lensc.data_ptr(), CHARTS.index(lens.outer_chart), int(iterations),
+        params.data_ptr(), spheres.data_ptr(), spheres.shape[0],
+        lin.data_ptr(), ok.data_ptr(), _stream(dev))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return lin, ok
+
+
+def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
+             params, spheres, iterations: int = 3):
+    """K3 wrapper.  Per-slot inputs are f32 [S] (camera-space point, world
+    point, sky flag) and int32 [S] (seed, counter: uint32 bits);
+    ``params`` is :func:`splat_kernel_params`, ``spheres`` f32 [n, 4].
+    Returns (lin int32 [S], ok bool [S])."""
+    return _po_splat_run("po_splat", po_splat_plain, (
+        lens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params, spheres,
+        iterations))
+
+
+def po_splat_lam(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
+                 lam, sky, params, spheres, iterations: int = 3):
+    """K3 ``lam_input`` wrapper: as :func:`po_splat`, with a wavelength
+    ``lam`` f32 [S] (um) per slot (the chromatic splat)."""
+    return _po_splat_run("po_splat_lam", po_splat_lam_plain, (
+        lens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky, params,
+        spheres, iterations))
+
+
+def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam,
+                 sky, params, spheres, iterations: int = 3):
+    """K3 external-aperture wrapper: the aperture point ``ax, ay`` f32 [S]
+    (mm) and wavelength ``lam`` f32 [S] come per slot (image bokeh, blade
+    apertures)."""
+    return _po_splat_run("po_splat_ext", po_splat_ext_plain, (
+        lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky, params,
+        spheres, iterations))
+
+
+# ------------------------------------------------------- K5: thin-lens splat
+
+
+def _aberrated_disk(seed, ctr, abb_spherical: float, circle_to_square: float):
+    """Concentric disk point of the (seed, counter) stream with the
+    spherical-aberration bias and the squircle lerp, in the closed form of
+    ``po_pallas.py::_tea_concentric_disk_aberrated``."""
+    u = prng.uniforms(seed.to(torch.int64) & prng.MASK32,
+                      ctr.to(torch.int64) & prng.MASK32, 2)
+    r, phi, a, b = samplers.concentric_polar(u[..., 0], u[..., 1])
+    if abb_spherical != 0.5:
+        expo = math.log(abb_spherical) / math.log(0.5)
+        r = torch.sign(r) * torch.exp(
+            torch.log(torch.clamp(torch.abs(r), min=1e-30)) * expo)
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    if circle_to_square > 0.0:
+        x = x + circle_to_square * (a - x)
+        y = y + circle_to_square * (b - y)
+    both_zero = (a == 0.0) & (b == 0.0)
+    return torch.where(both_zero, 0.0, x), torch.where(both_zero, 0.0, y)
+
+
+def tl_splat_plain(pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params,
+                   spheres, abb_spherical: float = 0.5,
+                   circle_to_square: float = 0.01):
+    """Plain K5: aberrated disk sample, anamorphic squeeze, thin-lens
+    backward projection to the sensor, pixel map and occlusion probe from
+    the world lens point.  Returns (lin int32 [S], ok bool [S])."""
+    p = params
+    ux, uy = _aberrated_disk(seed, ctr, abb_spherical, circle_to_square)
+    ux = ux * p[SP_TL_ANAM]
+    lx = ux * p[SP_TL_APR]
+    ly = uy * p[SP_TL_APR]
+
+    f, idfd = p[SP_TL_F], p[SP_TL_IDFD]
+    # image distance of the sample depth (ref src/lentil.h:665-671)
+    ids = (-f * pcz) / (-f + pcz)
+    pn = torch.sqrt(torch.clamp(pcx * pcx + pcy * pcy + pcz * pcz,
+                                min=1e-24))
+    dfcz = pcz / pn
+    t_sp = torch.abs(ids / dfcz)
+    dlx = (pcx / pn) * t_sp - lx
+    dly = (pcy / pn) * t_sp - ly
+    dlz = dfcz * t_sp
+    # focus-plane point lens + dl * |idfd / dlz| (the norms of dl cancel)
+    s = torch.abs(idfd / torch.where(torch.abs(dlz) < 1e-12, 1e-12, dlz))
+    fipx = lx + dlx * s
+    fipy = ly + dly * s
+    fipz = dlz * s
+    sens = -f / p[SP_HSW]
+    fipz_safe = torch.where(torch.abs(fipz) < 1e-12, 1e-12, fipz)
+    sx = fipx / fipz_safe * sens
+    sy = fipy / fipz_safe * sens * p[SP_ASPECT]
+    pixel_x = (sx + 1.0) * 0.5 * p[SP_XRES] - p[SP_RMINX]
+    pixel_y = (-sy + 1.0) * 0.5 * p[SP_YRES] - p[SP_RMINY]
+    lin, ok = _pixel_lin(pixel_x, pixel_y, p)
+
+    inv_unit = p[SP_INV_UNIT]
+    cw = _lens_point_ws(lx * inv_unit, ly * inv_unit, p)
+    occ = _occlude_spheres(pwx, pwy, pwz, *cw, spheres)
+    ok &= ~(occ & (sky < 0.5))
+    return lin, ok
+
+
+def tl_splat(pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params, spheres,
+             abb_spherical: float = 0.5, circle_to_square: float = 0.01):
+    """K5 wrapper.  Per-slot inputs as :func:`po_splat` takes them;
+    ``abb_spherical`` and ``circle_to_square`` are the camera's effective
+    strengths (runtime scalars of the kernel).  Returns (lin int32 [S],
+    ok bool [S])."""
+    dev = pcx.device
+    s = pcx.shape[0]
+    for name, t in (("pcx", pcx), ("pcy", pcy), ("pcz", pcz), ("pwx", pwx),
+                    ("pwy", pwy), ("pwz", pwz), ("sky", sky)):
+        _check(name, t, torch.float32, dev, (s,))
+    _check("seed", seed, torch.int32, dev, (s,))
+    _check("ctr", ctr, torch.int32, dev, (s,))
+    _check("params", params, torch.float32, dev, (SPLAT_PARAM_COUNT,))
+    _check("spheres", spheres, torch.float32, dev, (spheres.shape[0], 4))
+    if dev.type == "cpu":
+        return tl_splat_plain(pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
+                              params, spheres, abb_spherical,
+                              circle_to_square)
+    bias = abb_spherical != 0.5
+    expo = math.log(abb_spherical) / math.log(0.5) if bias else 1.0
+    lin = torch.empty((s,), dtype=torch.int32, device=dev)
+    ok = torch.empty((s,), dtype=torch.bool, device=dev)
+    err = _build.lib().pota_tl_splat(
         pcx.data_ptr(), pcy.data_ptr(), pcz.data_ptr(), pwx.data_ptr(),
         pwy.data_ptr(), pwz.data_ptr(), seed.data_ptr(), ctr.data_ptr(),
-        sky.data_ptr(), s, exps.data_ptr(), coeffs.data_ptr(),
-        coeffs.shape[1], cond.data_ptr(), lensc.data_ptr(),
-        CHARTS.index(lens.outer_chart), int(iterations), params.data_ptr(),
-        spheres.data_ptr(), spheres.shape[0], lin.data_ptr(), ok.data_ptr(),
-        _stream(dev))
-    _build.check(err, "po_splat")
-    _build.LAUNCHES["po_splat"] += 1
+        sky.data_ptr(), s, int(bias), float(expo), float(circle_to_square),
+        params.data_ptr(), spheres.data_ptr(), spheres.shape[0],
+        lin.data_ptr(), ok.data_ptr(), _stream(dev))
+    _build.check(err, "tl_splat")
+    _build.LAUNCHES["tl_splat"] += 1
     return lin, ok

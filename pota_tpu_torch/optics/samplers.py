@@ -17,7 +17,9 @@ def bias(value, b):
     return torch.pow(value, torch.log(b) / torch.log(_f32(0.5, value)))
 
 
-def _concentric_polar(r1, r2):
+def concentric_polar(r1, r2):
+    """Shirley's concentric map in polar form: (radius, angle) and the
+    square point (a, b) of the two uniforms."""
     a = 2.0 * r1 - 1.0
     b2 = 2.0 * r2 - 1.0
     use_a = (a * a) > (b2 * b2)
@@ -34,7 +36,7 @@ def _concentric_polar(r1, r2):
 
 def concentric_disk_sample(r1, r2):
     """Shirley concentric square -> disk map (ref src/lens.h:309-333)."""
-    r, phi, a, b2 = _concentric_polar(r1, r2)
+    r, phi, a, b2 = concentric_polar(r1, r2)
     both_zero = (a == 0.0) & (b2 == 0.0)
     x = torch.where(both_zero, 0.0, r * torch.cos(phi))
     y = torch.where(both_zero, 0.0, r * torch.sin(phi))
@@ -44,7 +46,7 @@ def concentric_disk_sample(r1, r2):
 def concentric_disk_sample_aberrated(r1, r2, abb_spherical, circle_to_square):
     """Concentric disk sample with spherical-aberration bias and squircle
     lerp (ref src/lens.h:477-514)."""
-    r, phi, a, b2 = _concentric_polar(r1, r2)
+    r, phi, a, b2 = concentric_polar(r1, r2)
     if abb_spherical != 0.5:
         r = bias(torch.abs(r), abb_spherical) * torch.sign(r)
     x = r * torch.cos(phi)

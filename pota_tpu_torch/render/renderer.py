@@ -1,9 +1,9 @@
 """End-to-end render pipeline: camera rays -> shading -> splat -> resolve
 (port of :mod:`pota_tpu.render.renderer`).
 
-The device is the scene's: every tensor of a render is made there.  The
-port runs the polynomial-optics camera only; configurations it does not
-handle yet raise ``NotImplementedError`` (see :func:`check_supported`).
+The device is the scene's: every tensor of a render is made there.
+Configurations the port does not handle yet raise ``NotImplementedError``
+(see :func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -12,33 +12,46 @@ import torch
 
 from pota_tpu.config import CameraConfig, CameraType, RenderConfig
 
+from ..optics import thinlens
 from . import sampling
 
 
 def check_supported(cfg: CameraConfig, rc: RenderConfig, aovs=None,
-                    cam_to_world_end=None, differentiable: bool = False):
+                    cam_to_world_end=None, differentiable: bool = False,
+                    splat: bool = True):
     """Raise ``NotImplementedError`` for configurations the port does not
-    run yet, so nothing silently takes another path."""
+    run yet, so nothing silently takes another path.  Each message names
+    the ROADMAP item that will port it.  ``splat`` says whether the frame
+    runs the bidirectional splat."""
     from .aov import DEFAULT_AOVS, GAUSSIAN
 
     reasons = []
-    if cfg.camera_type != CameraType.POLYNOMIAL_OPTICS:
-        reasons.append("the thin-lens camera")
-    if cfg.abb_chromatic > 0.0:
-        reasons.append("chromatic PO splats (abb_chromatic > 0)")
-    if cfg.bokeh_enable_image:
-        reasons.append("image bokeh")
-    if cfg.aperture_blades > 2:
-        reasons.append("blade apertures (aperture_blades > 2)")
+    if cfg.camera_type == CameraType.THIN_LENS and splat:
+        # JAX's expanded thin-lens branch (splat.py:686-693); the rest
+        # takes its decomposed branch
+        for on, what in (
+                (cfg.abb_coma != 0.0, "coma (abb_coma != 0)"),
+                (cfg.abb_chromatic != 0.0, "chromatic (abb_chromatic != 0)"),
+                (cfg.optical_vignetting_distance != 0.0,
+                 "optical vignetting (optical_vignetting_distance != 0)"),
+                (cfg.abb_distortion != 0.0,
+                 "distortion (abb_distortion != 0)"),
+                (cfg.bokeh_enable_image, "image bokeh"),
+                (cfg.aperture_blades >= 2, "blade apertures "
+                 "(aperture_blades >= 2)")):
+            if on:
+                reasons.append(f"the thin-lens splat with {what}, "
+                               "ROADMAP Q1.9")
     if cam_to_world_end is not None:
-        reasons.append("motion blur")
+        reasons.append("motion blur, ROADMAP Q1.9")
     if rc.enable_id_matte:
-        reasons.append("the id-matte")
+        reasons.append("the id-matte, ROADMAP Q1.10")
     gauss = [s.name for s in (aovs or DEFAULT_AOVS) if s.filter == GAUSSIAN]
     if gauss != ["RGBA"]:
-        reasons.append(f"gaussian AOVs other than ['RGBA'] (got {gauss})")
+        reasons.append(f"gaussian AOVs other than ['RGBA'] (got {gauss}), "
+                       "ROADMAP Q1.9")
     if differentiable:
-        reasons.append("differentiable=True")
+        reasons.append("differentiable=True, ROADMAP Q1.8")
     if reasons:
         raise NotImplementedError(
             "not ported to pota_tpu_torch yet: " + "; ".join(reasons))
@@ -56,29 +69,33 @@ def _transform_rays(cam_to_world, origins, dirs):
 
 
 def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
-                      po_state=None, ops=None):
-    """Camera-space rays for a sample stream (PO camera)."""
-    if cfg.camera_type != CameraType.POLYNOMIAL_OPTICS:
-        raise NotImplementedError(
-            "the thin-lens camera is not ported to pota_tpu_torch yet")
-    if po_lens is None or po_state is None:
-        raise ValueError("the polynomial camera needs po_lens and po_state")
-    from ..models.po_camera import trace_fw_po
+                      po_state=None, ops=None, bokeh_cdf=None):
+    """Camera-space rays for a sample stream, by camera model."""
+    if cfg.camera_type == CameraType.THIN_LENS:
+        origin, direction, weight, _tries = thinlens.trace_fw_thinlens(
+            cfg, samples["sx"], samples["sy"], samples["r1"], samples["r2"],
+            retry_key=samples["key"], bokeh_cdf=bokeh_cdf)
+    else:
+        if po_lens is None or po_state is None:
+            raise ValueError(
+                "the polynomial camera needs po_lens and po_state")
+        from ..models.po_camera import trace_fw_po
 
-    origin, direction, weight, _tries = trace_fw_po(
-        cfg, po_lens, samples["sx"], samples["sy"], samples["r1"],
-        samples["r2"], samples["key"], po_state, ops=ops,
-    )
+        origin, direction, weight, _tries = trace_fw_po(
+            cfg, po_lens, samples["sx"], samples["sy"], samples["r1"],
+            samples["r2"], samples["key"], po_state, ops=ops,
+            bokeh_cdf=bokeh_cdf)
     return origin, direction, weight * cfg.exposure
 
 
 def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
                          cam_to_world, seed: int = 0, po_lens=None,
-                         po_state=None, ops=None) -> dict:
+                         po_state=None, ops=None, bokeh_cdf=None) -> dict:
     """Trace + shade the whole frame; returns the per-sample AOV stream."""
     samples = sampling.frame_samples(rc, seed, device=scene.device)
     origin_cs, dir_cs, weight = trace_camera_rays(
-        cfg, samples, po_lens=po_lens, po_state=po_state, ops=ops)
+        cfg, samples, po_lens=po_lens, po_state=po_state, ops=ops,
+        bokeh_cdf=bokeh_cdf)
     origin_ws, dir_ws = _transform_rays(cam_to_world, origin_cs, dir_cs)
     shaded = scene.shade(origin_ws, dir_ws)
     return {
@@ -134,25 +151,26 @@ def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
     """Full pipeline: forward trace + bidirectional redistribution +
     resolve.  Returns (resolved RGBA image [H, W, 4], framebuffer dict).
 
-    ``ops`` is the kernel set the path calls (default
+    ``bokeh_cdf`` is the image bokeh's
+    :class:`~pota_tpu_torch.render.bokeh_image.BokehImage`, on the scene's
+    device.  ``ops`` is the kernel set the path calls (default
     :data:`pota_tpu_torch.ops.KERNELS`; :data:`~pota_tpu_torch.ops.PLAIN`
     runs the plain versions, for parity checks on the card)."""
     from .splat import resolve_imager, splat_frame
 
-    if bokeh_cdf is not None:
-        raise NotImplementedError(
-            "image bokeh is not ported to pota_tpu_torch yet")
     check_supported(cfg, rc, cam_to_world_end=cam_to_world_end,
-                    differentiable=differentiable)
+                    differentiable=differentiable,
+                    splat=rc.enable_redistribution)
     cam_to_world = cam_to_world.to(scene.device, torch.float32)
     with torch.no_grad():
         stream = render_sample_stream(cfg, rc, scene, cam_to_world, seed,
                                       po_lens=po_lens, po_state=po_state,
-                                      ops=ops)
+                                      ops=ops, bokeh_cdf=bokeh_cdf)
         if not rc.enable_redistribution:
             return resolve_gaussian(rc, stream), {}
         fb = splat_frame(cfg, rc, scene, stream, cam_to_world,
-                         po_lens=po_lens, po_state=po_state, ops=ops)
+                         po_lens=po_lens, po_state=po_state,
+                         bokeh_cdf=bokeh_cdf, ops=ops)
         return resolve_imager(rc, fb), fb
 
 

@@ -6,7 +6,7 @@ becomes a flat splat queue: the gate chain picks the samples that
 redistribute, each claims a contiguous range of ``budget`` slots in a queue
 of ``splat_queue_mult * N`` slots, and the slots run through four kernels:
 
-  compact source table --K2 expand--> slot rows --K3 PO splat--> (pixel, ok)
+  compact source table --K2 expand--> slot rows --K3 / K5 splat--> (pixel, ok)
   -> success counts and weights -> stable (pixel, depth) sort
   --K4 segment accumulate--> per-pixel sums + closest winner
 
@@ -21,10 +21,12 @@ import torch
 
 from pota_tpu.config import CameraConfig, CameraType, RenderConfig
 
-from ..optics import thinlens
+from ..optics import samplers, thinlens
 from ..ops import po_kernels as pk
 from ..ops.splat_accum import accumulate_sorted
+from ..utils import rng as prng
 from .aov import CLOSEST, DEFAULT_AOVS, GAUSSIAN, aov_value_rgba
+from .bokeh_image import bokeh_sample_alias
 from .renderer import check_supported
 
 
@@ -153,16 +155,23 @@ def _source_table(stream, p_cam_safe, p_ws, sky, slot_vals, depth, starts,
 
 def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
                 cam_to_world, po_lens=None, po_state=None, aovs=None,
-                with_diagnostics: bool = False, ops=None):
+                bokeh_cdf=None, with_diagnostics: bool = False, ops=None):
     """Full filter stage: gates + backward splats + buffer accumulation.
 
     Returns the framebuffer dict consumed by :func:`resolve_imager` /
     :func:`resolve_aovs`: one [H, W, 4] buffer per AOV, the [H, W]
     ``filter_weight`` plane and ``zmin``; with ``with_diagnostics`` also the
-    valid-splat and issued-slot counts.  ``ops`` picks the kernel set
-    (default :data:`pota_tpu_torch.ops.KERNELS`).  Image bokeh, the
+    valid-splat and issued-slot counts.  ``bokeh_cdf`` is the image bokeh's
+    :class:`~pota_tpu_torch.render.bokeh_image.BokehImage`.  ``ops`` picks
+    the kernel set (default :data:`pota_tpu_torch.ops.KERNELS`).  The
     id-matte, motion blur and the differentiable mode are not ported: this
-    function takes none of their arguments."""
+    function takes none of their arguments.
+
+    The splat kernel is the one JAX's expanded branch picks: K5 for the
+    thin lens; for the PO lens K3 with an external aperture (image bokeh,
+    blades), else K3 with a wavelength per slot (chromatic), else the
+    flagship K3.  A chromatic PO frame gives each budget unit three slots,
+    one per wavelength (ref src/lentil_filter.cpp:255-267)."""
     if ops is None:
         from ..ops import KERNELS as ops
     if aovs is None:
@@ -173,6 +182,11 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
     dev = stream["rgba"].device
     dtype = stream["rgba"].dtype
     s_cap = cfg.splat_queue_mult * n
+    thin = cfg.camera_type == CameraType.THIN_LENS
+    chroma = not thin and cfg.abb_chromatic > 0.0
+    use_bokeh = cfg.bokeh_enable_image and bokeh_cdf is not None
+    ext_aperture = not thin and (use_bokeh or cfg.aperture_blades > 2)
+    rays_per_count = 3 if chroma else 1
     inv_density = 1.0 / rc.spp
     unit = cfg.unit_scale_filter
 
@@ -210,7 +224,8 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
         torch.tensor([0.0, 0.0, -100.0], dtype=p_cam.dtype, device=dev))
 
     # ---- queue, source table, expand (K2) ------------------------------
-    src, slot_on, granted = splat_queue_compact(budget, redistribute, s_cap)
+    src, slot_on, granted = splat_queue_compact(budget, redistribute, s_cap,
+                                                rays_per_count)
     depth_src = torch.abs(stream["z"])
     slot_vals = stream["rgba"] + add_energy[:, None] * torch.tensor(
         [1.0, 1.0, 1.0, 0.0], dtype=dtype, device=dev)
@@ -221,20 +236,58 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
                                      granted > 0)
     ex_f, ex_i = ops.expand(src.to(torch.int32), table_f, table_i)
 
-    # ---- per-slot seed / counter, then the PO splat kernel (K3) ---------
+    # ---- per-slot seed / counter, then the splat kernel (K3 / K5) --------
     q = torch.arange(s_cap, dtype=torch.int64, device=dev)
     lane = torch.clamp(q - ex_i[pk.TI_START], min=0)
+    if chroma:
+        # the expanded branch's lane % 3 channel, kept after a queue
+        # rescale (splat.py:767-777; ROADMAP Queue 3, chroma channel tint)
+        ctr = lane // 3
+        channel = lane - 3 * ctr
+        ca = cfg.abb_chromatic
+        lam_tab = torch.tensor([0.35 + (1.0 - ca) * 0.2, 0.55, 0.55 + ca * 0.3],
+                               dtype=dtype, device=dev)
+        lam_q = lam_tab[channel]
+    else:
+        ctr = lane
     px_q = ex_i[pk.TI_PX].to(torch.int64)
-    seed = ((px_q * ex_i[pk.TI_PY] + px_q) & 0xFFFFFFFF).to(torch.int32)
-    params = pk.splat_kernel_params(cfg, rc, po_state, cam_to_world)
+    seed = (px_q * ex_i[pk.TI_PY] + px_q) & 0xFFFFFFFF
+    params = pk.splat_kernel_params(cfg, rc, None if thin else po_state,
+                                    cam_to_world)
     spheres = torch.cat([scene.centers, scene.radii[:, None]], -1).to(
         torch.float32).contiguous()
-    lin_splat, ok = ops.po_splat(
-        po_lens, ex_f[pk.TF_PCX], ex_f[pk.TF_PCY], ex_f[pk.TF_PCZ],
-        ex_f[pk.TF_PWX], ex_f[pk.TF_PWY], ex_f[pk.TF_PWZ], seed,
-        lane.to(torch.int32), ex_f[pk.TF_SKY], params, spheres,
-        cfg.lt_newton_iterations,
-    )
+    slot_geo = (ex_f[pk.TF_PCX], ex_f[pk.TF_PCY], ex_f[pk.TF_PCZ],
+                ex_f[pk.TF_PWX], ex_f[pk.TF_PWY], ex_f[pk.TF_PWZ])
+    sky_q = ex_f[pk.TF_SKY]
+    seed_i, ctr_i = seed.to(torch.int32), ctr.to(torch.int32)
+    iters = cfg.lt_newton_iterations
+    if thin:
+        lin_splat, ok = ops.tl_splat(
+            *slot_geo, seed_i, ctr_i, sky_q, params, spheres,
+            cfg.effective_abb_spherical, cfg.effective_circle_to_square)
+    elif ext_aperture:
+        # image bokeh (alias sampler) or the blade fan, from the stream's
+        # first two uniforms (splat.py:795-813)
+        u = prng.uniforms(seed, ctr, 2)
+        if use_bokeh:
+            unit_disk = bokeh_sample_alias(bokeh_cdf, u[..., 0], u[..., 1])
+        else:
+            unit_disk = samplers.triangular_aperture_sample(
+                u[..., 0], u[..., 1], 1.0, cfg.aperture_blades)
+        aperture = unit_disk * po_state.aperture_radius
+        if not chroma:
+            lam_q = torch.full((s_cap,), cfg.lambda_um, dtype=dtype,
+                               device=dev)
+        lin_splat, ok = ops.po_splat_ext(
+            po_lens, *slot_geo, aperture[:, 0].contiguous(),
+            aperture[:, 1].contiguous(), lam_q, sky_q, params, spheres, iters)
+    elif chroma:
+        lin_splat, ok = ops.po_splat_lam(
+            po_lens, *slot_geo, seed_i, ctr_i, lam_q, sky_q, params, spheres,
+            iters)
+    else:
+        lin_splat, ok = ops.po_splat(po_lens, *slot_geo, seed_i, ctr_i,
+                                     sky_q, params, spheres, iters)
     valid = slot_on & ok
     oid = ex_i[pk.TI_SID].to(torch.int64)
 
@@ -271,10 +324,16 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
     }
     gauss = [s for s in aovs if s.filter == GAUSSIAN][0]
     values = aov_value_rgba(stream, gauss)
+    k_rgb = [ex_f[pk.TF_R], ex_f[pk.TF_G], ex_f[pk.TF_B]]
+    if chroma:
+        # channel weights (3,0,0) / (0,3,0) / (0,0,3) folded into the
+        # payload (ref src/lentil_filter.cpp:255-267)
+        k_rgb = [k * 3.0 * (channel == c).to(dtype)
+                 for c, k in enumerate(k_rgb)]
     payload = torch.stack([
-        torch.cat([ex_f[pk.TF_R] * w_slot, values[:, 0] * w_src]),
-        torch.cat([ex_f[pk.TF_G] * w_slot, values[:, 1] * w_src]),
-        torch.cat([ex_f[pk.TF_B] * w_slot, values[:, 2] * w_src]),
+        torch.cat([k_rgb[0] * w_slot, values[:, 0] * w_src]),
+        torch.cat([k_rgb[1] * w_slot, values[:, 1] * w_src]),
+        torch.cat([k_rgb[2] * w_slot, values[:, 2] * w_src]),
         torch.cat([ex_f[pk.TF_A] * w_slot, values[:, 3] * w_src]),
         torch.cat([w_slot, w_src]),
     ], 1)

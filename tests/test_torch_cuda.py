@@ -103,6 +103,63 @@ def test_po_splat_kernel_matches_plain(dev, name):
     assert float((lin_g[both] == lin_p[both]).double().mean()) >= 0.999
 
 
+def _slot_inputs(rng, n, dev):
+    pc = np.stack([rng.uniform(-60, 60, n), rng.uniform(-35, 35, n),
+                   rng.uniform(-400, -60, n)], 0).astype(np.float32)
+    seed = rng.integers(0, 2 ** 31, n).astype(np.int32)
+    ctr = rng.integers(0, 200, n).astype(np.int32)
+    sky = (rng.uniform(size=n) < 0.05).astype(np.float32)
+    spheres = _t(np.array([[x, y, -150.0, 0.8] for x in (-12.0, 0.0, 12.0)
+                           for y in (-12.0, 0.0, 12.0)], np.float32), dev)
+    return pc, seed, ctr, sky, spheres
+
+
+def _assert_masks_agree(got, ref):
+    lin_g, ok_g = got
+    lin_p, ok_p = ref
+    assert 0.05 < float(ok_p.double().mean()) < 0.99
+    assert float((ok_g == ok_p).double().mean()) >= 0.999
+    both = ok_g & ok_p
+    assert float((lin_g[both] == lin_p[both]).double().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("variant", ["po_splat_lam", "po_splat_ext"])
+def test_po_splat_variant_kernel_matches_plain(dev, variant):
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    rng = np.random.default_rng(5)
+    n = 50000
+    pc, seed, ctr, sky, spheres = _slot_inputs(rng, n, dev)
+    lam = rng.choice([0.43, 0.55, 0.73], n).astype(np.float32)
+    rc = pt.RenderConfig(xres=512, yres=512, spp=2)
+    params = pk.splat_kernel_params(CFG, rc, STATE, torch.eye(4, device=dev))
+    if variant == "po_splat_ext":
+        r = STATE.aperture_radius
+        a, b = (_t(rng.uniform(-r, r, n).astype(np.float32) * 0.7, dev)
+                for _ in range(2))
+    else:
+        a, b = _t(seed, dev), _t(ctr, dev)
+    args = (lens, *(_t(x, dev) for x in pc), *(_t(x, dev) for x in pc), a, b,
+            _t(lam, dev), _t(sky, dev), params, spheres, 3)
+    got = getattr(pk, variant)(*args)
+    ref = getattr(pk, f"{variant}_plain")(*args)
+    _assert_masks_agree(got, ref)
+
+
+@pytest.mark.parametrize("abb, c2s", [(0.5, 0.01), (0.3, 0.2)])
+def test_tl_splat_kernel_matches_plain(dev, abb, c2s):
+    rng = np.random.default_rng(6)
+    n = 100000
+    pc, seed, ctr, sky, spheres = _slot_inputs(rng, n, dev)
+    cfg = pt.CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
+                          bokeh_anamorphic=0.2)
+    rc = pt.RenderConfig(xres=256, yres=256, spp=16)
+    params = pk.splat_kernel_params(cfg, rc, None, torch.eye(4, device=dev))
+    args = (*(_t(x * 0.1, dev) for x in pc), *(_t(x * 0.1, dev) for x in pc),
+            _t(seed, dev), _t(ctr, dev), _t(sky, dev), params, spheres, abb,
+            c2s)
+    _assert_masks_agree(pk.tl_splat(*args), pk.tl_splat_plain(*args))
+
+
 def test_segment_accum_kernel_matches_plain(dev):
     rng = np.random.default_rng(3)
     npix, w = 3000, 200000
@@ -129,15 +186,65 @@ def test_render_kernels_match_plain(dev):
                                intensity=40.0, device=dev)
     rc = pt.RenderConfig(xres=96, yres=64, spp=2)
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    flagship = {"po_forward": 1, "expand": 1, "po_splat": 1,
+                "segment_accum": 1, "tl_splat": 0, "po_splat_lam": 0,
+                "po_splat_ext": 0}
     ops.reset_launches()
     img_k, fb_k = render_frame(CFG, rc, scene, m, po_lens=lens,
                                po_state=STATE)
-    assert all(v == 1 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert ops.LAUNCHES == flagship, ops.LAUNCHES
     img_p, fb_p = render_frame(CFG, rc, scene, m, po_lens=lens,
                                po_state=STATE, ops=ops.PLAIN)
-    assert all(v == 1 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert ops.LAUNCHES == flagship, ops.LAUNCHES
     npix = rc.xres * rc.yres
     assert abs(float(fb_k["filter_weight"].sum()) - npix) <= 1e-4 * npix
+    scale = max(float(img_p.abs().max()), 1.0)
+    off = ((img_k - img_p).abs().amax(-1) > 2e-3 * scale).double().mean()
+    assert float(off) <= 0.02
+
+
+def _ring_cdf(dev):
+    from pota_tpu_torch.render.bokeh_image import build_bokeh_cdf
+
+    n = 32
+    yy, xx = np.mgrid[0:n, 0:n]
+    r = np.sqrt((xx - (n - 1) / 2) ** 2 + (yy - (n - 1) / 2) ** 2) / (n / 2)
+    ring = ((r > 0.5) & (r < 0.95)).astype(np.float32)
+    return build_bokeh_cdf(np.stack([ring] * 3, -1), device=dev)
+
+
+@pytest.mark.parametrize("case, kernel", [
+    ("thin_lens", "tl_splat"),
+    ("chroma", "po_splat_lam"),
+    ("bokeh_chroma", "po_splat_ext"),
+    ("blades", "po_splat_ext"),
+])
+def test_render_variant_kernels_match_plain(dev, case, kernel):
+    import dataclasses
+
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    rc = pt.RenderConfig(xres=96, yres=64, spp=2)
+    kw = {}
+    if case == "thin_lens":
+        cfg = pt.CameraConfig(focal_length=50.0, fstop=1.4,
+                              focus_distance=150.0, vignetting_retries=3,
+                              splat_queue_mult=8)
+        scene = sc.teapot_scene(device=dev)
+    else:
+        cfg = dataclasses.replace(CFG, abb_chromatic=0.6 * (case != "blades"),
+                                  bokeh_enable_image=case == "bokeh_chroma",
+                                  aperture_blades=6 * (case == "blades"))
+        scene = sc.lightgrid_scene(n=4, spacing=14.0, z=-150.0, radius=0.8,
+                                   intensity=40.0, device=dev)
+        kw = dict(po_lens=load_poly_lens(FLAGSHIP, device=dev),
+                  po_state=STATE, bokeh_cdf=_ring_cdf(dev))
+    ops.reset_launches()
+    img_k, fb_k = render_frame(cfg, rc, scene, m, **kw)
+    assert ops.LAUNCHES[kernel] == 1, ops.LAUNCHES
+    img_p, _ = render_frame(cfg, rc, scene, m, ops=ops.PLAIN, **kw)
+    npix = rc.xres * rc.yres
+    assert abs(float(fb_k["filter_weight"].sum()) - npix) <= 1e-4 * npix
+    assert bool(torch.isfinite(img_k).all())
     scale = max(float(img_p.abs().max()), 1.0)
     off = ((img_k - img_p).abs().amax(-1) > 2e-3 * scale).double().mean()
     assert float(off) <= 0.02

@@ -195,11 +195,15 @@ def test_energy_conservation(renders):
     assert int((got["raw"]["filter_weight"] > 0).sum()) > npix // 2
 
 
+# the thin-lens splat with these settings takes JAX's decomposed branch,
+# which is not ported (ROADMAP Q1.9); on the PO lens they now run
 @pytest.mark.parametrize("change, match", [
-    ({"camera_type": pt.CameraType.THIN_LENS}, "thin-lens"),
-    ({"abb_chromatic": 0.5}, "chromatic"),
-    ({"bokeh_enable_image": True}, "image bokeh"),
-    ({"aperture_blades": 5}, "blade"),
+    ({"camera_type": pt.CameraType.THIN_LENS, "abb_coma": 0.5}, "thin-lens"),
+    ({"camera_type": pt.CameraType.THIN_LENS, "abb_chromatic": 0.5},
+     "chromatic"),
+    ({"camera_type": pt.CameraType.THIN_LENS, "bokeh_enable_image": True},
+     "image bokeh"),
+    ({"camera_type": pt.CameraType.THIN_LENS, "aperture_blades": 5}, "blade"),
 ])
 def test_unported_configs_raise(port_po, change, match):
     import dataclasses
