@@ -9,20 +9,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   3. kernels   captures each kernel's arguments from a full-width frame of
                its own path (K1-K4 the flagship, K5 config 1, K3's
                per-slot-wavelength variant config 3 with image bokeh off,
-               K3's external-aperture variant config 3), then runs kernel
-               and plain PyTorch version on those inputs, asserts the
-               tolerances and times both (CUDA events, median of 5 after a
-               warm-up)
+               K3's external-aperture variant config 3, K6 the flagship
+               with camera motion blur), then runs kernel and plain
+               PyTorch version on those inputs, asserts the tolerances and
+               times both (CUDA events, median after a warm-up; the plain
+               K1 and K3 three times, everything else five)
   4. parity    renders small frames twice, through the kernels and through
                the plain versions on CUDA tensors, and compares: the
                flagship at 256x256 @ 1 spp, config 1 at 64x64 @ 4 spp,
-               config 3 at 128x128 @ 2 spp
+               config 3 at 128x128 @ 2 spp, the motion-blurred flagship at
+               256x256 @ 1 spp with an extra gaussian AOV, and the two
+               thin-lens golden configurations (tests/golden_configs.py:
+               83-100) at 128x128 @ 4 spp
   5. flagship  the full 1920x1080 @ 1 spp bidirectional render (BASELINE
                config 4): launch counts, finite planes, valid splats, energy
-  6. configs   BASELINE config 1 (thin-lens teapot, 256x256 @ 16 spp),
+  6. flagship_mb  the same frame with the camera trucked 2 units across the
+               shutter (motion blur: JAX's decomposed branch, with K6)
+  7. configs   BASELINE config 1 (thin-lens teapot, 256x256 @ 16 spp),
                config 3 with image bokeh off (its chromatic PO path) and
                config 3 (chromatic image-bokeh lightgrid, 512x512 @ 2 spp):
                launch counts, finite planes, energy, frame ms, AA samples/s
+Each kernel record carries ``bound_ms``, the least time the card could take
+for the same work: the larger of the bytes the kernel must move (each input
+read once, each output written once) over 3.35 TB/s and its f32 operations
+over 67 TFLOP/s (an FMA is two; the integer TEA-8 draws are not counted),
+counted from the kernel's code and this run's shapes and exponent table
+(:func:`solve_flops`, :func:`forward_flops`).  ``library_ms`` is the time of
+one PyTorch call computing the same function, where one exists (K2:
+``index_select`` over both tables), else null.
 The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -43,9 +57,12 @@ PIXEL_TOL, MAX_PIXELS_OFF = 2e-3, 0.02
 ENERGY_TOL = 1e-4
 MASK_AGREE = 0.999
 TPU_KERNELS = "pota_tpu/ops/po_pallas.py"
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # the kernels each path must launch, and those it must not
 PATH_KERNELS = {
     "flagship": ("po_forward", "expand", "po_splat", "segment_accum"),
+    "flagship_mb": ("po_forward", "expand", "po_backward", "segment_accum"),
     "config1": ("expand", "tl_splat", "segment_accum"),
     "config3_no_bokeh": ("po_forward", "expand", "po_splat_lam",
                          "segment_accum"),
@@ -68,6 +85,36 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for the work, and what sets it."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations")
+
+
+def solve_flops(exps, iterations: int) -> float:
+    """f32 operations of one PO backward solve (``csrc/po_solve.cuh``) for
+    the exponent table ``exps`` [T, 5]: per Newton iteration and term the
+    powers and their derivatives, the monomial, four tangents and six
+    output rows of five FMAs; about 400 for the chart, residual and 4x4
+    solve; then the final three-row evaluation."""
+    e = exps.to("cpu").numpy().astype(np.int64)
+    per_term = (np.maximum(e[:, :4] - 1, 0).sum(1) + 8 + e[:, 4] + 18 + 60)
+    final = e.sum(1) + 10
+    return float(iterations * (per_term.sum() + 400) + final.sum())
+
+
+def forward_flops(ap_exps, pt_exps, iterations: int) -> float:
+    """f32 operations of one K1 ray (``csrc/po_forward.cu``): per 2x2
+    Newton iteration and aperture term the powers, the monomial, two
+    tangents and six FMAs; then the five-row pt evaluation."""
+    a = ap_exps.to("cpu").numpy().astype(np.int64)
+    p = pt_exps.to("cpu").numpy().astype(np.int64)
+    return float(iterations * ((a.sum(1) + 24).sum() + 20)
+                 + (p.sum(1) + 14).sum() + 30)
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -139,16 +186,17 @@ class Recorder:
         return call
 
 
-def ring_pixels(n: int = 32) -> np.ndarray:
+def ring_pixels(n: int = 32, lo: float = 0.5) -> np.ndarray:
     """The procedural 32x32 ring aperture config 3 falls back to
-    (bench.py:145-151)."""
+    (bench.py:145-151); the golden configs' ring starts at 0.55."""
     yy, xx = np.mgrid[0:n, 0:n]
     r = np.sqrt((xx - (n - 1) / 2) ** 2 + (yy - (n - 1) / 2) ** 2) / (n / 2)
-    ring = ((r > 0.5) & (r < 0.95)).astype(np.float32)
+    ring = ((r > lo) & (r < 0.95)).astype(np.float32)
     return np.stack([ring] * 3, -1)
 
 
-def check_splat_kernel(name, kern, plain, args, items, source, replaces):
+def check_splat_kernel(name, kern, plain, args, items, source, replaces,
+                       bytes_per_slot, flops_per_slot, plain_reps=5):
     """Hold a splat kernel (K3, its variants, K5) to its plain version on
     captured main-path arguments; return its record."""
     lin_g, ok_g = kern(*args)
@@ -166,8 +214,11 @@ def check_splat_kernel(name, kern, plain, args, items, source, replaces):
     del lin_g, ok_g, lin_p, ok_p, both
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=median_ms(lambda: kern(*args)),
-                plain_ms=median_ms(lambda: plain_chunked(plain, args, items)),
-                n=int(s), ok_agree=ok_agree, lin_agree=lin_agree)
+                plain_ms=median_ms(lambda: plain_chunked(plain, args, items),
+                                   plain_reps),
+                **bound(bytes_per_slot * s, flops_per_slot * s),
+                library_ms=None, n=int(s), ok_agree=ok_agree,
+                lin_agree=lin_agree)
 
 
 def main() -> int:
@@ -192,6 +243,7 @@ def main() -> int:
     from pota_tpu_torch.optics.fit import load_poly_lens
     from pota_tpu_torch.optics.focus import setup_po_camera
     from pota_tpu_torch.render import scene as sc
+    from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
     from pota_tpu_torch.render.bokeh_image import build_bokeh_cdf
     from pota_tpu_torch.render.renderer import (
         look_at, render_frame, render_sample_stream)
@@ -227,11 +279,14 @@ def main() -> int:
     scene = sc.lightgrid_scene(n=5, spacing=12.0, z=-150.0, radius=0.8,
                                intensity=40.0, device=dev)
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    # flagship_mb: the camera trucks 2 units across the shutter
+    m_end = look_at([2.0, 0, 0], [2.0, 0, -1], device=dev)
     t0 = time.perf_counter()
     state = setup_po_camera(lens, cfg)
     print(f"setup_po_camera {state} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     rc_full = pt.RenderConfig(xres=1920, yres=1080, spp=1)
+    po = dict(po_lens=lens, po_state=state)
 
     # BASELINE config 1 (bench.py:58-83): thin-lens teapot
     cfg1 = pt.CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
@@ -259,8 +314,10 @@ def main() -> int:
         return rec_.args
 
     phase("kernels vs plain versions (main-path inputs)")
-    rec = capture(cfg, rc_full, scene, po_lens=lens, po_state=state)
+    rec = capture(cfg, rc_full, scene, **po)
     records = []
+    n_sph = scene.n_objects
+    splat_extra = 60 + 20 * n_sph        # pixel map, lens point, occlusion
 
     with torch.no_grad():
         # K1: PO forward, M = N * K rays
@@ -272,22 +329,25 @@ def main() -> int:
         both = ok_g & ok_p
         err1 = max(float((g[both] - r[both]).abs().max())
                    for g, r in zip(got, ref))
-        print(f"K1 po_forward M={a1[1].shape[0]} trans>0 agree={agree:.6f} "
+        n1 = int(a1[1].shape[0])
+        print(f"K1 po_forward M={n1} trans>0 agree={agree:.6f} "
               f"max_abs_err(valid rays)={err1:.3e} mm", flush=True)
         if agree < MASK_AGREE or err1 > 1e-3:
             fail("K1 po_forward disagrees with its plain version")
         ms = median_ms(lambda: pk.po_forward(*a1))
         plain_ms = median_ms(
-            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 6)))
+            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 6)), 3)
         records.append(dict(
             name="po_forward", route="cuda",
             source="pota_tpu_torch/csrc/po_forward.cu",
             replaces=f"{TPU_KERNELS}:83", max_abs_err=err1,
-            ms=ms, plain_ms=plain_ms, n=int(a1[1].shape[0]),
-            mask_agree=agree))
+            ms=ms, plain_ms=plain_ms,
+            **bound(48.0 * n1, n1 * forward_flops(
+                lens.ap.exponents, lens.pt.exponents, a1[7])),
+            library_ms=None, n=n1, mask_agree=agree))
         del got, ref, ok_g, ok_p, both
 
-        # K2: expand, S slots
+        # K2: expand, S slots; the library yardstick is index_select
         a2 = rec["expand"]
         got = pk.expand(*a2)
         ref = pk.expand_plain(*a2)
@@ -296,20 +356,30 @@ def main() -> int:
         print(f"K2 expand S={a2[0].shape[0]} max_abs_err={err2}", flush=True)
         if err2 != 0:
             fail("K2 expand disagrees with its plain version")
+        s2, n2 = a2[0].shape[0], a2[1].shape[1]
+        rows = a2[1].shape[0] + a2[2].shape[0]
+
+        def index_select():
+            return a2[1].index_select(1, a2[0]), a2[2].index_select(1, a2[0])
+
         records.append(dict(
             name="expand", route="cuda",
             source="pota_tpu_torch/csrc/expand.cu",
             replaces=f"{TPU_KERNELS}:877", max_abs_err=err2,
             ms=median_ms(lambda: pk.expand(*a2)),
             plain_ms=median_ms(lambda: pk.expand_plain(*a2)),
-            n=int(a2[0].shape[0])))
+            **bound(4.0 * (s2 + rows * (s2 + n2)), 0.0),
+            library_ms=median_ms(index_select), n=int(s2)))
         del got, ref
 
         # K3: PO splat, S slots
+        a3 = rec["po_splat"]
         records.append(check_splat_kernel(
-            "po_splat", pk.po_splat, pk.po_splat_plain, rec["po_splat"],
-            slice(1, 10), "pota_tpu_torch/csrc/po_splat.cu",
-            f"{TPU_KERNELS}:697"))
+            "po_splat", pk.po_splat, pk.po_splat_plain, a3, slice(1, 10),
+            "pota_tpu_torch/csrc/po_splat.cu", f"{TPU_KERNELS}:697", 41.0,
+            solve_flops(lens.pt.exponents, a3[12]) + splat_extra + 20,
+            plain_reps=3))
+        del a3
 
         # K4: segment accumulate, W writers
         a4 = rec["segment_accum"]
@@ -324,13 +394,16 @@ def main() -> int:
               f"(scale {scale:.3e}) winners identical={same_win}", flush=True)
         if err4 > 1e-4 * scale or not same_win:
             fail("K4 segment_accum disagrees with its plain version")
+        w4, k4, npix4 = a4[0].shape[0], a4[2].shape[1], a4[4]
         records.append(dict(
             name="segment_accum", route="cuda",
             source="pota_tpu_torch/csrc/segment_accum.cu",
             replaces="pota_tpu/ops/splat_accum.py:59", max_abs_err=err4,
             ms=median_ms(lambda: splat_accum.segment_accum(*a4)),
             plain_ms=median_ms(lambda: splat_accum.segment_accum_plain(*a4)),
-            n=int(a4[0].shape[0])))
+            **bound(w4 * (20.0 + 4.0 * k4) + npix4 * (4.0 * k4 + 9.0),
+                    float(w4 * k4)),
+            library_ms=None, n=int(w4)))
         del got, ref, rec, a1, a2, a4
         torch.cuda.empty_cache()
 
@@ -338,33 +411,76 @@ def main() -> int:
         a5 = capture(cfg1, rc1, scene1)["tl_splat"]
         records.append(check_splat_kernel(
             "tl_splat", pk.tl_splat, pk.tl_splat_plain, a5, slice(0, 9),
-            "pota_tpu_torch/csrc/tl_splat.cu", f"{TPU_KERNELS}:958"))
+            "pota_tpu_torch/csrc/tl_splat.cu", f"{TPU_KERNELS}:958", 41.0,
+            85.0 + 20 * scene1.n_objects))
         del a5
         # K3 variants: config 3 with image bokeh off, and config 3
         a3l = capture(cfg3_nb, rc3, scene3, **po3)["po_splat_lam"]
+        extra3 = 60 + 20 * scene3.n_objects
         records.append(check_splat_kernel(
             "po_splat_lam", pk.po_splat_lam, pk.po_splat_lam_plain, a3l,
             slice(1, 11), "pota_tpu_torch/csrc/po_splat.cu",
-            f"{TPU_KERNELS}:697"))
+            f"{TPU_KERNELS}:697", 45.0,
+            solve_flops(lens.pt.exponents, a3l[13]) + extra3 + 20))
         del a3l
         a3e = capture(cfg3, rc3, scene3, bokeh_cdf=cdf3, **po3)["po_splat_ext"]
         records.append(check_splat_kernel(
             "po_splat_ext", pk.po_splat_ext, pk.po_splat_ext_plain, a3e,
             slice(1, 11), "pota_tpu_torch/csrc/po_splat.cu",
-            f"{TPU_KERNELS}:697"))
+            f"{TPU_KERNELS}:697", 45.0,
+            solve_flops(lens.pt.exponents, a3e[13]) + extra3))
         del a3e
+        torch.cuda.empty_cache()
+
+        # K6: PO backward solve, the motion-blurred flagship's S slots
+        a6 = capture(cfg, rc_full, scene, cam_to_world_end=m_end,
+                     **po)["po_backward"]
+        got = pk.po_backward(*a6)
+        ref = plain_chunked(pk.po_backward_plain, a6, slice(1, 7))
+        keep_g, keep_p = got[4] > 0, ref[4] > 0
+        agree6 = float((keep_g == keep_p).double().mean())
+        both = keep_g & keep_p
+        errs = [float((g[both] - r[both]).abs().max())
+                for g, r in zip(got, ref)]
+        far = float(((got[0][both] - ref[0][both]).abs()
+                     .maximum((got[1][both] - ref[1][both]).abs()) > 1e-3)
+                    .double().mean())
+        s6 = int(a6[1].shape[0])
+        print(f"K6 po_backward S={s6} trans>0 agree={agree6:.6f} "
+              f"max_abs_err(sx, sy, sdx, sdy) on items both keep (mm) "
+              f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} {errs[3]:.3e}, "
+              f"trans {errs[4]:.3e}; share of items > 1e-3 mm apart "
+              f"{far:.6f} (trans>0 rate {float(keep_g.double().mean()):.4f})",
+              flush=True)
+        if agree6 < MASK_AGREE or far > 1.0 - MASK_AGREE:
+            fail("K6 po_backward disagrees with its plain version")
+        del got, ref, keep_g, keep_p, both
+        records.append(dict(
+            name="po_backward", route="cuda",
+            source="pota_tpu_torch/csrc/po_backward.cu",
+            replaces=f"{TPU_KERNELS}:419", max_abs_err=max(errs[:2]),
+            ms=median_ms(lambda: pk.po_backward(*a6)),
+            plain_ms=median_ms(lambda: plain_chunked(
+                pk.po_backward_plain, a6, slice(1, 7))),
+            **bound(44.0 * s6, s6 * solve_flops(lens.pt.exponents, a6[7])),
+            library_ms=None, n=s6, mask_agree=agree6, share_far=far))
+        del a6
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms {tag}", flush=True)
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}), library {r['library_ms']} ms {tag}",
+              flush=True)
     torch.cuda.empty_cache()
 
-    def parity(label, cfg_, rc_, scene_, **kw):
+    def parity(label, cfg_, rc_, scene_, aovs=None, **kw):
         phase(f"parity {label}: kernels vs plain versions")
         with torch.no_grad():
-            _, fb_k = render_frame(cfg_, rc_, scene_, m, seed=0, **kw)
-            _, fb_p = render_frame(cfg_, rc_, scene_, m, seed=0,
+            _, fb_k = render_frame(cfg_, rc_, scene_, m, seed=0, aovs=aovs,
+                                   **kw)
+            _, fb_p = render_frame(cfg_, rc_, scene_, m, seed=0, aovs=aovs,
                                    ops=ops.PLAIN, **kw)
-        aov_k, aov_p = resolve_aovs(rc_, fb_k), resolve_aovs(rc_, fb_p)
+        aov_k = resolve_aovs(rc_, fb_k, aovs)
+        aov_p = resolve_aovs(rc_, fb_p, aovs)
         for k in aov_p:
             off = frac_pixels_off(aov_k[k], aov_p[k])
             print(f"  {k}: pixels off {off:.5f}", flush=True)
@@ -378,12 +494,35 @@ def main() -> int:
             if abs(e_k - e_p) > 2e-3 * abs(e_p):
                 fail(f"{label} parity: energy {k}")
 
-    parity("flagship 256x256 @ 1 spp", cfg, pt.RenderConfig(
-        xres=256, yres=256, spp=1), scene, po_lens=lens, po_state=state)
+    def emitter(x):
+        """tests/golden_configs.py::_emitter, one bright sphere."""
+        return sc.sphere_scene_from_numpy(
+            centers=[[x, 0.0, -45.0]], radii=[1.0],
+            emission=np.full((1, 3), 40.0), albedo=np.zeros((1, 3)),
+            sky_color=np.zeros(3), light_dir=[0.0, 1.0, 0.0],
+            light_color=np.zeros(3), device=dev)
+
+    rc256 = pt.RenderConfig(xres=256, yres=256, spp=1)
+    parity("flagship 256x256 @ 1 spp", cfg, rc256, scene, **po)
     parity("config 1 64x64 @ 4 spp", cfg1, pt.RenderConfig(
         xres=64, yres=64, spp=4), scene1)
     parity("config 3 128x128 @ 2 spp", cfg3, pt.RenderConfig(
         xres=128, yres=128, spp=2), scene3, bokeh_cdf=cdf3, **po3)
+    parity("flagship_mb 256x256 @ 1 spp with a gaussian P AOV", cfg, rc256,
+           scene, cam_to_world_end=m_end,
+           aovs=list(DEFAULT_AOVS) + [AOVSpec("P_gauss", "VECTOR", GAUSSIAN,
+                                              "P")], **po)
+    # the thin-lens golden configurations (tests/golden_configs.py:83-100)
+    cfg_tl = pt.CameraConfig(focal_length=65.0, fstop=1.8,
+                             focus_distance=15.0, vignetting_retries=2,
+                             splat_queue_mult=6)
+    rc_tl = pt.RenderConfig(xres=128, yres=128, spp=4)
+    parity("thinlens_chromatic 128x128 @ 4 spp",
+           dataclasses.replace(cfg_tl, abb_chromatic=1.0), rc_tl, emitter(4.0))
+    parity("bokeh_image_aperture 128x128 @ 4 spp",
+           dataclasses.replace(cfg_tl, bokeh_enable_image=True), rc_tl,
+           emitter(0.0), bokeh_cdf=build_bokeh_cdf(ring_pixels(lo=0.55),
+                                                   device=dev))
     torch.cuda.empty_cache()
 
     def drive(label, path, cfg_, rc_, scene_, **kw):
@@ -416,44 +555,58 @@ def main() -> int:
             fail(f"{label}: energy conservation, sum(filter_weight) != npix")
         return launches_, fb_
 
+    def time_flagship(prefix, **kw):
+        """Frame, forward and splat+resolve wall times of the 1080p
+        flagship (with ``kw``), issued slots and valid splats."""
+        with torch.no_grad():
+            def e2e():
+                _, fb_ = render_frame(cfg, rc_full, scene, m, seed=0, **po,
+                                      **kw)
+                resolve_aovs(rc_full, fb_)
+
+            stream = render_sample_stream(cfg, rc_full, scene, m, 0, **po,
+                                          **kw)
+
+            def splat_resolve():
+                fb_ = splat_frame(cfg, rc_full, scene, stream, m,
+                                  with_diagnostics=True, **po, **kw)
+                resolve_aovs(rc_full, fb_)
+                return fb_
+
+            fb_d = splat_resolve()
+            n_valid = int(fb_d["_n_valid_splats"])
+            n_issued = int(fb_d["_n_issued_slots"])
+            del fb_d
+            if n_valid <= 0:
+                fail(f"{prefix}no valid splats")
+            frame_ms = host_ms(e2e)
+            forward_ms = host_ms(lambda: render_sample_stream(
+                cfg, rc_full, scene, m, 0, **po, **kw))
+            splat_ms = host_ms(splat_resolve)
+            del stream
+        for label, val in (
+                ("frame_ms", frame_ms), ("forward_ms", forward_ms),
+                ("splat_resolve_ms", splat_ms), ("issued_slots", n_issued),
+                ("valid_splats", n_valid),
+                ("valid_splats_per_s", n_valid / (splat_ms * 1e-3))):
+            print(f"{prefix}{label} {val} {tag}", flush=True)
+        torch.cuda.empty_cache()
+
     phase("flagship 1920x1080 @ 1 spp (BASELINE config 4)")
-    launches, fb = drive("flagship", "flagship", cfg, rc_full, scene,
-                         po_lens=lens, po_state=state)
+    path_launches = {}
+    path_launches["flagship"], fb = drive("flagship", "flagship", cfg,
+                                          rc_full, scene, **po)
     del fb
-    with torch.no_grad():
-        def e2e():
-            _, fb_ = render_frame(cfg, rc_full, scene, m, seed=0,
-                                  po_lens=lens, po_state=state)
-            resolve_aovs(rc_full, fb_)
+    time_flagship("")
 
-        stream = render_sample_stream(cfg, rc_full, scene, m, 0,
-                                      po_lens=lens, po_state=state)
+    phase("flagship_mb 1920x1080 @ 1 spp, camera motion blur "
+          "(the decomposed route)")
+    path_launches["flagship_mb"], fb = drive(
+        "flagship_mb", "flagship_mb", cfg, rc_full, scene,
+        cam_to_world_end=m_end, **po)
+    del fb
+    time_flagship("flagship_mb_", cam_to_world_end=m_end)
 
-        def splat_resolve():
-            fb_ = splat_frame(cfg, rc_full, scene, stream, m, po_lens=lens,
-                              po_state=state, with_diagnostics=True)
-            resolve_aovs(rc_full, fb_)
-            return fb_
-
-        fb_d = splat_resolve()
-        n_valid = int(fb_d["_n_valid_splats"])
-        n_issued = int(fb_d["_n_issued_slots"])
-        del fb_d
-        if n_valid <= 0:
-            fail("no valid splats")
-        frame_ms = host_ms(e2e)
-        forward_ms = host_ms(lambda: render_sample_stream(
-            cfg, rc_full, scene, m, 0, po_lens=lens, po_state=state))
-        splat_ms = host_ms(splat_resolve)
-        del stream
-    for label, val in (("frame_ms", frame_ms), ("forward_ms", forward_ms),
-                       ("splat_resolve_ms", splat_ms),
-                       ("issued_slots", n_issued), ("valid_splats", n_valid),
-                       ("valid_splats_per_s", n_valid / (splat_ms * 1e-3))):
-        print(f"{label} {val} {tag}", flush=True)
-    torch.cuda.empty_cache()
-
-    path_launches = {"flagship": launches}
     for label, path, cfg_, rc_, scene_, kw in (
             ("config 1 thin-lens teapot 256x256 @ 16 spp", "config1", cfg1,
              rc1, scene1, {}),
@@ -479,7 +632,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     path_of = {"tl_splat": "config1", "po_splat_lam": "config3_no_bokeh",
-               "po_splat_ext": "config3"}
+               "po_splat_ext": "config3", "po_backward": "flagship_mb"}
     for r in records:
         r["launches"] = path_launches[path_of.get(r["name"], "flagship")][
             r["name"]]

@@ -8,19 +8,42 @@ per-ray and per-slot programs are CUDA kernels written by hand for
 the same function beside it: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel.
 
-The configuration classes are shared with :mod:`pota_tpu` (its
-``config`` module imports no framework).  This package never imports JAX.
+The package imports nothing of :mod:`pota_tpu` and never imports JAX: the
+configuration classes are its own copy (:mod:`pota_tpu_torch.config`).
+Constructors of scenes, lenses, bokeh tables and camera matrices build on
+:func:`default_device`, the card, unless the caller passes ``device``
+(``device="cpu"`` for a CPU run).
 """
+import torch
 
-from pota_tpu.config import (
+from .config import (
     CameraConfig,
     CameraType,
     ChromaticType,
     RenderConfig,
     UnitModel,
+    config_from_fields,
 )
 
 __version__ = "0.1.0"
+
+
+def default_device() -> torch.device:
+    """The device a constructor builds on when given none: ``cuda:0``.
+    Raises ``RuntimeError`` without a CUDA device; there is no silent CPU
+    fallback (pass ``device="cpu"`` to run on the CPU)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "pota_tpu_torch: no CUDA device (torch.cuda.is_available() is "
+            "false); pass device='cpu' to build on the CPU")
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`, or :func:`default_device` when
+    it is None."""
+    return default_device() if device is None else torch.device(device)
+
 
 __all__ = [
     "CameraConfig",
@@ -28,4 +51,7 @@ __all__ = [
     "CameraType",
     "UnitModel",
     "ChromaticType",
+    "config_from_fields",
+    "default_device",
+    "resolve_device",
 ]

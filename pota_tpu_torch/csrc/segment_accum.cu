@@ -21,13 +21,15 @@
 // Design: one thread per pixel.  The thread finds its segment by two binary
 // searches over the sorted keys and sums the segment in sorted order, so
 // the result is deterministic (no atomics; two runs give identical bits).
+// Payloads wider than kColBlock columns (RGBA plus extra gaussian AOVs) are
+// summed in blocks of kColBlock columns, one walk of the segment per block.
 // Known limit: a hot pixel's segment is walked by one thread, so a frame
 // whose splats pile onto few pixels serialises there.
 #include "common.cuh"
 
 namespace pota {
 
-constexpr int kMaxPayload = 8;
+constexpr int kColBlock = 8;
 
 __device__ __forceinline__ long long lower_bound_key(const long long* keys,
                                                      long long n,
@@ -56,18 +58,20 @@ __global__ void segment_accum_kernel(const long long* __restrict__ keys,
   if (p >= npix) return;
   const long long lo = lower_bound_key(keys, n_writers, (long long)p << 32);
   const long long hi = lower_bound_key(keys, n_writers, (long long)(p + 1) << 32);
-  float s[kMaxPayload];
+  for (int c0 = 0; c0 < K; c0 += kColBlock) {
+    float s[kColBlock];
 #pragma unroll
-  for (int k = 0; k < kMaxPayload; ++k) s[k] = 0.0f;
-  for (long long i = lo; i < hi; ++i) {
-    const float* row = payload + perm[i] * K;
+    for (int k = 0; k < kColBlock; ++k) s[k] = 0.0f;
+    for (long long i = lo; i < hi; ++i) {
+      const float* row = payload + perm[i] * K + c0;
 #pragma unroll
-    for (int k = 0; k < kMaxPayload; ++k)
-      if (k < K) s[k] += row[k];
+      for (int k = 0; k < kColBlock; ++k)
+        if (c0 + k < K) s[k] += row[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kColBlock; ++k)
+      if (c0 + k < K) accum[(size_t)p * K + c0 + k] = s[k];
   }
-#pragma unroll
-  for (int k = 0; k < kMaxPayload; ++k)
-    if (k < K) accum[(size_t)p * K + k] = s[k];
   if (hi > lo) {
     wdepth[p] = __int_as_float((int)(keys[lo] & 0xFFFFFFFFll));
     wsample[p] = sid[perm[lo]];
@@ -87,7 +91,7 @@ extern "C" int pota_segment_accum(const long long* keys, const long long* perm,
                                   float* accum, float* wdepth, int* wsample,
                                   uint8_t* has, cudaStream_t stream) {
   if (npix <= 0) return (int)cudaSuccess;
-  if (K < 1 || K > pota::kMaxPayload) return (int)cudaErrorInvalidValue;
+  if (K < 1) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   pota::segment_accum_kernel<<<(npix + threads - 1) / threads, threads, 0,
                                stream>>>(keys, perm, n_writers, payload, K, sid,

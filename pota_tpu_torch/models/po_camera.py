@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from pota_tpu.config import CameraConfig
+from ..config import CameraConfig
 
 from ..optics import geometry as geo
 from ..optics import samplers

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 
 KERNEL_NAMES = ("po_forward", "expand", "po_splat", "segment_accum",
-                "tl_splat", "po_splat_lam", "po_splat_ext")
+                "tl_splat", "po_splat_lam", "po_splat_ext", "po_backward")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _p = ctypes.c_void_p
@@ -52,6 +52,7 @@ SIGNATURES = {
     "pota_po_splat_ext": [_p] * 10 + [_i, _p, _p, _i, _p, _p, _i, _i, _p, _p,
                                       _i, _p, _p, _p],
     "pota_tl_splat": [_p] * 9 + [_i, _i, _f, _f, _p, _p, _i, _p, _p, _p],
+    "pota_po_backward": [_p] * 6 + [_i, _p, _p, _i, _p, _p, _i, _i] + [_p] * 6,
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Polynomial-optics and thin-lens kernels K1-K3 and K5 with their plain
-PyTorch versions.
+"""Polynomial-optics and thin-lens kernels K1-K3, K5 and K6 with their
+plain PyTorch versions.
 
 Each wrapper takes the plain version for CPU tensors and launches its CUDA
 kernel (``csrc/``) for CUDA tensors; there is no fallback between the two.
@@ -16,7 +16,9 @@ code, and are what the CPU tests hold against the JAX package.
   ``lam_input=True``) and :func:`po_splat_ext` (the aperture point and
   wavelength per slot, ``sample_aperture=False``);
 * :func:`tl_splat` — K5, the thin-lens backward splat
-  (``po_pallas.py::build_tl_splat_kernel``).
+  (``po_pallas.py::build_tl_splat_kernel``);
+* :func:`po_backward` — K6, the PO backward solve alone
+  (``po_pallas.py::build_po_backward_kernel``), for the decomposed splat.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ TF_SKY = 6
 TF_R, TF_G, TF_B, TF_A = 7, 8, 9, 10
 TF_Z = 11
 TF_ROWS = 12
+TF_TIME = TF_ROWS   # the shutter time, a row only under motion blur
 TI_PX, TI_PY, TI_START, TI_SID = 0, 1, 2, 3
 TI_ROWS = 4
 
@@ -319,6 +322,19 @@ def _splat_lens_consts(lens: PolyLens, device) -> torch.Tensor:
     ], dtype=torch.float32, device=device)
 
 
+def _solve_tables(lens: PolyLens, device):
+    """The backward solve's lens tables (K3 and K6): int8 exponents [T, 5],
+    the [7, T] coefficient rows apx, apy, o0..o3, trans, the conditioning
+    and the lens constants."""
+    if not torch.equal(lens.pt.exponents, lens.ap.exponents):
+        raise ValueError(
+            f"lens {lens.name!r}: pt/ap term sets must be shared for the "
+            "backward solve kernels (refit with a common term set)")
+    coeffs = torch.cat([lens.ap.coeffs[:2], lens.pt.coeffs[:5]]).contiguous()
+    return (_exps_i8(lens.pt, device), coeffs, _cond(lens, device),
+            _splat_lens_consts(lens, device))
+
+
 # C order of each K3 variant's per-slot inputs; seed / ctr are int32
 _PO_SPLAT_SLOTS = {
     "po_splat": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "seed", "ctr",
@@ -347,14 +363,7 @@ def _po_splat_run(name, plain, args):
         raise ValueError(f"lens on {lens.device}, slots on {dev}")
     if dev.type == "cpu":
         return plain(*args)
-    if not torch.equal(lens.pt.exponents, lens.ap.exponents):
-        raise ValueError(
-            f"lens {lens.name!r}: pt/ap term sets must be shared for the "
-            "splat kernel (refit with a common term set)")
-    exps = _exps_i8(lens.pt, dev)
-    coeffs = torch.cat([lens.ap.coeffs[:2], lens.pt.coeffs[:5]]).contiguous()
-    cond = _cond(lens, dev)
-    lensc = _splat_lens_consts(lens, dev)
+    exps, coeffs, cond, lensc = _solve_tables(lens, dev)
     lin = torch.empty((s,), dtype=torch.int32, device=dev)
     ok = torch.empty((s,), dtype=torch.bool, device=dev)
     err = getattr(_build.lib(), f"pota_{name}")(
@@ -396,6 +405,50 @@ def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam,
     return _po_splat_run("po_splat_ext", po_splat_ext_plain, (
         lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky, params,
         spheres, iterations))
+
+
+# ---------------------------------------------------- K6: PO backward solve
+
+
+def po_backward_plain(lens: PolyLens, px, py, pz, ax, ay, lam,
+                      iterations: int = 3):
+    """Plain K6: ``lt_sample_aperture`` (which carries the kernel's
+    chief-ray guard) for targets ``(px, py, pz)`` in lens-space mm (-10 * p_cam), aperture
+    points ``(ax, ay)`` (mm) and wavelengths ``lam`` (um), all f32 [S].
+    Returns (sx, sy, sdx, sdy, trans); ``trans`` is >= 0 and cropped by the
+    outer pupil."""
+    sensor5, _, trans = lt_sample_aperture(
+        lens, torch.stack([px, py, pz], -1), torch.stack([ax, ay], -1), lam,
+        iterations=iterations)
+    return (*(sensor5[..., k].contiguous() for k in range(4)), trans)
+
+
+def po_backward(lens: PolyLens, px, py, pz, ax, ay, lam, iterations: int = 3):
+    """K6 wrapper: the PO backward solve of JAX's decomposed splat branch
+    (``po_pallas.py::build_po_backward_kernel``).  Inputs as
+    :func:`po_backward_plain` takes them, contiguous, on the lens's device;
+    the plain version on the CPU, the CUDA kernel on the card."""
+    dev = px.device
+    n = px.shape[0]
+    for name, t in (("px", px), ("py", py), ("pz", pz), ("ax", ax),
+                    ("ay", ay), ("lam", lam)):
+        _check(name, t, torch.float32, dev, (n,))
+    if lens.device != dev:
+        raise ValueError(f"lens on {lens.device}, items on {dev}")
+    if dev.type == "cpu":
+        return po_backward_plain(lens, px, py, pz, ax, ay, lam, iterations)
+    exps, coeffs, cond, lensc = _solve_tables(lens, dev)
+    outs = [torch.empty((n,), dtype=torch.float32, device=dev)
+            for _ in range(5)]
+    err = _build.lib().pota_po_backward(
+        px.data_ptr(), py.data_ptr(), pz.data_ptr(), ax.data_ptr(),
+        ay.data_ptr(), lam.data_ptr(), n, exps.data_ptr(), coeffs.data_ptr(),
+        coeffs.shape[1], cond.data_ptr(), lensc.data_ptr(),
+        CHARTS.index(lens.outer_chart), int(iterations),
+        *(t.data_ptr() for t in outs), _stream(dev))
+    _build.check(err, "po_backward")
+    _build.LAUNCHES["po_backward"] += 1
+    return tuple(outs)
 
 
 # ------------------------------------------------------- K5: thin-lens splat

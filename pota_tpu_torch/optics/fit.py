@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 
+from .. import resolve_device
 from .polynomial import LENS_CONSTANTS, PolyFunction, PolyLens
 
 LENS_DIR = os.path.join(
@@ -25,7 +26,8 @@ def poly_lens_from_numpy(pt: dict, ap: dict, constants: dict,
     ``pt`` and ``ap`` each hold ``exponents`` [T, 5], ``coeffs`` [O, T],
     ``in_scale`` [5] and ``in_shift`` [5] (a JAX ``PolyFunction``'s fields as
     numpy); ``constants`` holds the scalar fields of :data:`LENS_CONSTANTS`
-    plus optional ``name``, ``outer_chart`` and ``inner_chart``.
+    plus optional ``name``, ``outer_chart`` and ``inner_chart``.  The lens
+    is built on ``device`` (default: the card).
     """
     def mk(f):
         return PolyFunction(
@@ -40,13 +42,15 @@ def poly_lens_from_numpy(pt: dict, ap: dict, constants: dict,
     lens = PolyLens(mk(pt), mk(ap),
                     **{k: float(constants[k]) for k in LENS_CONSTANTS},
                     **extra)
-    return lens.to(device) if device is not None else lens
+    return lens.to(resolve_device(device))
 
 
 def load_poly_lens(name: str, degree: int = 5, path: str | None = None,
                    device=None) -> PolyLens | None:
-    """Load a committed fit (the ``pota_tpu.optics.fit`` npz format), or
-    None when the file does not exist."""
+    """Load a committed fit (the ``pota_tpu.optics.fit`` npz format) onto
+    ``device`` (default: the card), or None when the file does not
+    exist."""
+    device = resolve_device(device)
     path = path or os.path.join(LENS_DIR, f"{name}__deg{degree}.npz")
     if not os.path.exists(path):
         return None

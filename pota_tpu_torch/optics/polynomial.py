@@ -215,7 +215,11 @@ def lt_sample_aperture(lens: PolyLens, scene_point, ap_point, lam,
 
     ``scene_point`` [..., 3] is in lens space mm (+z toward the scene),
     ``ap_point`` [..., 2] the iris target (mm), ``lam`` the wavelength (um).
-    Returns (sensor5, out4, transmittance cropped by the outer pupil)."""
+    The chief-ray guess floors |z| at 1e-6, as the backward kernels do
+    (``po_pallas.py:387-391``); JAX's pure solver divides by z unguarded,
+    which differs only for targets at |z| < 1e-6.
+    Returns (sensor5, out4, transmittance >= 0 cropped by the outer
+    pupil)."""
     shape = scene_point.shape[:-1]
     lam_b = torch.as_tensor(lam, dtype=torch.float32,
                             device=scene_point.device).expand(shape)
@@ -234,8 +238,10 @@ def lt_sample_aperture(lens: PolyLens, scene_point, ap_point, lam,
         return torch.cat([ap, hit_xy - scene_point[..., :2]], -1)
 
     # chief-ray estimate through the lens center
-    x0 = -scene_point[..., 0] * lens.back_focal_length / scene_point[..., 2]
-    y0 = -scene_point[..., 1] * lens.back_focal_length / scene_point[..., 2]
+    pz = scene_point[..., 2]
+    pz = torch.where(torch.abs(pz) < 1e-6, 1e-6, pz)
+    x0 = -scene_point[..., 0] * lens.back_focal_length / pz
+    y0 = -scene_point[..., 1] * lens.back_focal_length / pz
     s4 = torch.stack([x0, y0, (ap_b[..., 0] - x0) / lens.aperture_z,
                       (ap_b[..., 1] - y0) / lens.aperture_z], -1)
     for _ in range(iterations):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from pota_tpu.config import CameraConfig, CameraType
+from ..config import CameraConfig, CameraType
 
 from ..utils import rng as prng
 from . import aberrations, samplers

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @dataclasses.dataclass
 class BokehImage:
@@ -31,7 +33,9 @@ def bokeh_image_from_numpy(cdf_row, row_indices, cdf_col, col_indices,
                            alias_prob, alias_idx, resolution: int,
                            device=None) -> BokehImage:
     """A :class:`BokehImage` from the six tables as numpy arrays (for
-    example the JAX package's, through ``np.asarray``)."""
+    example the JAX package's, through ``np.asarray``), on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     i = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     return BokehImage(f(cdf_row), i(row_indices), f(cdf_col), i(col_indices),
@@ -42,7 +46,9 @@ def build_bokeh_cdf(pixels: np.ndarray, device=None) -> BokehImage:
     """Build the sampler tables from an [H, W, C>=1] float image
     (imageData::bokehProbability, ref src/imagebokeh.h:143-338):
     luminance 0.3/0.59/0.11, normalized; row-sum CDF over descending-sorted
-    rows; per-row column CDFs over descending-sorted columns."""
+    rows; per-row column CDFs over descending-sorted columns.  The tables
+    go to ``device`` (default: the card)."""
+    device = resolve_device(device)
     pixels = np.asarray(pixels, np.float64)
     if pixels.ndim == 2:
         pixels = pixels[..., None]
@@ -96,9 +102,10 @@ def _build_alias(p: np.ndarray):
 
 def load_bokeh_image(path: str, device=None) -> BokehImage:
     """Load an aperture image (png/jpg through PIL, or EXR) and build its
-    tables."""
+    tables on ``device`` (default: the card)."""
+    device = resolve_device(device)
     if path.lower().endswith(".exr"):
-        from pota_tpu.io.exr import read_exr
+        from ..io.exr import read_exr
 
         planes = read_exr(path)
         keys = [k for k in ("R", "G", "B") if k in planes]

@@ -3,53 +3,35 @@
 
 The device is the scene's: every tensor of a render is made there.
 Configurations the port does not handle yet raise ``NotImplementedError``
-(see :func:`check_supported`).
+(see :func:`check_supported`); a configuration object of another package
+raises ``TypeError``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from pota_tpu.config import CameraConfig, CameraType, RenderConfig
-
+from .. import resolve_device
+from ..config import (
+    CameraConfig,
+    CameraType,
+    RenderConfig,
+    require_port_configs,
+)
 from ..optics import thinlens
 from . import sampling
 
 
-def check_supported(cfg: CameraConfig, rc: RenderConfig, aovs=None,
-                    cam_to_world_end=None, differentiable: bool = False,
-                    splat: bool = True):
-    """Raise ``NotImplementedError`` for configurations the port does not
-    run yet, so nothing silently takes another path.  Each message names
-    the ROADMAP item that will port it.  ``splat`` says whether the frame
-    runs the bidirectional splat."""
-    from .aov import DEFAULT_AOVS, GAUSSIAN
-
+def check_supported(cfg: CameraConfig, rc: RenderConfig,
+                    differentiable: bool = False):
+    """Raise ``TypeError`` unless ``cfg`` and ``rc`` are the port's config
+    classes, and ``NotImplementedError`` for what the port does not run
+    yet, so nothing silently takes another path.  Each message names the
+    ROADMAP item that will port it."""
+    require_port_configs(cfg, rc)
     reasons = []
-    if cfg.camera_type == CameraType.THIN_LENS and splat:
-        # JAX's expanded thin-lens branch (splat.py:686-693); the rest
-        # takes its decomposed branch
-        for on, what in (
-                (cfg.abb_coma != 0.0, "coma (abb_coma != 0)"),
-                (cfg.abb_chromatic != 0.0, "chromatic (abb_chromatic != 0)"),
-                (cfg.optical_vignetting_distance != 0.0,
-                 "optical vignetting (optical_vignetting_distance != 0)"),
-                (cfg.abb_distortion != 0.0,
-                 "distortion (abb_distortion != 0)"),
-                (cfg.bokeh_enable_image, "image bokeh"),
-                (cfg.aperture_blades >= 2, "blade apertures "
-                 "(aperture_blades >= 2)")):
-            if on:
-                reasons.append(f"the thin-lens splat with {what}, "
-                               "ROADMAP Q1.9")
-    if cam_to_world_end is not None:
-        reasons.append("motion blur, ROADMAP Q1.9")
     if rc.enable_id_matte:
         reasons.append("the id-matte, ROADMAP Q1.10")
-    gauss = [s.name for s in (aovs or DEFAULT_AOVS) if s.filter == GAUSSIAN]
-    if gauss != ["RGBA"]:
-        reasons.append(f"gaussian AOVs other than ['RGBA'] (got {gauss}), "
-                       "ROADMAP Q1.9")
     if differentiable:
         reasons.append("differentiable=True, ROADMAP Q1.8")
     if reasons:
@@ -57,15 +39,32 @@ def check_supported(cfg: CameraConfig, rc: RenderConfig, aovs=None,
             "not ported to pota_tpu_torch yet: " + "; ".join(reasons))
 
 
+def _unit(d):
+    return d / torch.sqrt(torch.clamp(torch.sum(d * d, -1, keepdim=True),
+                                      min=1e-24))
+
+
 def _transform_rays(cam_to_world, origins, dirs):
     """Apply a 4x4 camera -> world transform to ray origins/directions."""
     rot = cam_to_world[:3, :3]
     trans = cam_to_world[:3, 3]
-    o = origins @ rot.T + trans
-    d = dirs @ rot.T
-    d = d / torch.sqrt(torch.clamp(torch.sum(d * d, -1, keepdim=True),
-                                   min=1e-24))
-    return o, d
+    return origins @ rot.T + trans, _unit(dirs @ rot.T)
+
+
+def interp_camera_matrix(m0, m1, t):
+    """Per-sample camera matrix over the shutter: the linear blend of the
+    two key matrices (ref src/lentil_filter.cpp:141-150).  ``t`` [N] in
+    [0, 1] -> [N, 4, 4]."""
+    t = t[:, None, None]
+    return m0[None] * (1.0 - t) + m1[None] * t
+
+
+def _transform_rays_mb(m_per_sample, origins, dirs):
+    """Per-sample camera -> world ray transform ([N, 4, 4] matrices)."""
+    rot = m_per_sample[:, :3, :3]
+    trans = m_per_sample[:, :3, 3]
+    o = torch.einsum("nij,nj->ni", rot, origins) + trans
+    return o, _unit(torch.einsum("nij,nj->ni", rot, dirs))
 
 
 def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
@@ -90,13 +89,22 @@ def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
 
 def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
                          cam_to_world, seed: int = 0, po_lens=None,
-                         po_state=None, ops=None, bokeh_cdf=None) -> dict:
-    """Trace + shade the whole frame; returns the per-sample AOV stream."""
+                         po_state=None, ops=None, bokeh_cdf=None,
+                         cam_to_world_end=None) -> dict:
+    """Trace + shade the whole frame; returns the per-sample AOV stream.
+    With ``cam_to_world_end`` each sample's rays leave the camera matrix
+    blended to its shutter ``time`` (motion blur)."""
+    require_port_configs(cfg, rc)
     samples = sampling.frame_samples(rc, seed, device=scene.device)
     origin_cs, dir_cs, weight = trace_camera_rays(
         cfg, samples, po_lens=po_lens, po_state=po_state, ops=ops,
         bokeh_cdf=bokeh_cdf)
-    origin_ws, dir_ws = _transform_rays(cam_to_world, origin_cs, dir_cs)
+    if cam_to_world_end is not None:
+        m = interp_camera_matrix(cam_to_world, cam_to_world_end,
+                                 samples["time"])
+        origin_ws, dir_ws = _transform_rays_mb(m, origin_cs, dir_cs)
+    else:
+        origin_ws, dir_ws = _transform_rays(cam_to_world, origin_cs, dir_cs)
     shaded = scene.shade(origin_ws, dir_ws)
     return {
         **samples,
@@ -147,35 +155,43 @@ def resolve_gaussian(rc: RenderConfig, stream: dict) -> torch.Tensor:
 def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
                  seed: int = 0, po_lens=None, po_state=None, bokeh_cdf=None,
                  cam_to_world_end=None, differentiable: bool = False,
-                 ops=None):
+                 aovs=None, ops=None):
     """Full pipeline: forward trace + bidirectional redistribution +
     resolve.  Returns (resolved RGBA image [H, W, 4], framebuffer dict).
 
     ``bokeh_cdf`` is the image bokeh's
     :class:`~pota_tpu_torch.render.bokeh_image.BokehImage`, on the scene's
-    device.  ``ops`` is the kernel set the path calls (default
-    :data:`pota_tpu_torch.ops.KERNELS`; :data:`~pota_tpu_torch.ops.PLAIN`
-    runs the plain versions, for parity checks on the card)."""
+    device.  ``cam_to_world_end`` is the camera matrix at the end of the
+    shutter (motion blur).  ``aovs`` lists the AOV planes (default
+    :data:`~pota_tpu_torch.render.aov.DEFAULT_AOVS`).  ``ops`` is the
+    kernel set the path calls (default :data:`pota_tpu_torch.ops.KERNELS`;
+    :data:`~pota_tpu_torch.ops.PLAIN` runs the plain versions, for parity
+    checks on the card)."""
     from .splat import resolve_imager, splat_frame
 
-    check_supported(cfg, rc, cam_to_world_end=cam_to_world_end,
-                    differentiable=differentiable,
-                    splat=rc.enable_redistribution)
-    cam_to_world = cam_to_world.to(scene.device, torch.float32)
+    check_supported(cfg, rc, differentiable=differentiable)
+    dev = scene.device
+    cam_to_world = cam_to_world.to(dev, torch.float32)
+    if cam_to_world_end is not None:
+        cam_to_world_end = cam_to_world_end.to(dev, torch.float32)
     with torch.no_grad():
         stream = render_sample_stream(cfg, rc, scene, cam_to_world, seed,
                                       po_lens=po_lens, po_state=po_state,
-                                      ops=ops, bokeh_cdf=bokeh_cdf)
+                                      ops=ops, bokeh_cdf=bokeh_cdf,
+                                      cam_to_world_end=cam_to_world_end)
         if not rc.enable_redistribution:
             return resolve_gaussian(rc, stream), {}
         fb = splat_frame(cfg, rc, scene, stream, cam_to_world,
-                         po_lens=po_lens, po_state=po_state,
-                         bokeh_cdf=bokeh_cdf, ops=ops)
+                         po_lens=po_lens, po_state=po_state, aovs=aovs,
+                         bokeh_cdf=bokeh_cdf,
+                         cam_to_world_end=cam_to_world_end, ops=ops)
         return resolve_imager(rc, fb), fb
 
 
 def look_at(eye, target, up=(0.0, 1.0, 0.0), device=None) -> torch.Tensor:
-    """Camera -> world matrix for a camera looking down -z."""
+    """Camera -> world matrix for a camera looking down -z, on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
     eye = np.asarray(eye, np.float32)
     target = np.asarray(target, np.float32)
     up = np.asarray(up, np.float32)

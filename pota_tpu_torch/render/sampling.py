@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-from pota_tpu.config import RenderConfig
+from .. import resolve_device
+from ..config import RenderConfig
 
 from ..utils import rng as prng
 
@@ -20,8 +21,9 @@ def screen_coords(rc: RenderConfig, px, py, jx, jy):
 
 def frame_samples(rc: RenderConfig, seed: int, device=None) -> dict:
     """The frame's sample coordinates, flattened to N = H_region * W_region
-    * spp.  Integer fields (px, py, sid, key) are int64; ``key`` holds the
-    uint32 TEA key."""
+    * spp, on ``device`` (default: the card).  Integer fields (px, py, sid,
+    key) are int64; ``key`` holds the uint32 TEA key."""
+    device = resolve_device(device)
     h, w, spp = rc.yres_region, rc.xres_region, rc.spp
     ar = lambda k: torch.arange(k, dtype=torch.int64, device=device)
     px = (rc.region_min_x + ar(w)).view(1, w, 1).expand(h, w, spp)

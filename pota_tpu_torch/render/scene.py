@@ -12,6 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..optics.geometry import safe_sqrt
 
 INF = 1e30
@@ -95,7 +96,8 @@ def sphere_scene_from_numpy(centers, radii, emission, albedo, sky_color,
                             light_dir, light_color, transmission=None,
                             device=None) -> SphereScene:
     """A :class:`SphereScene` from numpy arrays (a JAX ``SphereScene``'s
-    fields as numpy)."""
+    fields as numpy), on ``device`` (default: the card)."""
+    device = resolve_device(device)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     return SphereScene(
         centers=f(centers), radii=f(radii), emission=f(emission),

@@ -1,0 +1,246 @@
+"""Stage profile of one warm 1080p flagship frame of the PyTorch / CUDA port
+(pota_tpu_torch) on one GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 scripts/profile_torch_frame.py [--cells flagship flagship_mb]
+
+``flagship`` is BASELINE config 4 (bench.py:172-246: 1920x1080 @ 1 spp,
+lens angenieux__double_gauss__1953__49mm, fstop 2.8, focus 20, lightgrid
+n=5); ``flagship_mb`` the same frame with the camera trucked 2 units across
+the shutter (motion blur, the decomposed route with K6).  For each cell it
+prints five unprofiled frame wall times, then profiles one warm frame with
+``torch.profiler`` (CPU and CUDA activities), reads the kernels from the
+exported trace, and splits them into stages at the port's own kernels
+(K1 po_forward, K2 expand, K3 po_splat / K6 po_backward, K4 segment_accum)
+and at the first radix-sort kernel after the splat: device busy ms, wall
+span ms and kernel count per stage, and the device's idle share of the
+frame's kernel span.  It then charges each kernel to the innermost of the
+port's functions (:data:`FUNCTIONS`, wrapped in ``record_function`` ranges
+by this script only) whose range holds the kernel's launch, and prints
+the device busy ms per function, and the registers, launch shape and the
+profiler's occupancy estimate of the port's own kernels.  The traces go to
+``chiprun_out/``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+FLAGSHIP = "angenieux__double_gauss__1953__49mm"
+OWN = (("po_forward_kernel", "K1 po_forward"), ("expand_kernel", "K2 expand"),
+       ("po_splat_kernel", "K3 po_splat"), ("po_backward_kernel",
+                                           "K6 po_backward"),
+       ("segment_accum_kernel", "K4 segment_accum"))
+# the port's functions whose device time is reported, innermost first
+# when ranges nest: (module, function)
+FUNCTIONS = (
+    ("render.renderer", "render_sample_stream"),
+    ("render.splat", "splat_frame"),
+    ("render.splat", "_camera_space"),
+    ("render.splat", "compute_gates_and_budget"),
+    ("render.splat", "splat_queue_compact"),
+    ("render.splat", "_source_table"),
+    ("render.splat", "po_backward_project"),
+    ("render.splat", "_occluded_through_camera"),
+    ("render.splat", "accumulate_sorted"),
+    ("render.splat", "resolve_aovs"),
+)
+
+
+def annotate_functions():
+    """Wrap each of :data:`FUNCTIONS` in a ``record_function`` range named
+    after it (module globals, so the callers in the package see the
+    wrappers).  Returns a function that puts the originals back."""
+    import functools
+    import importlib
+
+    import torch
+
+    originals = []
+    for mod_name, fn_name in FUNCTIONS:
+        mod = importlib.import_module(f"pota_tpu_torch.{mod_name}")
+        fn = getattr(mod, fn_name)
+        originals.append((mod, fn_name, fn))
+
+        def wrapped(*a, _fn=fn, _name=fn_name, **k):
+            with torch.profiler.record_function(_name):
+                return _fn(*a, **k)
+
+        setattr(mod, fn_name, functools.wraps(fn)(wrapped))
+
+    def restore():
+        for mod, fn_name, fn in originals:
+            setattr(mod, fn_name, fn)
+    return restore
+
+
+def function_busy(events):
+    """Device busy ms per annotated function: each kernel goes to the
+    innermost ``record_function`` range holding its launch call."""
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+              for e in events if e.get("cat") == "user_annotation"]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    busy = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        t = launch_ts.get(e["args"].get("correlation"))
+        inside = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
+        name = (min(inside, key=lambda r: r[1] - r[0])[2] if inside
+                else "(outside the named functions)")
+        n, ms = busy.get(name, (0, 0.0))
+        busy[name] = (n + 1, ms + float(e["dur"]) / 1e3)
+    return busy
+
+
+def own_kernel(name: str):
+    for key, label in OWN:
+        if key in name:
+            return label
+    return None
+
+
+def stages(kernels):
+    """Split the time-ordered kernels [(name, start_us, dur_us)] at the
+    port's kernels and at the first sort kernel after the splat."""
+    out, cur, label = [], [], "before K1 (samples, retry uniforms, disks)"
+    after_splat = False
+    for k in kernels:
+        own = own_kernel(k[0])
+        is_sort = after_splat and "radix" in k[0].lower()
+        if own or (is_sort and not label.startswith("sort")):
+            if cur:
+                out.append((label, cur))
+            if own:
+                out.append((f"**{own}**", [k]))
+                after_splat |= own.startswith(("K3", "K6"))
+                cur, label = [], f"after {own.split()[0]}"
+                continue
+            cur, label = [], "sort (cub radix) and after, up to K4"
+        cur.append(k)
+    if cur:
+        out.append((label, cur))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cells", nargs="+", default=["flagship", "flagship_mb"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", flush=True)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    import pota_tpu_torch as pt
+    from pota_tpu_torch.optics.fit import load_poly_lens
+    from pota_tpu_torch.optics.focus import setup_po_camera
+    from pota_tpu_torch.render import scene as sc
+    from pota_tpu_torch.render import renderer, splat
+    from pota_tpu_torch.render.renderer import look_at
+
+    dev = torch.device("cuda", 0)
+    cfg = pt.CameraConfig(
+        camera_type=pt.CameraType.POLYNOMIAL_OPTICS, lens_model=FLAGSHIP,
+        fstop=2.8, focus_distance=20.0, vignetting_retries=3,
+        splat_queue_mult=8)
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    scene = sc.lightgrid_scene(n=5, spacing=12.0, z=-150.0, radius=0.8,
+                               intensity=40.0, device=dev)
+    state = setup_po_camera(lens, cfg)
+    rc = pt.RenderConfig(xres=1920, yres=1080, spp=1)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    ends = {"flagship": None,
+            "flagship_mb": look_at([2.0, 0, 0], [2.0, 0, -1], device=dev)}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+
+    for cell in args.cells:
+        def frame():
+            with torch.no_grad():
+                _, fb = renderer.render_frame(cfg, rc, scene, m, po_lens=lens,
+                                              po_state=state,
+                                              cam_to_world_end=ends[cell])
+                splat.resolve_aovs(rc, fb)
+
+        frame()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        restore = annotate_functions()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            wall_prof = (time.perf_counter() - t0) * 1e3
+        restore()
+        path = os.path.join(out_dir, f"trace_{cell}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted((e["name"], float(e["ts"]), float(e["dur"]))
+                         for e in events if e.get("cat") == "kernel")
+        kernels.sort(key=lambda k: k[1])
+        if not kernels:
+            print(f"FAIL: {cell}: the trace holds no kernels", flush=True)
+            return 1
+        busy = sum(k[2] for k in kernels) / 1e3
+        span = (kernels[-1][1] + kernels[-1][2] - kernels[0][1]) / 1e3
+        print(f"== {cell} ({card})", flush=True)
+        print(f"{cell} frame wall ms without the profiler: "
+              f"{' / '.join(f'{w:.2f}' for w in walls)}", flush=True)
+        print(f"{cell} under the profiler: {wall_prof:.2f} ms wall, "
+              f"{len(kernels)} kernels, device busy {busy:.2f} ms of a "
+              f"{span:.2f} ms kernel span (idle {100 * (1 - busy / span):.1f}%)",
+              flush=True)
+        print("| stage | device busy ms | wall span ms | kernels |",
+              flush=True)
+        for label, ks in stages(kernels):
+            b = sum(k[2] for k in ks) / 1e3
+            sp = (ks[-1][1] + ks[-1][2] - ks[0][1]) / 1e3
+            print(f"| {label} | {b:.2f} | {sp:.2f} | {len(ks)} |",
+                  flush=True)
+        print("| function (innermost range) | device busy ms | kernels |",
+              flush=True)
+        for name, (n, ms) in sorted(function_busy(events).items(),
+                                    key=lambda kv: -kv[1][1]):
+            print(f"| {name} | {ms:.2f} | {n} |", flush=True)
+        for e in events:
+            if e.get("cat") == "kernel" and own_kernel(e["name"]):
+                a = e["args"]
+                print(f"  {own_kernel(e['name'])}: "
+                      f"{a.get('registers per thread')} registers, block "
+                      f"{a.get('block')}, grid {a.get('grid')}, profiler's "
+                      f"occupancy estimate {a.get('est. achieved occupancy %')}%",
+                      flush=True)
+        top = {}
+        for k in kernels:
+            top[k[0]] = top.get(k[0], 0.0) + k[2] / 1e3
+        for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  top kernel {ms:8.2f} ms  {name[:110]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -41,7 +41,7 @@ import golden_configs as gc
 from tests.test_po_pallas import synthetic_lens  # noqa: F401 (fixture)
 from tests.test_torch_kernels import _splat_inputs
 from tests.test_torch_optics import scaled_err, to_torch_lens
-from tests.test_torch_slice import frac_pixels_off
+from tests.test_torch_slice import frac_pixels_off, to_port
 
 from pota_tpu_torch.models import po_camera as tpc
 from pota_tpu_torch.ops import po_kernels as pk
@@ -88,7 +88,7 @@ def test_build_bokeh_cdf_matches_jax(image):
         px = np.random.default_rng(2).uniform(0, 1, (24, 24)).astype(
             np.float32)
     want = jbi.build_bokeh_cdf(px)
-    got = tbi.build_bokeh_cdf(px)
+    got = tbi.build_bokeh_cdf(px, device="cpu")
     assert got.resolution == want.resolution
     for g, w in zip(_tables(got), _tables(want)):
         np.testing.assert_array_equal(g, w.astype(g.dtype))
@@ -98,7 +98,8 @@ def test_build_bokeh_cdf_matches_jax(image):
 def test_bokeh_samplers_match_jax(sampler):
     jb = jbi.build_bokeh_cdf(_ring(16, 0.35, 0.95, 0.05))
     # the port's tables carried across from JAX's as numpy arrays
-    tb = tbi.bokeh_image_from_numpy(*_tables(jb), jb.resolution)
+    tb = tbi.bokeh_image_from_numpy(*_tables(jb), jb.resolution,
+                                    device="cpu")
     rng = np.random.default_rng(4)
     r1, r2 = (rng.uniform(0, 1, (700, 3)).astype(np.float32)
               for _ in range(2))
@@ -115,7 +116,7 @@ def test_load_bokeh_image_exr(tmp_path):
     path = str(tmp_path / "ring.exr")
     write_exr(path, {c: px[..., i] for i, c in enumerate("RGB")})
     want = jbi.load_bokeh_image(path)
-    got = tbi.load_bokeh_image(path)
+    got = tbi.load_bokeh_image(path, device="cpu")
     for g, w in zip(_tables(got), _tables(want)):
         np.testing.assert_array_equal(g, w.astype(g.dtype))
 
@@ -139,11 +140,11 @@ def test_trace_fw_po_image_bokeh_matches_jax(synthetic_lens, blades):
                   retry_key=jnp.asarray(key), bokeh_cdf=jb,
                   po_state=JPOState(**STATE), use_pallas=False)
     t = torch.as_tensor
-    got = tpc.trace_fw_po(cfg, to_torch_lens(synthetic_lens),
+    got = tpc.trace_fw_po(to_port(cfg), to_torch_lens(synthetic_lens),
                           *(t(a) for a in (sx, sy, r1, r2)),
                           t(key.astype(np.int64)), POState(**STATE),
                           bokeh_cdf=tbi.bokeh_image_from_numpy(
-                              *_tables(jb), jb.resolution))
+                              *_tables(jb), jb.resolution, device="cpu"))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     assert 0.3 < float(got[2].mean()) < 1.0
@@ -238,10 +239,12 @@ def _frame_pair(lens, case):
     tjs = {k: torch.as_tensor(np.array(v)) for k, v in js.items()}
     for k in ("px", "py", "sid", "key"):
         tjs[k] = tjs[k].to(torch.int64)
-    tcdf = (tbi.bokeh_image_from_numpy(*_tables(jcdf), jcdf.resolution)
+    tcdf = (tbi.bokeh_image_from_numpy(*_tables(jcdf), jcdf.resolution,
+                                       device="cpu")
             if jcdf is not None else None)
-    fb = splat_frame(cfg, RC, sc.lightgrid_scene(**GRID), tjs,
-                     look_at([0, 0, 0], [0, 0, -1]),
+    fb = splat_frame(to_port(cfg), to_port(RC),
+                     sc.lightgrid_scene(**GRID, device="cpu"), tjs,
+                     look_at([0, 0, 0], [0, 0, -1], device="cpu"),
                      po_lens=to_torch_lens(lens), po_state=POState(**STATE),
                      bokeh_cdf=tcdf, with_diagnostics=True)
     got = {k: v.numpy() for k, v in resolve_aovs(RC, fb).items()}

@@ -160,13 +160,35 @@ def test_tl_splat_kernel_matches_plain(dev, abb, c2s):
     _assert_masks_agree(pk.tl_splat(*args), pk.tl_splat_plain(*args))
 
 
-def test_segment_accum_kernel_matches_plain(dev):
+@pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
+def test_po_backward_kernel_matches_plain(dev, name):
+    lens = load_poly_lens(name, device=dev)
+    rng = np.random.default_rng(7)
+    n = 50000
+    pc, _, _, _, _ = _slot_inputs(rng, n, dev)
+    r = STATE.aperture_radius
+    ap = rng.uniform(-r, r, (2, n)).astype(np.float32) * 0.7
+    lam = rng.choice([0.43, 0.55, 0.73], n).astype(np.float32)
+    args = (lens, *(_t(-10.0 * x, dev) for x in pc), _t(ap[0], dev),
+            _t(ap[1], dev), _t(lam, dev), 3)
+    got = pk.po_backward(*args)
+    ref = pk.po_backward_plain(*args)
+    keep_g, keep_p = got[4] > 0, ref[4] > 0
+    assert 0.05 < float(keep_p.double().mean()) < 0.99
+    assert float((keep_g == keep_p).double().mean()) >= 0.999
+    both = keep_g & keep_p
+    for g, r_ in zip(got, ref):
+        assert float((g[both] - r_[both]).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("k", [5, 9, 17])  # RGBA, + 1 and + 3 gaussian AOVs
+def test_segment_accum_kernel_matches_plain(dev, k):
     rng = np.random.default_rng(3)
     npix, w = 3000, 200000
     pix = rng.integers(0, npix + 1, w)        # npix = dead writer
     pix[:5000] = 17                           # a hot pixel
     depth = np.round(rng.uniform(1, 50, w)).astype(np.float32)  # ties
-    payload = rng.normal(size=(w, 5)).astype(np.float32)
+    payload = rng.normal(size=(w, k)).astype(np.float32)
     sid = rng.integers(0, 1 << 30, w).astype(np.int32)
     keys, perm = acc.sort_writers(_t(pix, dev), _t(depth, dev))
     args = (keys, perm, _t(payload, dev), _t(sid, dev), npix)
@@ -188,7 +210,7 @@ def test_render_kernels_match_plain(dev):
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
     flagship = {"po_forward": 1, "expand": 1, "po_splat": 1,
                 "segment_accum": 1, "tl_splat": 0, "po_splat_lam": 0,
-                "po_splat_ext": 0}
+                "po_splat_ext": 0, "po_backward": 0}
     ops.reset_launches()
     img_k, fb_k = render_frame(CFG, rc, scene, m, po_lens=lens,
                                po_state=STATE)
@@ -242,6 +264,32 @@ def test_render_variant_kernels_match_plain(dev, case, kernel):
     img_k, fb_k = render_frame(cfg, rc, scene, m, **kw)
     assert ops.LAUNCHES[kernel] == 1, ops.LAUNCHES
     img_p, _ = render_frame(cfg, rc, scene, m, ops=ops.PLAIN, **kw)
+    npix = rc.xres * rc.yres
+    assert abs(float(fb_k["filter_weight"].sum()) - npix) <= 1e-4 * npix
+    assert bool(torch.isfinite(img_k).all())
+    scale = max(float(img_p.abs().max()), 1.0)
+    off = ((img_k - img_p).abs().amax(-1) > 2e-3 * scale).double().mean()
+    assert float(off) <= 0.02
+
+
+def test_render_motion_blur_kernels_match_plain(dev):
+    """The motion-blurred flagship frame takes the decomposed route: K1, K2,
+    K6 and K4, not K3."""
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    scene = sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0, radius=1.0,
+                               intensity=40.0, device=dev)
+    rc = pt.RenderConfig(xres=64, yres=64, spp=2)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    end = look_at([2.0, 0, 0], [2.0, 0, -1], device=dev)
+    ops.reset_launches()
+    img_k, fb_k = render_frame(CFG, rc, scene, m, po_lens=lens,
+                               po_state=STATE, cam_to_world_end=end)
+    assert ops.LAUNCHES == {
+        "po_forward": 1, "expand": 1, "po_splat": 0, "segment_accum": 1,
+        "tl_splat": 0, "po_splat_lam": 0, "po_splat_ext": 0,
+        "po_backward": 1}, ops.LAUNCHES
+    img_p, _ = render_frame(CFG, rc, scene, m, po_lens=lens, po_state=STATE,
+                            cam_to_world_end=end, ops=ops.PLAIN)
     npix = rc.xres * rc.yres
     assert abs(float(fb_k["filter_weight"].sum()) - npix) <= 1e-4 * npix
     assert bool(torch.isfinite(img_k).all())

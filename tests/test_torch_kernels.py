@@ -22,6 +22,7 @@ from pota_tpu_torch.render import splat as tsplat
 
 from tests.test_po_pallas import synthetic_lens  # noqa: F401 (fixture)
 from tests.test_torch_optics import scaled_err, to_torch_lens
+from tests.test_torch_slice import to_port
 
 torch.set_num_threads(2)
 
@@ -107,7 +108,8 @@ def test_splat_params_match():
     m[:3, 3] = [1.0, -2.0, 3.0]
     want = np.asarray(po_pallas.splat_kernel_params(CFG, RC, STATE,
                                                     jnp.asarray(m)))[0]
-    got = pk.splat_kernel_params(CFG, RC, STATE, torch.as_tensor(m)).numpy()
+    got = pk.splat_kernel_params(to_port(CFG), to_port(RC), STATE,
+                                 torch.as_tensor(m)).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -226,7 +228,8 @@ def test_gates_and_budget_exact(synthetic_lens, skydome):
         cfg, RC, {k: jnp.asarray(v) for k, v in stream.items()},
         jnp.asarray(p_cam), po_lens=synthetic_lens, po_state=STATE)
     got = tsplat.compute_gates_and_budget(
-        cfg, RC, {k: torch.as_tensor(v) for k, v in stream.items()},
+        to_port(cfg), to_port(RC),
+        {k: torch.as_tensor(v) for k, v in stream.items()},
         torch.as_tensor(p_cam), po_lens=to_torch_lens(synthetic_lens),
         po_state=STATE)
     for g, w in zip(got, want):

@@ -18,6 +18,8 @@ pixels off by more than 2e-3 of the plane's scale (measured 17 of 2,304,
 0.74%).  Eager JAX calls stand in for the jitted ``render_frame``; they
 reproduce the committed golden exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,7 @@ import golden_configs as gc
 from tests.test_torch_optics import scaled_err
 
 import pota_tpu_torch as pt
+from pota_tpu_torch.config import config_from_fields
 from pota_tpu_torch.optics.fit import load_poly_lens
 from pota_tpu_torch.optics.focus import setup_po_camera
 from pota_tpu_torch.render import scene as sc
@@ -50,7 +53,90 @@ ENERGY_TOL = 1e-5
 
 def _scene():
     return sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0, radius=1.0,
-                              intensity=40.0)
+                              intensity=40.0, device="cpu")
+
+
+def to_port(jax_cfg):
+    """The port's CameraConfig / RenderConfig from a JAX one, field by
+    field (enums by name)."""
+    cls = pt.RenderConfig if hasattr(jax_cfg, "xres") else pt.CameraConfig
+    return config_from_fields(cls, dataclasses.asdict(jax_cfg))
+
+
+def to_jax(port_cfg):
+    """A JAX CameraConfig / RenderConfig from the port's one."""
+    import pota_tpu
+
+    cls = (pota_tpu.RenderConfig if hasattr(port_cfg, "xres")
+           else pota_tpu.CameraConfig)
+    fields = dataclasses.asdict(port_cfg)
+    for k, v in fields.items():
+        if hasattr(v, "name"):
+            fields[k] = type(getattr(cls(), k))[v.name]
+    return cls(**fields)
+
+
+def jax_stream_to_torch(js):
+    tjs = {k: torch.as_tensor(np.array(v)) for k, v in js.items()}
+    for k in ("px", "py", "sid", "key"):
+        tjs[k] = tjs[k].to(torch.int64)
+    return tjs
+
+
+def splat_pair(cfg, rc, jscene, tscene, m_end=None, po=None, cdf=None,
+               aovs=None):
+    """JAX's splat_frame (on the CPU: its decomposed branch) and the port's
+    of JAX's sample stream, for the port's ``cfg`` / ``rc``.  ``po`` is
+    ((jax lens, jax state), (port lens, port state)), ``cdf`` (jax, port)
+    bokeh tables, ``m_end`` the end-of-shutter matrix as numpy, ``aovs``
+    the port's AOV specs.  Returns (port resolved planes, JAX resolved
+    planes, (port raw RGBA energy, JAX's), the port's framebuffer)."""
+    from pota_tpu.render import aov as jaov
+    from pota_tpu.render import splat as jsplat
+    from pota_tpu.render.renderer import render_sample_stream as jstream
+
+    jcfg, jrc = to_jax(cfg), to_jax(rc)
+    (jl, js_), (tl, ts_) = po if po is not None else ((None, None),
+                                                      (None, None))
+    jcdf, tcdf = cdf if cdf is not None else (None, None)
+    jend = None if m_end is None else np.asarray(m_end, np.float32)
+    jaovs = None if aovs is None else [
+        jaov.AOVSpec(a.name, a.type, a.filter, a.source, a.redistribute)
+        for a in aovs]
+    js = jstream(jcfg, jrc, jscene, gc.M, 0, po_lens=jl, po_state=js_,
+                 bokeh_cdf=jcdf, cam_to_world_end=jend)
+    jfb = jsplat.splat_frame(jcfg, jrc, jscene, js, gc.M, po_lens=jl,
+                             po_state=js_, bokeh_cdf=jcdf, aovs=jaovs,
+                             cam_to_world_end=jend)
+    want = {k: np.asarray(v)
+            for k, v in jsplat.resolve_aovs(jrc, jfb, jaovs).items()}
+    with torch.no_grad():
+        fb = splat_frame(
+            cfg, rc, tscene, jax_stream_to_torch(js),
+            look_at([0, 0, 0], [0, 0, -1], device="cpu"), po_lens=tl,
+            po_state=ts_, bokeh_cdf=tcdf, aovs=aovs,
+            cam_to_world_end=(None if m_end is None
+                              else torch.as_tensor(jend)),
+            with_diagnostics=True)
+    got = {k: v.numpy() for k, v in resolve_aovs(rc, fb, aovs).items()}
+    energy = (float(fb["RGBA"].double().sum()),
+              float(np.asarray(jfb["RGBA"], np.float64).sum()))
+    return got, want, energy, fb
+
+
+def assert_splat_pair_close(pair, tol=SAME_STREAM_TOL, energy_tol=ENERGY_TOL):
+    """Some slots splat; every plane of the same-stream pair within ``tol``
+    of its scale, the raw RGBA energy within ``energy_tol``, and energy
+    conserved."""
+    got, want, (e_got, e_want), fb = pair
+    assert int(fb["_n_valid_splats"]) > 0
+    assert set(got) == set(want)
+    for plane in want:
+        assert np.isfinite(got[plane]).all(), plane
+        assert scaled_err(got[plane], want[plane]) < tol, plane
+    assert abs(e_got - e_want) <= energy_tol * max(abs(e_want), 1e-12)
+    npix = fb["filter_weight"].numel()
+    assert abs(float(fb["filter_weight"].sum()) - npix) <= 1e-5 * npix
 
 
 def frac_pixels_off(got, want, tol=PIXEL_TOL):
@@ -70,8 +156,8 @@ def jax_po():
 
 @pytest.fixture(scope="module")
 def port_po(jax_po):
-    cfg = jax_po[0]
-    lens = load_poly_lens(gc.FLAGSHIP)
+    cfg = to_port(jax_po[0])
+    lens = load_poly_lens(gc.FLAGSHIP, device="cpu")
     return cfg, lens, setup_po_camera(lens, cfg)
 
 
@@ -86,19 +172,21 @@ def renders(jax_po, port_po):
     from pota_tpu.render.renderer import render_sample_stream as jax_stream
     from pota_tpu.render import splat as jsplat
 
-    cfg, jlens, jstate = jax_po
+    jcfg, jlens, jstate = jax_po
+    cfg, jrc = port_po[0], to_jax(RC)
     jscene = gc.sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0, radius=1.0,
                                    intensity=40.0)
-    js = jax_stream(cfg, RC, jscene, gc.M, 0, po_lens=jlens, po_state=jstate)
-    jfb = jsplat.splat_frame(cfg, RC, jscene, js, gc.M, po_lens=jlens,
+    js = jax_stream(jcfg, jrc, jscene, gc.M, 0, po_lens=jlens,
+                    po_state=jstate)
+    jfb = jsplat.splat_frame(jcfg, jrc, jscene, js, gc.M, po_lens=jlens,
                              po_state=jstate)
-    want = _np_fb(jsplat.resolve_aovs(RC, jfb))
-    want["image"] = np.asarray(jsplat.resolve_imager(RC, jfb))
+    want = _np_fb(jsplat.resolve_aovs(jrc, jfb))
+    want["image"] = np.asarray(jsplat.resolve_imager(jrc, jfb))
     want["raw"] = _np_fb(jfb)
     want["stream"] = _np_fb(js)
 
     _, tlens, tstate = port_po
-    m = look_at([0, 0, 0], [0, 0, -1])
+    m = look_at([0, 0, 0], [0, 0, -1], device="cpu")
     timg, tfb = render_frame(cfg, RC, _scene(), m, seed=0, po_lens=tlens,
                              po_state=tstate)
     got = {k: v.numpy() for k, v in resolve_aovs(RC, tfb).items()}
@@ -107,12 +195,11 @@ def renders(jax_po, port_po):
     with torch.no_grad():
         got["stream"] = {k: v.numpy() for k, v in render_sample_stream(
             cfg, RC, _scene(), m, 0, po_lens=tlens, po_state=tstate).items()}
-        tjs = {k: torch.as_tensor(v) for k, v in want["stream"].items()}
-        for k in ("px", "py", "sid", "key"):
-            tjs[k] = tjs[k].to(torch.int64)
-        same = splat_frame(cfg, RC, _scene(), tjs, m, po_lens=tlens,
-                           po_state=tstate)
-    got["same_stream"] = {k: v.numpy() for k, v in resolve_aovs(RC, same).items()}
+        same = splat_frame(cfg, RC, _scene(),
+                           jax_stream_to_torch(want["stream"]), m,
+                           po_lens=tlens, po_state=tstate)
+    got["same_stream"] = {k: v.numpy()
+                          for k, v in resolve_aovs(RC, same).items()}
     got["same_stream"]["image"] = resolve_imager(RC, same).numpy()
     return got, want
 
@@ -180,8 +267,9 @@ def test_resolve_gaussian_matches_jax(renders):
     from pota_tpu_torch.render.renderer import resolve_gaussian
 
     js = {k: renders[1]["stream"][k] for k in ("ox", "oy", "rgba")}
-    want = np.asarray(jax_resolve(RC, js))
-    got = resolve_gaussian(RC, {k: torch.as_tensor(v) for k, v in js.items()})
+    want = np.asarray(jax_resolve(to_jax(RC), js))
+    got = resolve_gaussian(RC,
+                           {k: torch.as_tensor(v) for k, v in js.items()})
     assert float(np.abs(want).max()) > 1e-3
     assert scaled_err(got, want) < SAME_STREAM_TOL
 
@@ -195,8 +283,9 @@ def test_energy_conservation(renders):
     assert int((got["raw"]["filter_weight"] > 0).sum()) > npix // 2
 
 
-# the thin-lens splat with these settings takes JAX's decomposed branch,
-# which is not ported (ROADMAP Q1.9); on the PO lens they now run
+# the thin-lens splat with these settings takes JAX's decomposed branch;
+# refused before the port had it, each now renders an 8x8 frame that is
+# held against JAX's splat of the same sample stream
 @pytest.mark.parametrize("change, match", [
     ({"camera_type": pt.CameraType.THIN_LENS, "abb_coma": 0.5}, "thin-lens"),
     ({"camera_type": pt.CameraType.THIN_LENS, "abb_chromatic": 0.5},
@@ -206,14 +295,27 @@ def test_energy_conservation(renders):
     ({"camera_type": pt.CameraType.THIN_LENS, "aperture_blades": 5}, "blade"),
 ])
 def test_unported_configs_raise(port_po, change, match):
-    import dataclasses
+    from pota_tpu_torch.render import splat as tsplat
 
-    cfg, lens, state = port_po
-    cfg = dataclasses.replace(cfg, **change)
-    with pytest.raises(NotImplementedError, match=match):
-        render_frame(cfg, pt.RenderConfig(xres=8, yres=8, spp=1), _scene(),
-                     look_at([0, 0, 0], [0, 0, -1]), po_lens=lens,
-                     po_state=state)
+    cfg = dataclasses.replace(port_po[0], **change)
+    pair = splat_pair(cfg, pt.RenderConfig(xres=8, yres=8, spp=2),
+                      gc.sc.teapot_scene(), sc.teapot_scene(device="cpu"),
+                      cdf=ring_cdfs())
+    assert tsplat.LAST_ROUTE == "decomposed_tl"
+    assert_splat_pair_close(pair)
+
+
+def ring_cdfs():
+    """The golden configs' procedural ring aperture
+    (``golden_configs.py::_bokeh_ring_cdf``): JAX's tables and the port's
+    copy of them."""
+    from pota_tpu_torch.render.bokeh_image import bokeh_image_from_numpy
+
+    jb = gc._bokeh_ring_cdf()
+    tables = [np.asarray(getattr(jb, k)) for k in (
+        "cdf_row", "row_indices", "cdf_col", "col_indices", "alias_prob",
+        "alias_idx")]
+    return jb, bokeh_image_from_numpy(*tables, jb.resolution, device="cpu")
 
 
 @pytest.mark.parametrize("kwargs, rc_kw, match", [
@@ -221,9 +323,22 @@ def test_unported_configs_raise(port_po, change, match):
     ({"cam_to_world_end": torch.eye(4)}, {}, "motion blur"),
     ({}, {"enable_id_matte": True}, "id-matte"),
 ])
-def test_unported_options_raise(port_po, kwargs, rc_kw, match):
+def test_unported_options_raise(jax_po, port_po, kwargs, rc_kw, match):
+    """The id-matte and the differentiable mode are refused; motion blur,
+    refused before the port had it, renders an 8x8 frame held against
+    JAX's splat of the same stream."""
     cfg, lens, state = port_po
+    rc = pt.RenderConfig(xres=8, yres=8, spp=1, **rc_kw)
+    if "cam_to_world_end" in kwargs:
+        end = look_at([2.0, 0, 0], [2.0, 0, -1], device="cpu")
+        pair = splat_pair(
+            cfg, rc, gc.sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0,
+                                           radius=1.0, intensity=40.0),
+            _scene(), m_end=end.numpy(),
+            po=(jax_po[1:], (lens, state)))
+        assert_splat_pair_close(pair)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        render_frame(cfg, pt.RenderConfig(xres=8, yres=8, spp=1, **rc_kw),
-                     _scene(), look_at([0, 0, 0], [0, 0, -1]), po_lens=lens,
-                     po_state=state, **kwargs)
+        render_frame(cfg, rc, _scene(),
+                     look_at([0, 0, 0], [0, 0, -1], device="cpu"),
+                     po_lens=lens, po_state=state, **kwargs)

@@ -3,8 +3,11 @@ aberration helpers, the forward trace ``trace_fw_thinlens`` in every
 aberration branch, K5's plain version against the Pallas thin-lens splat
 kernel in interpret mode, the thin-lens frame at the ``thinlens_teapot``
 golden configuration (64x64, 4 spp, teapot scene) against the committed
-golden and against JAX's expanded branch on the same stream, and the
-configurations the port still refuses.
+golden and against JAX's expanded branch on the same stream, the
+configurations the port still refuses, and 8x8 frames of the settings it
+refused before it had JAX's decomposed splat (held against JAX's splat of
+the same sample stream to 1e-6 of scale, as ``tests/test_torch_slice.py``
+holds its same-stream splat).
 
 Tolerances, each set from the value measured on these inputs:
 - the aberration helpers and the forward trace are the same float32 ops in
@@ -38,7 +41,13 @@ from pota_tpu.render import splat as jsplat
 
 import golden_configs as gc
 from tests.test_torch_optics import scaled_err
-from tests.test_torch_slice import frac_pixels_off
+from tests.test_torch_slice import (
+    assert_splat_pair_close,
+    frac_pixels_off,
+    ring_cdfs,
+    splat_pair,
+    to_port,
+)
 
 from pota_tpu_torch.ops import po_kernels as pk
 from pota_tpu_torch.optics import aberrations as tab
@@ -56,6 +65,8 @@ PIXEL_TOL, MAX_PIXELS_OFF, ENERGY_TOL = 2e-3, 0.02, 1e-3
 TL_CFG = CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
                       vignetting_retries=2, splat_queue_mult=6)
 TL_RC = RenderConfig(xres=64, yres=64, spp=4)
+# the port's copies of the two
+TL_CFG_T, TL_RC_T = to_port(TL_CFG), to_port(TL_RC)
 
 
 def _t(a):
@@ -145,12 +156,13 @@ def test_trace_fw_thinlens_matches_jax(case):
     key = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
     jcdf = tcdf = None
     if case == "image_bokeh":
-        jcdf, tcdf = jbuild(_ring_pixels()), build_bokeh_cdf(_ring_pixels())
+        jcdf = jbuild(_ring_pixels())
+        tcdf = build_bokeh_cdf(_ring_pixels(), device="cpu")
     want = jtl.trace_fw_thinlens(
         cfg, *(jnp.asarray(a) for a in (sx, sy, r1, r2)),
         retry_key=jnp.asarray(key), bokeh_cdf=jcdf)
     got = ttl.trace_fw_thinlens(
-        cfg, *(_t(a) for a in (sx, sy, r1, r2)),
+        to_port(cfg), *(_t(a) for a in (sx, sy, r1, r2)),
         retry_key=_t(key.astype(np.int64)), bokeh_cdf=tcdf)
     tries_w = np.asarray(want[3])
     np.testing.assert_array_equal(got[3].numpy(), tries_w)
@@ -176,7 +188,8 @@ def test_splat_params_without_po_state():
     cfg = dataclasses.replace(TL_CFG, bokeh_anamorphic=0.3)
     want = np.asarray(po_pallas.splat_kernel_params(cfg, TL_RC, None,
                                                     jnp.asarray(m)))[0]
-    got = pk.splat_kernel_params(cfg, TL_RC, None, torch.as_tensor(m))
+    got = pk.splat_kernel_params(to_port(cfg), TL_RC_T, None,
+                                 torch.as_tensor(m))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -232,15 +245,17 @@ def tl_renders():
                                                               jfb).items()}
     want["raw_rgba"] = np.asarray(jfb["RGBA"])
 
-    m = look_at([0, 0, 0], [0, 0, -1])
-    img, fb = render_frame(TL_CFG, TL_RC, sc.teapot_scene(), m, seed=0)
+    m = look_at([0, 0, 0], [0, 0, -1], device="cpu")
+    img, fb = render_frame(TL_CFG_T, TL_RC_T, sc.teapot_scene(device="cpu"),
+                           m, seed=0)
     tjs = {k: torch.as_tensor(np.asarray(v)) for k, v in js.items()}
     for k in ("px", "py", "sid", "key"):
         tjs[k] = tjs[k].to(torch.int64)
     with torch.no_grad():
-        same = splat_frame(TL_CFG, TL_RC, sc.teapot_scene(), tjs, m)
+        same = splat_frame(TL_CFG_T, TL_RC_T, sc.teapot_scene(device="cpu"),
+                           tjs, m)
     got = {"image": img.numpy(), "raw": {k: v.numpy() for k, v in fb.items()},
-           "same": {k: v.numpy() for k, v in resolve_aovs(TL_RC,
+           "same": {k: v.numpy() for k, v in resolve_aovs(TL_RC_T,
                                                           same).items()},
            "same_raw_rgba": same["RGBA"].numpy()}
     return got, want, path
@@ -281,52 +296,77 @@ def test_tl_render_matches_golden(tl_renders):
 # ------------------------------------------------------------- refusals
 
 
+# case -> (camera changes, render changes, splat_frame options, refusal);
+# the cases with no refusal were refused before the port had JAX's
+# decomposed splat and now render
 REFUSALS = {
-    "tl_coma": ({"abb_coma": 0.5}, {}, {}, "coma"),
-    "tl_chromatic": ({"abb_chromatic": 0.5}, {}, {}, "chromatic"),
+    "tl_coma": ({"abb_coma": 0.5}, {}, {}, None),
+    "tl_chromatic": ({"abb_chromatic": 0.5}, {}, {}, None),
     "tl_optical_vignetting": ({"optical_vignetting_distance": 2.0}, {}, {},
-                              "optical vignetting"),
-    "tl_distortion": ({"abb_distortion": 0.1}, {}, {}, "distortion"),
-    "tl_image_bokeh": ({"bokeh_enable_image": True}, {}, {}, "image bokeh"),
-    "tl_blades": ({"aperture_blades": 6}, {}, {}, "blade"),
-    "motion_blur": ({}, {}, {"cam_to_world_end": torch.eye(4)},
-                    "motion blur"),
+                              None),
+    "tl_distortion": ({"abb_distortion": 0.1}, {}, {}, None),
+    "tl_image_bokeh": ({"bokeh_enable_image": True}, {}, {}, None),
+    "tl_blades": ({"aperture_blades": 6}, {}, {}, None),
+    "motion_blur": ({}, {}, {"m_end": "pan"}, None),
     "id_matte": ({}, {"enable_id_matte": True}, {}, "id-matte"),
-    "gaussian_aovs": ({}, {}, {"aovs": "extra"}, "gaussian AOVs"),
+    "gaussian_aovs": ({}, {}, {"aovs": "extra"}, None),
     "differentiable": ({}, {}, {"differentiable": True}, "differentiable"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_check_supported_refuses(case):
+    """The id-matte and the differentiable mode are refused, naming the
+    ROADMAP item that ports them.  Every other case renders an 8x8 teapot
+    frame of its setting whose splat of JAX's sample stream equals JAX's
+    to 1e-6 of scale (the aberrated settings and motion blur through the
+    decomposed route, the extra gaussian AOV through K5)."""
+    from pota_tpu.render import scene as jsc
+
+    from pota_tpu_torch.render import splat as tsplat
     from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
 
     cfg_kw, rc_kw, kw, match = REFUSALS[case]
-    cfg = dataclasses.replace(TL_CFG, **cfg_kw)
-    rc = dataclasses.replace(RenderConfig(xres=8, yres=8, spp=1), **rc_kw)
+    cfg = dataclasses.replace(TL_CFG_T, **cfg_kw)
+    rc = dataclasses.replace(to_port(RenderConfig(xres=8, yres=8, spp=2)),
+                             **rc_kw)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            check_supported(cfg, rc, **kw)
+        # the ROADMAP item that ports it is named
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Q1\.(8|10)"):
+            check_supported(cfg, rc, **kw)
+        return
+    check_supported(cfg, rc)
+    opts = {}
     if kw.get("aovs") == "extra":
-        kw = {"aovs": list(DEFAULT_AOVS)
-              + [AOVSpec("extra", "RGBA", GAUSSIAN, "rgba")]}
-    with pytest.raises(NotImplementedError, match=match):
-        check_supported(cfg, rc, **kw)
-    # the ROADMAP item that ports it is named
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Q1\.(8|9|10)"):
-        check_supported(cfg, rc, **kw)
+        opts["aovs"] = list(DEFAULT_AOVS) + [
+            AOVSpec("extra", "RGBA", GAUSSIAN, "rgba")]
+    if kw.get("m_end") == "pan":
+        opts["m_end"] = look_at([3.0, 0, 0], [3.0, 0, -1], device="cpu").numpy()
+    pair = splat_pair(cfg, rc, jsc.teapot_scene(),
+                      sc.teapot_scene(device="cpu"), cdf=ring_cdfs(), **opts)
+    assert tsplat.LAST_ROUTE == ("k5" if case == "gaussian_aovs"
+                                 else "decomposed_tl")
+    assert_splat_pair_close(pair)
 
 
 def test_aberrated_thin_lens_forward_only_is_not_refused():
-    """Only the splat is unported for the aberrated thin lens: with
-    redistribution off the forward render runs, and ``splat_frame`` itself
-    still refuses."""
-    cfg = dataclasses.replace(TL_CFG, abb_coma=0.5,
+    """With redistribution off the aberrated thin lens renders forward only;
+    with it on, its splat of JAX's stream equals JAX's."""
+    from pota_tpu.render import scene as jsc
+
+    cfg = dataclasses.replace(TL_CFG_T, abb_coma=0.5,
                               optical_vignetting_distance=2.0)
-    rc = RenderConfig(xres=8, yres=8, spp=2, enable_redistribution=False)
-    m = look_at([0, 0, 0], [0, 0, -1])
-    img, fb = render_frame(cfg, rc, sc.teapot_scene(), m)
+    rc = to_port(RenderConfig(xres=8, yres=8, spp=2,
+                              enable_redistribution=False))
+    m = look_at([0, 0, 0], [0, 0, -1], device="cpu")
+    img, fb = render_frame(cfg, rc, sc.teapot_scene(device="cpu"), m)
     assert fb == {} and img.shape == (8, 8, 4)
     assert bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="coma"):
-        splat_frame(cfg, rc, sc.teapot_scene(), {}, m)
+    pair = splat_pair(cfg, dataclasses.replace(rc, enable_redistribution=True),
+                      jsc.teapot_scene(), sc.teapot_scene(device="cpu"))
+    assert_splat_pair_close(pair)
 
 
 @pytest.mark.parametrize("change", [
@@ -335,4 +375,8 @@ def test_aberrated_thin_lens_forward_only_is_not_refused():
 def test_thin_lens_settings_k5_takes_are_not_refused(change):
     """K5 carries the spherical bias, the squircle and the anamorphic
     squeeze: JAX's expanded branch takes these settings."""
-    check_supported(dataclasses.replace(TL_CFG, **change), TL_RC)
+    from pota_tpu_torch.render.splat import _k5_takes
+
+    cfg = dataclasses.replace(TL_CFG_T, **change)
+    check_supported(cfg, TL_RC_T)
+    assert _k5_takes(cfg)
