@@ -34,14 +34,21 @@ for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (an FMA is two; the integer TEA-8 draws are not counted),
 counted from the kernel's code and this run's shapes and exponent table
-(:func:`solve_flops`, :func:`forward_flops`).  ``library_ms`` is the time of
-one PyTorch call computing the same function, where one exists (K2:
-``index_select`` over both tables), else null.
+(:func:`solve_flops`, :func:`forward_flops`, and for K3's flagship
+instantiation :func:`basis_solve_flops`, the solve it runs).  K3's flagship
+record adds ``design_bound_ms`` (its ``bound_ms``, by that name),
+``runtime_term_bound_ms`` (the same bound for the runtime-term solve of
+``po_solve.cuh`` it ran before), its registers and spill bytes, and how
+often it, the runtime-term solve and its plain version each disagree with
+a float64 solve of the same slots (:func:`k3_f64_witness`).
+``library_ms`` is the time of one PyTorch call computing the same function,
+where one exists (K2: ``index_select`` over both tables), else null.
 The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import statistics
@@ -105,6 +112,17 @@ def solve_flops(exps, iterations: int) -> float:
     per_term = (np.maximum(e[:, :4] - 1, 0).sum(1) + 8 + e[:, 4] + 18 + 60)
     final = e.sum(1) + 10
     return float(iterations * (per_term.sum() + 400) + final.sum())
+
+
+def basis_solve_flops(iterations: int) -> float:
+    """f32 operations of one backward solve on the folded table
+    (``csrc/po_solve_basis.cuh``): per Newton iteration 2,436 FMAs over the
+    126-monomial basis and its 70 Jacobian monomials, 125 multiplies for
+    the monomials, 8 for the conditioning and about 400 for the chart,
+    residual and 4x4 solve; then the final three-row evaluation (378 FMAs,
+    125 multiplies, 8 for the conditioning)."""
+    return float(iterations * (2 * 2436 + 125 + 8 + 400)
+                 + 2 * 378 + 125 + 8)
 
 
 def forward_flops(ap_exps, pt_exps, iterations: int) -> float:
@@ -195,10 +213,35 @@ def ring_pixels(n: int = 32, lo: float = 0.5) -> np.ndarray:
     return np.stack([ring] * 3, -1)
 
 
+def k3_f64_witness(plain, args):
+    """K3's function in float64 on K3's captured arguments: its plain
+    version ``plain`` on float64 copies of the lens and of the float
+    inputs, at the frame's wavelength unrounded.  The aperture point is
+    drawn in float32, as kernel and plain version draw it.
+    Returns (lin, ok)."""
+    import torch
+
+    lens64 = copy.deepcopy(args[0]).double()
+    rest = [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+            for t in args[1:]]
+    return plain_chunked(plain, (lens64, *rest), slice(1, 10))
+
+
+def disagreement(lin, ok, lin_w, ok_w) -> dict:
+    """Shares of slots on which (lin, ok) disagrees with a witness: ``ok``
+    over all slots, ``lin`` over the slots both keep."""
+    both = ok & ok_w
+    return dict(ok=float((ok != ok_w).double().mean()),
+                lin=float((lin[both] != lin_w[both]).double().mean()))
+
+
 def check_splat_kernel(name, kern, plain, args, items, source, replaces,
-                       bytes_per_slot, flops_per_slot, plain_reps=5):
+                       bytes_per_slot, flops_per_slot, plain_reps=5,
+                       witness=None):
     """Hold a splat kernel (K3, its variants, K5) to its plain version on
-    captured main-path arguments; return its record."""
+    captured main-path arguments; return its record.  ``witness``, if
+    given, takes the kernel's and the plain version's (lin, ok) and returns
+    more fields for the record."""
     lin_g, ok_g = kern(*args)
     lin_p, ok_p = plain_chunked(plain, args, items)
     s = lin_g.shape[0]
@@ -211,6 +254,7 @@ def check_splat_kernel(name, kern, plain, args, items, source, replaces,
           f"{float(ok_g.double().mean()):.4f})", flush=True)
     if ok_agree < MASK_AGREE or lin_agree < MASK_AGREE:
         fail(f"{name} disagrees with its plain version")
+    extra = witness(lin_g, ok_g, lin_p, ok_p) if witness else {}
     del lin_g, ok_g, lin_p, ok_p, both
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=median_ms(lambda: kern(*args)),
@@ -218,7 +262,7 @@ def check_splat_kernel(name, kern, plain, args, items, source, replaces,
                                    plain_reps),
                 **bound(bytes_per_slot * s, flops_per_slot * s),
                 library_ms=None, n=int(s), ok_agree=ok_agree,
-                lin_agree=lin_agree)
+                lin_agree=lin_agree, **extra)
 
 
 def main() -> int:
@@ -261,11 +305,12 @@ def main() -> int:
     flag_k3 = [v for k, v in entries.items() if "po_splat_kernelILi0E" in k]
     if len(flag_k3) != 1:
         fail("no ptxas report for the flagship K3 instantiation")
-    print(f"K3 flagship instantiation (SPLAT_DISK): "
-          f"{flag_k3[0].get('registers')} registers, "
-          f"{flag_k3[0].get('stack')} bytes stack frame, "
-          f"{flag_k3[0].get('spill_stores')} bytes spill stores, "
-          f"{flag_k3[0].get('spill_loads')} bytes spill loads", flush=True)
+    flag_k3 = flag_k3[0]
+    print(f"K3 flagship instantiation (SPLAT_DISK, the basis solve): "
+          f"{flag_k3.get('registers')} registers, "
+          f"{flag_k3.get('stack')} bytes stack frame, "
+          f"{flag_k3.get('spill_stores')} bytes spill stores, "
+          f"{flag_k3.get('spill_loads')} bytes spill loads", flush=True)
 
     # the flagship configuration (bench.py:192-201)
     cfg = pt.CameraConfig(
@@ -374,11 +419,46 @@ def main() -> int:
 
         # K3: PO splat, S slots
         a3 = rec["po_splat"]
-        records.append(check_splat_kernel(
+
+        def k3_witness(lin_g, ok_g, lin_p, ok_p):
+            """Which of K3, the runtime-term solve (K3's lam variant at the
+            frame's wavelength, the solve K3 ran before the folded basis)
+            and the f32 plain version loses the slots they disagree on,
+            against the float64 solve."""
+            lin_w, ok_w = k3_f64_witness(pk.po_splat_plain, a3)
+            lam_q = torch.full_like(a3[1], a3[12])
+            lin_r, ok_r = pk.po_splat_lam(a3[0], *a3[1:9], lam_q, *a3[9:12],
+                                          a3[13])
+            off = {"kernel": disagreement(lin_g, ok_g, lin_w, ok_w),
+                   "runtime_term_kernel": disagreement(lin_r, ok_r, lin_w,
+                                                       ok_w),
+                   "plain_f32": disagreement(lin_p, ok_p, lin_w, ok_w)}
+            for who, d in off.items():
+                print(f"po_splat f64 witness: {who} disagrees on ok "
+                      f"{d['ok'] * 100:.6f}% of slots, on lin "
+                      f"{d['lin'] * 100:.6f}% of slots both keep", flush=True)
+            return dict(f64_disagreement=off)
+
+        k3 = check_splat_kernel(
             "po_splat", pk.po_splat, pk.po_splat_plain, a3, slice(1, 10),
             "pota_tpu_torch/csrc/po_splat.cu", f"{TPU_KERNELS}:697", 41.0,
-            solve_flops(lens.pt.exponents, a3[12]) + splat_extra + 20,
-            plain_reps=3))
+            basis_solve_flops(a3[13]) + splat_extra + 20, plain_reps=3,
+            witness=k3_witness)
+        k3.update(
+            design_bound_ms=k3["bound_ms"],
+            runtime_term_bound_ms=bound(41.0 * k3["n"], k3["n"] * (
+                solve_flops(lens.pt.exponents, a3[13]) + splat_extra
+                + 20))["bound_ms"],
+            registers=flag_k3.get("registers"),
+            spill_bytes=(flag_k3.get("spill_stores", 0)
+                         + flag_k3.get("spill_loads", 0)))
+        print(f"po_splat (flagship, basis solve): {k3['ms']:.3f} ms, bound "
+              f"{k3['bound_ms']:.3f} ms ({k3['bound_by']}, the basis solve), "
+              f"runtime-term solve's bound "
+              f"{k3['runtime_term_bound_ms']:.3f} ms, "
+              f"{k3['registers']} registers, {k3['spill_bytes']} spill bytes "
+              f"{tag}", flush=True)
+        records.append(k3)
         del a3
 
         # K4: segment accumulate, W writers

@@ -23,64 +23,72 @@
 // Returns (lin int32, ok uint8).
 //
 // What bounds it on the H100: arithmetic.  Each Newton iteration evaluates
-// the 160-term polynomial for six outputs with four tangents each
-// (6 x 5 FMAs per term) plus the chart and a blocked 4x4 solve; the slot's
-// memory traffic is 40 bytes in, 5 bytes out.
+// six polynomial rows with four tangents each, plus the chart and a blocked
+// 4x4 solve; the slot's memory traffic is 40 bytes in, 5 bytes out.
 //
-// Design: one thread per slot, a grid-stride loop.  Steps 2-3 are
-// po_backward_solve (po_solve.cuh), the forward-mode Newton shared with K6:
-// the polynomial accumulates (value, d/dx, d/dy, d/ddx, d/ddy) from
-// per-term powers and their derivatives, and a small dual type (D4)
-// carries the tangents through the pupil chart and the residual.  The
-// polynomial (int8 exponents, the [7, T] coefficient rows apx, apy,
-// o0..o3, trans) and the sphere table are runtime data in shared memory:
-// one build serves every lens and scene.  In the per-slot-wavelength modes
-// the conditioned wavelength is per thread; the flagship keeps it
-// block-uniform, out of the slot loop, which holds its register count at
-// 126.
-#include "po_solve.cuh"
+// Design: one thread per slot, a grid-stride loop.  Steps 2-3 are the
+// backward solve.  SPLAT_DISK, whose slots share the frame's wavelength,
+// runs po_basis_solve (po_solve_basis.cuh): the polynomial folded at that
+// wavelength onto the compile-time degree-5 basis, its Jacobian rows
+// tabulated, both walked fully unrolled from shared memory.  The
+// per-slot-wavelength modes run po_backward_solve (po_solve.cuh, shared
+// with K6): the runtime term set (int8 exponents, the [7, T] coefficient
+// rows apx, apy, o0..o3, trans) with forward-mode tangents.  A small dual
+// type (D4) carries the tangents through the pupil chart and the residual
+// in both.  The tables and the sphere table are runtime data in shared
+// memory: one build serves every lens and scene.
+#include "po_solve_basis.cuh"
 
 namespace pota {
 
 enum SplatMode : int { SPLAT_DISK = 0, SPLAT_DISK_LAM = 1, SPLAT_EXTERNAL = 2 };
 
+// Threads per block.  SPLAT_DISK takes 256, so each block's load of the
+// 10.8 KB folded table serves twice the slots; at its 126 registers that is
+// 2 blocks (16 warps) an SM, as 4 blocks of 128 would be.
+constexpr int kDiskThreads = 256;
+__host__ __device__ constexpr int splat_threads(int mode) {
+  return mode == SPLAT_DISK ? kDiskThreads : 128;
+}
+
 // a_in / b_in: (seed, counter) uint32 words in the disk modes, the aperture
 // point (mm) in SPLAT_EXTERNAL; lam_in: the per-slot wavelength (um), unused
-// by SPLAT_DISK
+// by SPLAT_DISK.  g_tab: SPLAT_DISK's folded table (basis::kTableFloats
+// floats), else the [7, T] coefficient rows with the int8 exponents g_e
+// [T, 5] and the conditioning cond (scale[5], shift[5]).
 template <int MODE>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(splat_threads(MODE))
 po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
                 const float* __restrict__ pcz, const float* __restrict__ pwx,
                 const float* __restrict__ pwy, const float* __restrict__ pwz,
                 const void* __restrict__ a_in, const void* __restrict__ b_in,
                 const float* __restrict__ lam_in, const float* __restrict__ sky,
-                int n, const int8_t* __restrict__ g_e,
-                const float* __restrict__ g_c, int T,
+                int n, const float* __restrict__ g_tab, int n_tab,
+                const int8_t* __restrict__ g_e, int T,
                 const float* __restrict__ cond, const float* __restrict__ lensc,
                 int chart, int iterations, const float* __restrict__ g_par,
                 const float* __restrict__ g_sph, int n_sph,
                 int* __restrict__ lin_out, uint8_t* __restrict__ ok_out) {
-  extern __shared__ float smem[];
-  float* s_c = smem;                    // [7, T]
-  float* s_sph = s_c + 7 * T;           // [n_sph, 4]
+  extern __shared__ __align__(16) float smem[];
+  float* s_tab = smem;                  // n_tab
+  float* s_sph = s_tab + n_tab;         // [n_sph, 4]
   float* s_par = s_sph + 4 * n_sph;     // [32]
-  float* s_cond = s_par + SP_COUNT;     // scale[5], shift[5]
-  float* s_lens = s_cond + 10;          // PoLens
-  int8_t* s_e = (int8_t*)(s_lens + 8);  // [T, 5]
-  block_load(s_c, g_c, 7 * T);
+  float* s_lens = s_par + SP_COUNT;     // PoLens
+  float* s_cond = s_lens + 8;           // scale[5], shift[5]
+  int8_t* s_e = (int8_t*)(s_cond + 10);  // [T, 5]
+  block_load(s_tab, g_tab, n_tab);
   block_load(s_sph, g_sph, 4 * n_sph);
   block_load(s_par, g_par, (int)SP_COUNT);
-  block_load(s_cond, cond, 10);
   block_load(s_lens, lensc, 8);
-  block_load(s_e, g_e, 5 * T);
+  if constexpr (MODE != SPLAT_DISK) {
+    block_load(s_cond, cond, 10);
+    block_load(s_e, g_e, 5 * T);
+  }
   __syncthreads();
 
   const PoLens L{s_lens[0], s_lens[1], s_lens[2], s_lens[3],
                  s_lens[4], s_lens[5], s_lens[6], s_lens[7]};
-  const float scale[4] = {s_cond[0], s_cond[1], s_cond[2], s_cond[3]};
-  const float shift[4] = {s_cond[5], s_cond[6], s_cond[7], s_cond[8]};
   const float ap_radius = s_par[SP_AP_RADIUS];
-  const float ul_frame = (s_par[SP_LAMBDA] - s_cond[9]) * s_cond[4];
 
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
@@ -95,8 +103,6 @@ po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
       ax = ux_ * ap_radius;
       ay = uy_ * ap_radius;
     }
-    float ul = ul_frame;
-    if constexpr (MODE != SPLAT_DISK) ul = (lam_in[i] - s_cond[9]) * s_cond[4];
 
     // backward target is -p_cam * 10 (ref src/lentil_filter.cpp:271)
     const float px = pcx[i] * -10.0f;
@@ -104,9 +110,16 @@ po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
     const float pz = pcz[i] * -10.0f;
 
     float s[4];
-    const float tr = po_backward_solve(s_e, s_c, T, scale, shift, ul, L,
-                                       chart, iterations, px, py, pz, ax, ay,
-                                       s);
+    float tr;
+    if constexpr (MODE == SPLAT_DISK) {
+      tr = po_basis_solve(s_tab, L, chart, iterations, px, py, pz, ax, ay, s);
+    } else {
+      const float scale[4] = {s_cond[0], s_cond[1], s_cond[2], s_cond[3]};
+      const float shift[4] = {s_cond[5], s_cond[6], s_cond[7], s_cond[8]};
+      const float ul = (lam_in[i] - s_cond[9]) * s_cond[4];
+      tr = po_backward_solve(s_e, s_tab, T, scale, shift, ul, L, chart,
+                             iterations, px, py, pz, ax, ay, s);
+    }
 
     const float x = s[0], y = s[1], dx = s[2], dy = s[3];
     const float ipx = x + dx * L.bfl;
@@ -147,38 +160,40 @@ template <int MODE>
 static int launch_po_splat(const float* pcx, const float* pcy, const float* pcz,
                            const float* pwx, const float* pwy, const float* pwz,
                            const void* a, const void* b, const float* lam,
-                           const float* sky, int n, const int8_t* exps,
-                           const float* coeffs, int T, const float* cond,
-                           const float* lensc, int chart, int iterations,
-                           const float* params, const float* spheres,
-                           int n_spheres, int* lin, uint8_t* ok,
-                           cudaStream_t stream) {
+                           const float* sky, int n, const float* tab,
+                           int n_tab, const int8_t* exps, int T,
+                           const float* cond, const float* lensc, int chart,
+                           int iterations, const float* params,
+                           const float* spheres, int n_spheres, int* lin,
+                           uint8_t* ok, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * (7 * (size_t)T + 4 * (size_t)n_spheres +
-                                       pota::SP_COUNT + 10 + 8) +
+  const size_t smem = sizeof(float) * ((size_t)n_tab + 4 * (size_t)n_spheres +
+                                       pota::SP_COUNT + 8 + 10) +
                       5 * (size_t)T;
   if (smem > pota::kSmemDefaultMax) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
+  constexpr int threads = pota::splat_threads(MODE);
   pota::po_splat_kernel<MODE>
       <<<pota::grid_for(n, threads), threads, smem, stream>>>(
-          pcx, pcy, pcz, pwx, pwy, pwz, a, b, lam, sky, n, exps, coeffs, T,
-          cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok);
+          pcx, pcy, pcz, pwx, pwy, pwz, a, b, lam, sky, n, tab, n_tab, exps,
+          T, cond, lensc, chart, iterations, params, spheres, n_spheres, lin,
+          ok);
   return (int)cudaGetLastError();
 }
 
+// table: the folded solve table of the frame's wavelength
+// (po_kernels.py fold_solve_tables, pota::basis::kTableFloats floats)
 extern "C" int pota_po_splat(const float* pcx, const float* pcy, const float* pcz,
                              const float* pwx, const float* pwy, const float* pwz,
                              const uint32_t* seed, const uint32_t* ctr,
-                             const float* sky, int n, const int8_t* exps,
-                             const float* coeffs, int T, const float* cond,
+                             const float* sky, int n, const float* table,
                              const float* lensc, int chart, int iterations,
                              const float* params, const float* spheres,
                              int n_spheres, int* lin, uint8_t* ok,
                              cudaStream_t stream) {
   return launch_po_splat<pota::SPLAT_DISK>(
-      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, nullptr, sky, n, exps, coeffs,
-      T, cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
-      stream);
+      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, nullptr, sky, n, table,
+      pota::basis::kTableFloats, nullptr, 0, nullptr, lensc, chart,
+      iterations, params, spheres, n_spheres, lin, ok, stream);
 }
 
 extern "C" int pota_po_splat_lam(const float* pcx, const float* pcy,
@@ -193,9 +208,9 @@ extern "C" int pota_po_splat_lam(const float* pcx, const float* pcy,
                                  int n_spheres, int* lin, uint8_t* ok,
                                  cudaStream_t stream) {
   return launch_po_splat<pota::SPLAT_DISK_LAM>(
-      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky, n, exps, coeffs, T,
-      cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
-      stream);
+      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky, n, coeffs, 7 * T,
+      exps, T, cond, lensc, chart, iterations, params, spheres, n_spheres,
+      lin, ok, stream);
 }
 
 extern "C" int pota_po_splat_ext(const float* pcx, const float* pcy,
@@ -210,7 +225,7 @@ extern "C" int pota_po_splat_ext(const float* pcx, const float* pcy,
                                  int n_spheres, int* lin, uint8_t* ok,
                                  cudaStream_t stream) {
   return launch_po_splat<pota::SPLAT_EXTERNAL>(
-      pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky, n, exps, coeffs, T,
-      cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
+      pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky, n, coeffs, 7 * T, exps,
+      T, cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
       stream);
 }

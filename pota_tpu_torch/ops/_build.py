@@ -44,8 +44,7 @@ SIGNATURES = {
     "pota_po_forward": [_p, _p, _p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _p,
                         _f, _f, _i, _p, _p, _p, _p, _p],
     "pota_expand": [_p, _i, _p, _i, _p, _i, _i, _p, _p, _p],
-    "pota_po_splat": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _i, _p,
-                      _p, _i, _i, _p, _p, _i, _p, _p, _p],
+    "pota_po_splat": [_p] * 9 + [_i, _p, _p, _i, _i, _p, _p, _i, _p, _p, _p],
     "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i, _p, _p, _p, _p, _p],
     "pota_po_splat_lam": [_p] * 10 + [_i, _p, _p, _i, _p, _p, _i, _i, _p, _p,
                                       _i, _p, _p, _p],

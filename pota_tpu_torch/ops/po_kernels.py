@@ -22,7 +22,9 @@ code, and are what the CPU tests hold against the JAX package.
 """
 from __future__ import annotations
 
+import itertools
 import math
+import weakref
 
 import torch
 
@@ -265,13 +267,12 @@ def _disk_aperture(seed, ctr, radius):
 
 
 def po_splat_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
-                   sky, params, spheres, iterations: int = 3):
-    """Plain K3: disk aperture from (seed, counter), one wavelength.
-    Returns (lin int32 [S], ok bool [S])."""
+                   sky, params, spheres, lam_um: float, iterations: int = 3):
+    """Plain K3: disk aperture from (seed, counter), the frame's one
+    wavelength ``lam_um`` (um).  Returns (lin int32 [S], ok bool [S])."""
     ax, ay = _disk_aperture(seed, ctr, params[SP_AP_RADIUS])
     return po_splat_ext_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
-                              params[SP_LAMBDA], sky, params, spheres,
-                              iterations)
+                              lam_um, sky, params, spheres, iterations)
 
 
 def po_splat_lam_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed,
@@ -322,17 +323,105 @@ def _splat_lens_consts(lens: PolyLens, device) -> torch.Tensor:
     ], dtype=torch.float32, device=device)
 
 
-def _solve_tables(lens: PolyLens, device):
-    """The backward solve's lens tables (K3 and K6): int8 exponents [T, 5],
-    the [7, T] coefficient rows apx, apy, o0..o3, trans, the conditioning
-    and the lens constants."""
+def _check_shared_terms(lens: PolyLens) -> None:
+    """The backward solves evaluate ap's and pt's rows on one term set."""
     if not torch.equal(lens.pt.exponents, lens.ap.exponents):
         raise ValueError(
             f"lens {lens.name!r}: pt/ap term sets must be shared for the "
             "backward solve kernels (refit with a common term set)")
+
+
+def _solve_tables(lens: PolyLens, device):
+    """The backward solve's lens tables (K3's variants and K6): int8
+    exponents [T, 5], the [7, T] coefficient rows apx, apy, o0..o3, trans,
+    the conditioning and the lens constants."""
+    _check_shared_terms(lens)
     coeffs = torch.cat([lens.ap.coeffs[:2], lens.pt.coeffs[:5]]).contiguous()
     return (_exps_i8(lens.pt, device), coeffs, _cond(lens, device),
             _splat_lens_consts(lens, device))
+
+
+# ------------------------------------- the folded solve table (K3 flagship)
+# With one wavelength per frame, every term's lambda power folds into its
+# coefficient, and the solve's polynomial becomes one over the complete
+# degree-<=5 basis in the four unknowns (x, y, dx, dy): 126 monomials, known
+# at compile time, walked in this order by csrc/po_solve_basis.cuh (kExps).
+BASIS_DEGREE = 5
+BASIS = tuple((a, b, c, d)
+              for a in range(BASIS_DEGREE + 1)
+              for b in range(BASIS_DEGREE + 1 - a)
+              for c in range(BASIS_DEGREE + 1 - a - b)
+              for d in range(BASIS_DEGREE + 1 - a - b - c))
+_BASIS_POS = {m: i for i, m in enumerate(BASIS)}
+# the monomials of degree <= 4, whose Jacobian rows the table carries
+_LOW = [i for i, m in enumerate(BASIS) if sum(m) < BASIS_DEGREE]
+_HIGH = [i for i, m in enumerate(BASIS) if sum(m) == BASIS_DEGREE]
+# d/du_v of c[m + e_v] u^(m + e_v) is (m_v + 1) c[m + e_v] u^m
+_UP = [[_BASIS_POS[tuple(a + (k == v) for k, a in enumerate(BASIS[i]))]
+        for v in range(4)] for i in _LOW]
+_UP_MULT = [[BASIS[i][v] + 1.0 for v in range(4)] for i in _LOW]
+# Table layout (f32): a header of the unknowns' conditioning scale[4],
+# shift[4]; then per monomial, in basis order, a block of values in the slot
+# order FOLD_SLOTS (o0, o1, trans, apx, apy, o2, o3, 0: the final evaluation
+# reads the first four only), followed, for a monomial of degree <= 4, by
+# the derivatives d(row)/d(raw unknown v) at [8 + 4 * row + v] for the six
+# Newton rows apx, apy, o0..o3.  Blocks are 32 floats (degree <= 4) or 8,
+# so every block starts on a 16-byte boundary.
+FOLD_HEADER, FOLD_LOW_STRIDE, FOLD_HIGH_STRIDE = 8, 32, 8
+FOLD_SLOTS = (3, 4, 0, 1, 5, 6, 2)   # slot of apx, apy, o0..o3, trans
+_BLOCK_OFF = list(itertools.accumulate(
+    (FOLD_LOW_STRIDE if sum(m) < BASIS_DEGREE else FOLD_HIGH_STRIDE
+     for m in BASIS[:-1]), initial=FOLD_HEADER))
+FOLD_TABLE_FLOATS = _BLOCK_OFF[-1] + FOLD_HIGH_STRIDE   # the last is x^5
+
+
+def fold_solve_tables(lens: PolyLens, lam_um: float, device) -> torch.Tensor:
+    """The backward solve's tables for one wavelength ``lam_um`` (um), as
+    the flagship K3 kernel reads them: f32 [FOLD_TABLE_FLOATS] on
+    ``device`` (layout above).
+
+    Takes the [7, T] coefficient rows apx, apy, o0..o3, trans and the [T, 5]
+    exponents of the shared term set, folds the conditioned wavelength's
+    power ``((lam - shift_4) * scale_4) ** e_4`` into each coefficient,
+    sums the terms onto :data:`BASIS`, and forms the Newton rows'
+    derivative tables ``(m_v + 1) * c[m + e_v] * scale_v``.  Computes in
+    float64 on ``device`` and casts to f32 at the end.  Reads the exponents
+    to the host.  Raises ``ValueError`` for a lens whose folded monomials
+    fall outside the basis."""
+    dev = torch.device(device)
+    _check_shared_terms(lens)
+    _cond(lens, dev)     # the ap rows are folded with pt's conditioning
+    exps = lens.pt.exponents.cpu().tolist()
+    pos = [_BASIS_POS.get(tuple(e[:4])) for e in exps]
+    if any(p is None for p in pos):
+        raise ValueError(
+            f"lens {lens.name!r}: a term's monomial in (x, y, dx, dy) lies "
+            f"outside the degree-{BASIS_DEGREE} basis of the folded solve")
+    f64 = dict(device=dev, dtype=torch.float64)
+    scale = lens.pt.in_scale.to(**f64)
+    shift = lens.pt.in_shift.to(**f64)
+    ul = (float(lam_um) - shift[4]) * scale[4]
+    lam_pow = ul ** torch.tensor([e[4] for e in exps], **f64)
+    rows = torch.cat([lens.ap.coeffs[:2], lens.pt.coeffs[:5]]).to(**f64)
+    folded = torch.zeros((7, len(BASIS)), **f64).index_add_(
+        1, torch.tensor(pos, device=dev), rows * lam_pow)
+    slots = torch.tensor(FOLD_SLOTS, device=dev)
+    vals = torch.zeros((len(BASIS), 8), **f64)
+    vals[:, slots] = folded.T
+    low_i = torch.tensor(_LOW, device=dev)
+    # [70, 6 rows, 4 unknowns]
+    der = (folded[:6, torch.tensor(_UP, device=dev)].permute(1, 0, 2)
+           * torch.tensor(_UP_MULT, **f64)[:, None, :] * scale[:4])
+    low = torch.cat([vals[low_i], der.reshape(len(_LOW), 24)], 1)
+    off = torch.tensor(_BLOCK_OFF, device=dev)
+    table = torch.zeros((FOLD_TABLE_FLOATS,), **f64)
+    table[:4] = scale[:4]
+    table[4:8] = shift[:4]
+    table[off[low_i][:, None] + torch.arange(FOLD_LOW_STRIDE, device=dev)] = low
+    high_i = torch.tensor(_HIGH, device=dev)
+    table[off[high_i][:, None]
+          + torch.arange(FOLD_HIGH_STRIDE, device=dev)] = vals[high_i]
+    return table.to(torch.float32)
 
 
 # C order of each K3 variant's per-slot inputs; seed / ctr are int32
@@ -344,57 +433,107 @@ _PO_SPLAT_SLOTS = {
     "po_splat_ext": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "ax", "ay",
                      "lam", "sky"),
 }
+# per lens: (key, folded table) of the last wavelength and device asked for
+_FOLD_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
-def _po_splat_run(name, plain, args):
-    """Check the arguments of one K3 variant, then run its plain version
-    (CPU tensors) or launch its kernel (CUDA tensors)."""
-    names = _PO_SPLAT_SLOTS[name]
-    lens, slots = args[0], args[1:1 + len(names)]
-    params, spheres, iterations = args[1 + len(names):]
+def _folded_table(lens: PolyLens, lam_um: float, params) -> torch.Tensor:
+    """:func:`fold_solve_tables` once per lens, wavelength and device (and
+    again when a buffer of the fit is replaced or changed in place), so a
+    frame reads nothing back from the card after the first.  On a fold it
+    also checks ``lam_um`` against the wavelength ``params`` carries."""
+    device = params.device
+    bufs = (lens.ap.coeffs, lens.pt.coeffs, lens.pt.exponents,
+            lens.ap.exponents, lens.pt.in_scale, lens.pt.in_shift,
+            lens.ap.in_scale, lens.ap.in_shift)
+    key = (float(lam_um), str(device),
+           *((t.data_ptr(), t._version) for t in bufs))
+    hit = _FOLD_CACHE.get(lens)
+    if hit is None or hit[0] != key:
+        lam_f32 = torch.tensor(float(lam_um), dtype=torch.float32).item()
+        if float(params[SP_LAMBDA]) != lam_f32:
+            raise ValueError(
+                f"lam_um {lam_um} is not the wavelength of params "
+                f"({float(params[SP_LAMBDA])})")
+        hit = (key, fold_solve_tables(lens, lam_um, device))
+        _FOLD_CACHE[lens] = hit
+    return hit[1]
+
+
+def _check_po_splat(name, lens, slots, params, spheres) -> torch.device:
+    """Check one K3 variant's per-slot tensors (in the order
+    ``_PO_SPLAT_SLOTS[name]``), ``params`` and ``spheres``; returns their
+    device."""
     dev = slots[0].device
     s = slots[0].shape[0]
-    for nm, t in zip(names, slots):
+    for nm, t in zip(_PO_SPLAT_SLOTS[name], slots):
         dtype = torch.int32 if nm in ("seed", "ctr") else torch.float32
         _check(nm, t, dtype, dev, (s,))
     _check("params", params, torch.float32, dev, (SPLAT_PARAM_COUNT,))
     _check("spheres", spheres, torch.float32, dev, (spheres.shape[0], 4))
     if lens.device != dev:
         raise ValueError(f"lens on {lens.device}, slots on {dev}")
-    if dev.type == "cpu":
-        return plain(*args)
-    exps, coeffs, cond, lensc = _solve_tables(lens, dev)
+    return dev
+
+
+def _launch_po_splat(name, lens, slots, tables, params, spheres,
+                     iterations):
+    """Launch one K3 variant's kernel; ``tables`` are its lens-table
+    arguments (tensors are passed by pointer)."""
+    dev = slots[0].device
+    s = slots[0].shape[0]
     lin = torch.empty((s,), dtype=torch.int32, device=dev)
     ok = torch.empty((s,), dtype=torch.bool, device=dev)
     err = getattr(_build.lib(), f"pota_{name}")(
-        *(t.data_ptr() for t in slots), s, exps.data_ptr(),
-        coeffs.data_ptr(), coeffs.shape[1], cond.data_ptr(),
-        lensc.data_ptr(), CHARTS.index(lens.outer_chart), int(iterations),
-        params.data_ptr(), spheres.data_ptr(), spheres.shape[0],
-        lin.data_ptr(), ok.data_ptr(), _stream(dev))
+        *(t.data_ptr() for t in slots), s,
+        *(t.data_ptr() if isinstance(t, torch.Tensor) else t for t in tables),
+        CHARTS.index(lens.outer_chart), int(iterations), params.data_ptr(),
+        spheres.data_ptr(), spheres.shape[0], lin.data_ptr(), ok.data_ptr(),
+        _stream(dev))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return lin, ok
 
 
 def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
-             params, spheres, iterations: int = 3):
+             params, spheres, lam_um: float, iterations: int = 3):
     """K3 wrapper.  Per-slot inputs are f32 [S] (camera-space point, world
     point, sky flag) and int32 [S] (seed, counter: uint32 bits);
-    ``params`` is :func:`splat_kernel_params`, ``spheres`` f32 [n, 4].
-    Returns (lin int32 [S], ok bool [S])."""
-    return _po_splat_run("po_splat", po_splat_plain, (
-        lens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params, spheres,
-        iterations))
+    ``params`` is :func:`splat_kernel_params`, ``spheres`` f32 [n, 4];
+    ``lam_um`` is the frame's wavelength (um), a Python float, the one
+    ``params`` carries, at which the kernel's solve table is folded
+    (:func:`fold_solve_tables`).  Returns (lin int32 [S], ok bool [S])."""
+    slots = (pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky)
+    dev = _check_po_splat("po_splat", lens, slots, params, spheres)
+    if dev.type == "cpu":
+        return po_splat_plain(lens, *slots, params, spheres, lam_um,
+                              iterations)
+    return _launch_po_splat(
+        "po_splat", lens, slots,
+        (_folded_table(lens, lam_um, params), _splat_lens_consts(lens, dev)),
+        params, spheres, iterations)
+
+
+def _po_splat_variant(name, plain, lens, slots, params, spheres, iterations):
+    """A K3 variant on the runtime-term solve (``po_solve.cuh``): its plain
+    version for CPU tensors, its kernel for CUDA tensors."""
+    dev = _check_po_splat(name, lens, slots, params, spheres)
+    if dev.type == "cpu":
+        return plain(lens, *slots, params, spheres, iterations)
+    exps, coeffs, cond, lensc = _solve_tables(lens, dev)
+    return _launch_po_splat(name, lens, slots,
+                            (exps, coeffs, coeffs.shape[1], cond, lensc),
+                            params, spheres, iterations)
 
 
 def po_splat_lam(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
                  lam, sky, params, spheres, iterations: int = 3):
     """K3 ``lam_input`` wrapper: as :func:`po_splat`, with a wavelength
     ``lam`` f32 [S] (um) per slot (the chromatic splat)."""
-    return _po_splat_run("po_splat_lam", po_splat_lam_plain, (
-        lens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky, params,
-        spheres, iterations))
+    return _po_splat_variant(
+        "po_splat_lam", po_splat_lam_plain, lens,
+        (pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky), params, spheres,
+        iterations)
 
 
 def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam,
@@ -402,9 +541,10 @@ def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam,
     """K3 external-aperture wrapper: the aperture point ``ax, ay`` f32 [S]
     (mm) and wavelength ``lam`` f32 [S] come per slot (image bokeh, blade
     apertures)."""
-    return _po_splat_run("po_splat_ext", po_splat_ext_plain, (
-        lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky, params,
-        spheres, iterations))
+    return _po_splat_variant(
+        "po_splat_ext", po_splat_ext_plain, lens,
+        (pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky), params, spheres,
+        iterations)
 
 
 # ---------------------------------------------------- K6: PO backward solve

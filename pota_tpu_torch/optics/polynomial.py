@@ -217,11 +217,13 @@ def lt_sample_aperture(lens: PolyLens, scene_point, ap_point, lam,
     ``ap_point`` [..., 2] the iris target (mm), ``lam`` the wavelength (um).
     The chief-ray guess floors |z| at 1e-6, as the backward kernels do
     (``po_pallas.py:387-391``); JAX's pure solver divides by z unguarded,
-    which differs only for targets at |z| < 1e-6.
+    which differs only for targets at |z| < 1e-6.  The solve runs in
+    ``scene_point``'s dtype (float64 for a reference solve), ``lam``
+    included.
     Returns (sensor5, out4, transmittance >= 0 cropped by the outer
     pupil)."""
     shape = scene_point.shape[:-1]
-    lam_b = torch.as_tensor(lam, dtype=torch.float32,
+    lam_b = torch.as_tensor(lam, dtype=scene_point.dtype,
                             device=scene_point.device).expand(shape)
     ap_b = ap_point.expand(shape + (2,))
     front_z = lens.back_focal_length + lens.lens_length

@@ -571,7 +571,8 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
         else:
             LAST_ROUTE = "k3"
             lin_splat, ok = ops.po_splat(po_lens, *slot_geo, seed_i, ctr_i,
-                                         sky_q, params, spheres, iters)
+                                         sky_q, params, spheres,
+                                         cfg.lambda_um, iters)
         if chroma:
             rgb_weight = _chroma_rgb_weight(channel, dtype)
     valid = slot_on & ok

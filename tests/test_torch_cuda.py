@@ -10,6 +10,8 @@ forward trace to 1e-3 mm on rays both versions keep, the accumulator's sums
 to 1e-4 of their scale (the plain version adds with atomics, in another
 order), gathers and winners exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -68,20 +70,32 @@ def test_po_forward_kernel_matches_plain(dev):
         assert float((g[both] - r_[both]).abs().max()) < 1e-3
 
 
-def test_expand_kernel_is_exact(dev):
+@pytest.mark.parametrize("n, s", [
+    (5000, 40000),   # 16-byte runs
+    (5000, 39998),   # ragged: S % 4 != 0, scalar runs
+    (5000, 0),       # an empty queue
+    (0, 40),         # an empty table: every index out of range gives 0
+])
+def test_expand_kernel_is_exact(dev, n, s):
     rng = np.random.default_rng(1)
-    n, s = 5000, 40000
-    src = np.sort(rng.integers(0, n, s)).astype(np.int32)
-    tf = rng.normal(size=(pk.TF_ROWS, n)).astype(np.float32)
+    src = np.sort(rng.integers(0, max(n, 1), s)).astype(np.int32)
+    tf = rng.normal(size=(pk.TF_ROWS + 1, n)).astype(np.float32)
     ti = rng.integers(-(1 << 30), 1 << 30, (pk.TI_ROWS, n)).astype(np.int32)
     got = pk.expand(_t(src, dev), _t(tf, dev), _t(ti, dev))
+    assert got[0].shape == (pk.TF_ROWS + 1, s)
+    assert got[1].shape == (pk.TI_ROWS, s)
+    if n == 0:
+        assert not bool(got[0].any()) and not bool(got[1].any())
+        return
     ref = pk.expand_plain(_t(src, dev), _t(tf, dev), _t(ti, dev))
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
-@pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
-def test_po_splat_kernel_matches_plain(dev, name):
-    lens = load_poly_lens(name, device=dev)
+@pytest.mark.parametrize("name, degree", [(FLAGSHIP, 5), (FLAGSHIP, 3),
+                                          (ANAMORPHIC, 5)])
+@pytest.mark.parametrize("lam_um", [0.55, 0.45])
+def test_po_splat_kernel_matches_plain(dev, name, degree, lam_um):
+    lens = load_poly_lens(name, degree=degree, device=dev)
     rng = np.random.default_rng(2)
     n = 50000
     pc = np.stack([rng.uniform(-60, 60, n), rng.uniform(-35, 35, n),
@@ -90,11 +104,13 @@ def test_po_splat_kernel_matches_plain(dev, name):
     ctr = rng.integers(0, 200, n).astype(np.int32)
     sky = (rng.uniform(size=n) < 0.05).astype(np.float32)
     rc = pt.RenderConfig(xres=1920, yres=1080, spp=1)
-    params = pk.splat_kernel_params(CFG, rc, STATE, torch.eye(4, device=dev))
+    cfg = dataclasses.replace(CFG, wavelength=lam_um * 1000.0)
+    params = pk.splat_kernel_params(cfg, rc, STATE, torch.eye(4, device=dev))
     spheres = _t(np.array([[x, y, -150.0, 0.8] for x in (-12.0, 0.0, 12.0)
                            for y in (-12.0, 0.0, 12.0)], np.float32), dev)
     args = (lens, *(_t(a, dev) for a in pc), *(_t(a, dev) for a in pc),
-            _t(seed, dev), _t(ctr, dev), _t(sky, dev), params, spheres, 3)
+            _t(seed, dev), _t(ctr, dev), _t(sky, dev), params, spheres,
+            lam_um, 3)
     lin_g, ok_g = pk.po_splat(*args)
     lin_p, ok_p = pk.po_splat_plain(*args)
     assert 0.05 < float(ok_p.double().mean()) < 0.99

@@ -5,6 +5,8 @@ queue they feed.
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold each one against these plain versions.
 """
+import copy
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -18,6 +20,7 @@ from pota_tpu.render import splat as jsplat
 
 from pota_tpu_torch.ops import po_kernels as pk
 from pota_tpu_torch.ops import splat_accum as tacc
+from pota_tpu_torch.optics.polynomial import lt_sample_aperture
 from pota_tpu_torch.render import splat as tsplat
 
 from tests.test_po_pallas import synthetic_lens  # noqa: F401 (fixture)
@@ -131,7 +134,7 @@ def test_po_splat_plain_matches_pallas(synthetic_lens):
         to_torch_lens(lens), *(t(a) for a in (*pc, *pw)),
         t(seeds.astype(np.int64)).to(torch.int32),
         t(ctr.astype(np.int64)).to(torch.int32), t(sky),
-        t(np.asarray(params)[0]), t(spheres), 3)
+        t(np.asarray(params)[0]), t(spheres), CFG.lambda_um, 3)
     want_lin, want_ok = np.asarray(want_lin), np.asarray(want_ok)
     got_lin, got_ok = got_lin.numpy(), got_ok.numpy()
     assert 0.2 < want_ok.mean() < 0.95     # the inputs exercise both sides
@@ -142,6 +145,37 @@ def test_po_splat_plain_matches_pallas(synthetic_lens):
     lin_agree = (got_lin[both] == want_lin[both]).mean()
     assert ok_agree >= 0.999, ok_agree
     assert lin_agree >= 0.999, lin_agree
+
+
+def test_po_splat_plain_runs_in_float64(synthetic_lens):
+    """The float64 reference solve that ``chip_smoke.py`` holds K3 to: the
+    plain version on a float64 copy of the lens and of the float inputs
+    solves in float64 with the wavelength unrounded, and agrees with the
+    float32 plain version on >= 99.9% of slots (measured: all)."""
+    lens = to_torch_lens(synthetic_lens)
+    lens64 = copy.deepcopy(lens).double()
+    assert lens.pt.coeffs.dtype == torch.float32
+    n = 4000
+    pc, pw, seeds, ctr, sky, spheres = _splat_inputs(n, 12)
+    params = pk.splat_kernel_params(to_port(CFG), to_port(RC), STATE,
+                                    torch.eye(4))
+    t = torch.as_tensor
+    ints = (t(seeds.astype(np.int64)).to(torch.int32),
+            t(ctr.astype(np.int64)).to(torch.int32))
+    lin32, ok32 = pk.po_splat_plain(lens, *(t(a) for a in (*pc, *pw)), *ints,
+                                    t(sky), params, t(spheres), 0.55, 3)
+    lin64, ok64 = pk.po_splat_plain(
+        lens64, *(t(a).double() for a in (*pc, *pw)), *ints,
+        t(sky).double(), params.double(), t(spheres).double(), 0.55, 3)
+    sensor5, _, _ = lt_sample_aperture(
+        lens64, t(pc.T).double() * -10.0,
+        torch.zeros(n, 2, dtype=torch.float64), 0.55)
+    assert sensor5.dtype == torch.float64
+    assert bool((sensor5[:, 4] == 0.55).all())
+    assert 0.2 < float(ok64.double().mean()) < 0.95
+    assert float((ok32 == ok64).double().mean()) >= 0.999
+    both = ok32 & ok64
+    assert float((lin32[both] == lin64[both]).double().mean()) >= 0.999
 
 
 # --------------------------------------------------------- K4 accumulator

@@ -13,7 +13,9 @@ Tolerances, each set from the value measured on these inputs:
 - the aberration helpers and the forward trace are the same float32 ops in
   the same order, with two libms' pow / sin / cos / exp: held to a
   scale-relative error of 1e-5 (measured at most 4.0e-7, the Cardano
-  inverse; the traces at most 1.4e-7), tries and weights exactly;
+  inverse; the traces at most 1.4e-7), tries and weights exactly; each
+  package's Rodrigues matrices are also held to a float64 oracle to 1e-6
+  of scale (measured at most 6.3e-8);
 - K5's plain version: a slot can cross a pixel edge under float32 rounding,
   so ``ok`` and ``lin`` are held to >= 99.9% agreement (measured: all
   8,000 slots agree in both settings);
@@ -58,8 +60,20 @@ from pota_tpu_torch.render.renderer import check_supported, look_at, render_fram
 from pota_tpu_torch.render.splat import resolve_aovs, splat_frame
 
 torch.set_num_threads(2)
+# PyTorch 2.13's CPU build, with two intra-op threads, now and then computes
+# the first parallel elementwise kernel of a fresh process wrongly on the
+# second thread's share: torch.cos of the 4,000 float32 angles of
+# _ab_inputs, run first thing in each of 400 fresh processes, came back up
+# to 9.3e-5 off on elements 2000-3999 in 12 of them, and right on the
+# second call in all 400; with one parallel kernel run before it, 0 of 400
+# went wrong.  The port's _rotation_matrix
+# was that first kernel when its parity test failed at 9.2e-5 (its JAX twin
+# matched a float64 Rodrigues oracle, the port did not).  So the module
+# runs one parallel kernel at import, before any test.
+torch.cos(torch.zeros(1 << 16))
 
 TRACE_TOL = 1e-5
+ROTATION_TOL = 1e-6
 PIXEL_TOL, MAX_PIXELS_OFF, ENERGY_TOL = 2e-3, 0.02, 1e-3
 # the thinlens_teapot golden configuration (tests/golden_configs.py:65-70)
 TL_CFG = CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
@@ -116,6 +130,34 @@ def test_aberrations_match_jax(name):
         np.testing.assert_array_equal(got, want)
     else:
         assert scaled_err(got, want) < TRACE_TOL
+
+
+def _rodrigues_f64(axis, angle):
+    """The rotation matrices of _rotation_matrix, in float64 numpy."""
+    x, y, z = (np.asarray(axis, np.float64)[:, k] for k in range(3))
+    a = np.asarray(angle, np.float64)
+    c, s = np.cos(a), np.sin(a)
+    oc = 1.0 - c
+    return np.stack([
+        np.stack([c + x * x * oc, x * y * oc - z * s, x * z * oc + y * s], -1),
+        np.stack([y * x * oc + z * s, c + y * y * oc, y * z * oc - x * s], -1),
+        np.stack([z * x * oc - y * s, z * y * oc + x * s, c + z * z * oc], -1),
+    ], -2)
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_rotation_matrix_matches_float64_rodrigues(package):
+    """Each package's float32 matrices against the float64 oracle, so a
+    parity failure names the side at fault: measured 5.9e-8 (JAX) and
+    6.3e-8 (the port) of scale, about one float32 rounding of entries near
+    1, held to ROTATION_TOL."""
+    _, d, _, _, ang = _ab_inputs()
+    if package == "jax":
+        got = np.asarray(jab._rotation_matrix(jnp.asarray(d), jnp.asarray(ang)))
+    else:
+        got = tab._rotation_matrix(_t(d), _t(ang)).numpy()
+    assert got.dtype == np.float32
+    assert scaled_err(got, _rodrigues_f64(d, ang)) < ROTATION_TOL
 
 
 # ------------------------------------------------------- forward trace
