@@ -13,12 +13,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                with camera motion blur), then runs kernel and plain
                PyTorch version on those inputs, asserts the tolerances and
                times both (CUDA events, median after a warm-up; the plain
-               K1 and K3 three times, everything else five)
+               K1, K3 and K6 three times, everything else five); K6 also
+               on three tables (config 3's chroma wavelengths, ``lam_idx = slot % 3``)
   4. parity    renders small frames twice, through the kernels and through
                the plain versions on CUDA tensors, and compares: the
                flagship at 256x256 @ 1 spp, config 1 at 64x64 @ 4 spp,
                config 3 at 128x128 @ 2 spp, the motion-blurred flagship at
-               256x256 @ 1 spp with an extra gaussian AOV, and the two
+               256x256 @ 1 spp with an extra gaussian AOV, config 3 with
+               image bokeh off and motion blur (K6 on three tables) at
+               128x128 @ 2 spp, and the two
                thin-lens golden configurations (tests/golden_configs.py:
                83-100) at 128x128 @ 4 spp
   5. flagship  the full 1920x1080 @ 1 spp bidirectional render (BASELINE
@@ -34,13 +37,15 @@ for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (an FMA is two; the integer TEA-8 draws are not counted),
 counted from the kernel's code and this run's shapes and exponent table
-(:func:`solve_flops`, :func:`forward_flops`, and for K3's flagship
-instantiation :func:`basis_solve_flops`, the solve it runs).  K3's flagship
-record adds ``design_bound_ms`` (its ``bound_ms``, by that name),
-``runtime_term_bound_ms`` (the same bound for the runtime-term solve of
-``po_solve.cuh`` it ran before), its registers and spill bytes, and how
-often it, the runtime-term solve and its plain version each disagree with
-a float64 solve of the same slots (:func:`k3_f64_witness`).
+(:func:`solve_flops` for K3's variants on the runtime-term solve, and for
+the kernels on the folded degree-5 basis the work they run:
+:func:`basis_forward_flops` for K1, :func:`basis_solve_flops` for K3's
+flagship instantiation and K6).  Those three records add
+``runtime_term_bound_ms`` (the same bound for the runtime-term code each
+ran before, :func:`forward_flops` / :func:`solve_flops`), their registers
+and spill bytes; K3's and K6's add how often they and their plain versions
+disagree with a float64 solve of the same items (:func:`f64_witness`), and
+K3's how often the runtime-term solve does.
 ``library_ms`` is the time of one PyTorch call computing the same function,
 where one exists (K2: ``index_select`` over both tables), else null.
 The last two lines of stdout are the kernels' JSON record and
@@ -126,13 +131,26 @@ def basis_solve_flops(iterations: int) -> float:
 
 
 def forward_flops(ap_exps, pt_exps, iterations: int) -> float:
-    """f32 operations of one K1 ray (``csrc/po_forward.cu``): per 2x2
-    Newton iteration and aperture term the powers, the monomial, two
-    tangents and six FMAs; then the five-row pt evaluation."""
+    """f32 operations of one K1 ray on the runtime-term code K1 ran before
+    the folded basis: per 2x2 Newton iteration and aperture term the
+    powers, the monomial, two tangents and six FMAs; then the five-row pt
+    evaluation."""
     a = ap_exps.to("cpu").numpy().astype(np.int64)
     p = pt_exps.to("cpu").numpy().astype(np.int64)
     return float(iterations * ((a.sum(1) + 24).sum() + 20)
                  + (p.sum(1) + 14).sum() + 30)
+
+
+def basis_forward_flops(iterations: int) -> float:
+    """f32 operations of one K1 ray on the folded table
+    (``csrc/po_forward_basis.cuh``): conditioning x, y (4); the collapse of
+    ap to its 21 (dx, dy) coefficients, 20 multiplies for x^a y^b and 252
+    FMAs (524); the Newton's start (4); per iteration the conditioning (4),
+    two Horner rows of 38 FMAs with both partials (152), the chain rule
+    (4), the residual (2), the determinant (3) and the update (10); then
+    the shift and conditioning (12), the 126 monomials (125 multiplies),
+    pt's five rows (630 FMAs) and the clamp (1)."""
+    return float(4 + 524 + 4 + iterations * 175 + 12 + 125 + 1260 + 1)
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -166,16 +184,17 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def plain_chunked(fn, args, items: slice):
-    """fn(*args) over 1M-item chunks of the per-item tensors args[items] (a
-    whole queue at once would not fit the plain versions' intermediates);
-    returns the joined outputs."""
+def plain_chunked(fn, args, items):
+    """fn(*args) over 1M-item chunks of the per-item tensors args[items]
+    (a slice or the positions; a None there stays None): a whole queue at
+    once would not fit the plain versions' intermediates.  Returns the
+    joined outputs."""
     import torch
 
-    lo, hi = items.start, items.stop
-    n = args[lo].shape[0]
-    parts = [fn(*args[:lo], *(t[i:i + PLAIN_CHUNK] for t in args[lo:hi]),
-                *args[hi:])
+    idx = set(range(len(args))[items] if isinstance(items, slice) else items)
+    n = args[min(idx)].shape[0]
+    parts = [fn(*(a[i:i + PLAIN_CHUNK] if k in idx and a is not None else a
+                  for k, a in enumerate(args)))
              for i in range(0, n, PLAIN_CHUNK)]
     return [torch.cat(p) for p in zip(*parts)]
 
@@ -213,18 +232,37 @@ def ring_pixels(n: int = 32, lo: float = 0.5) -> np.ndarray:
     return np.stack([ring] * 3, -1)
 
 
-def k3_f64_witness(plain, args):
-    """K3's function in float64 on K3's captured arguments: its plain
+def f64_witness(plain, args, items):
+    """A kernel's function in float64 on its captured arguments: its plain
     version ``plain`` on float64 copies of the lens and of the float
-    inputs, at the frame's wavelength unrounded.  The aperture point is
-    drawn in float32, as kernel and plain version draw it.
-    Returns (lin, ok)."""
+    inputs, at the frame's wavelengths unrounded (K3's aperture point is
+    drawn in float32, as kernel and plain version draw it)."""
     import torch
 
     lens64 = copy.deepcopy(args[0]).double()
     rest = [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
             for t in args[1:]]
-    return plain_chunked(plain, (lens64, *rest), slice(1, 10))
+    return plain_chunked(plain, (lens64, *rest), items)
+
+
+def share_far(got, ref, both) -> float:
+    """Share of the items ``both`` keep whose sensor point (sx, sy) lies
+    more than 1e-3 mm apart in the two K6 outputs."""
+    return float(((got[0][both] - ref[0][both]).abs()
+                  .maximum((got[1][both] - ref[1][both]).abs()) > 1e-3)
+                 .double().mean())
+
+
+def k6_disagreement(out, witness) -> dict:
+    """How far K6's outputs ``out`` fall from the float64 solve: the share
+    of items whose ``trans > 0`` differs, and of the items both keep, the
+    share > 1e-3 mm apart and the largest distance of (sx, sy) (mm)."""
+    keep, keep_w = out[4] > 0, witness[4] > 0
+    both = keep & keep_w
+    return dict(keep=float((keep != keep_w).double().mean()),
+                far=share_far(out, witness, both),
+                max_mm=float((out[0][both] - witness[0][both]).abs().maximum(
+                    (out[1][both] - witness[1][both]).abs()).max()))
 
 
 def disagreement(lin, ok, lin_w, ok_w) -> dict:
@@ -291,7 +329,8 @@ def main() -> int:
     from pota_tpu_torch.render.bokeh_image import build_bokeh_cdf
     from pota_tpu_torch.render.renderer import (
         look_at, render_frame, render_sample_stream)
-    from pota_tpu_torch.render.splat import resolve_aovs, splat_frame
+    from pota_tpu_torch.render.splat import (
+        chroma_wavelengths, resolve_aovs, splat_frame)
 
     phase("build")
     t0 = time.perf_counter()
@@ -302,15 +341,25 @@ def main() -> int:
     entries = _build.ptxas_entries()
     for mangled, info in sorted(entries.items()):
         print(f"ptxas {mangled}: {info}", flush=True)
-    flag_k3 = [v for k, v in entries.items() if "po_splat_kernelILi0E" in k]
-    if len(flag_k3) != 1:
-        fail("no ptxas report for the flagship K3 instantiation")
-    flag_k3 = flag_k3[0]
-    print(f"K3 flagship instantiation (SPLAT_DISK, the basis solve): "
-          f"{flag_k3.get('registers')} registers, "
-          f"{flag_k3.get('stack')} bytes stack frame, "
-          f"{flag_k3.get('spill_stores')} bytes spill stores, "
-          f"{flag_k3.get('spill_loads')} bytes spill loads", flush=True)
+    # the kernels on the folded degree-5 basis: registers and spills
+    ptxas = {}
+    for name, key, label in (
+            ("po_forward", "po_forward_kernel", "K1 (the folded forward)"),
+            ("po_splat", "po_splat_kernelILi0E",
+             "K3 flagship instantiation (SPLAT_DISK, the basis solve)"),
+            ("po_backward", "po_backward_kernel", "K6 (the basis solve)")):
+        found = [v for k, v in entries.items() if key in k]
+        if len(found) != 1:
+            fail(f"no ptxas report for {label}")
+        info = found[0]
+        ptxas[name] = dict(
+            registers=info.get("registers"),
+            spill_bytes=info.get("spill_stores", 0) + info.get(
+                "spill_loads", 0))
+        print(f"{label}: {info.get('registers')} registers, "
+              f"{info.get('stack')} bytes stack frame, "
+              f"{info.get('spill_stores')} bytes spill stores, "
+              f"{info.get('spill_loads')} bytes spill loads", flush=True)
 
     # the flagship configuration (bench.py:192-201)
     cfg = pt.CameraConfig(
@@ -368,7 +417,7 @@ def main() -> int:
         # K1: PO forward, M = N * K rays
         a1 = rec["po_forward"]
         got = pk.po_forward(*a1)
-        ref = plain_chunked(pk.po_forward_plain, a1, slice(1, 6))
+        ref = plain_chunked(pk.po_forward_plain, a1, slice(1, 5))
         ok_g, ok_p = got[1] > 0, ref[1] > 0
         agree = float((ok_g == ok_p).double().mean())
         both = ok_g & ok_p
@@ -381,15 +430,22 @@ def main() -> int:
             fail("K1 po_forward disagrees with its plain version")
         ms = median_ms(lambda: pk.po_forward(*a1))
         plain_ms = median_ms(
-            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 6)), 3)
-        records.append(dict(
+            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 5)), 3)
+        k1 = dict(
             name="po_forward", route="cuda",
             source="pota_tpu_torch/csrc/po_forward.cu",
             replaces=f"{TPU_KERNELS}:83", max_abs_err=err1,
             ms=ms, plain_ms=plain_ms,
-            **bound(48.0 * n1, n1 * forward_flops(
-                lens.ap.exponents, lens.pt.exponents, a1[7])),
-            library_ms=None, n=n1, mask_agree=agree))
+            **bound(48.0 * n1, n1 * basis_forward_flops(a1[7])),
+            runtime_term_bound_ms=bound(48.0 * n1, n1 * forward_flops(
+                lens.ap.exponents, lens.pt.exponents, a1[7]))["bound_ms"],
+            **ptxas["po_forward"], library_ms=None, n=n1, mask_agree=agree)
+        print(f"po_forward (folded forward): {ms:.3f} ms, bound "
+              f"{k1['bound_ms']:.3f} ms ({k1['bound_by']}), runtime-term "
+              f"bound {k1['runtime_term_bound_ms']:.3f} ms, "
+              f"{k1['registers']} registers, {k1['spill_bytes']} spill "
+              f"bytes {tag}", flush=True)
+        records.append(k1)
         del got, ref, ok_g, ok_p, both
 
         # K2: expand, S slots; the library yardstick is index_select
@@ -425,7 +481,7 @@ def main() -> int:
             frame's wavelength, the solve K3 ran before the folded basis)
             and the f32 plain version loses the slots they disagree on,
             against the float64 solve."""
-            lin_w, ok_w = k3_f64_witness(pk.po_splat_plain, a3)
+            lin_w, ok_w = f64_witness(pk.po_splat_plain, a3, slice(1, 10))
             lam_q = torch.full_like(a3[1], a3[12])
             lin_r, ok_r = pk.po_splat_lam(a3[0], *a3[1:9], lam_q, *a3[9:12],
                                           a3[13])
@@ -449,9 +505,7 @@ def main() -> int:
             runtime_term_bound_ms=bound(41.0 * k3["n"], k3["n"] * (
                 solve_flops(lens.pt.exponents, a3[13]) + splat_extra
                 + 20))["bound_ms"],
-            registers=flag_k3.get("registers"),
-            spill_bytes=(flag_k3.get("spill_stores", 0)
-                         + flag_k3.get("spill_loads", 0)))
+            **ptxas["po_splat"])
         print(f"po_splat (flagship, basis solve): {k3['ms']:.3f} ms, bound "
               f"{k3['bound_ms']:.3f} ms ({k3['bound_by']}, the basis solve), "
               f"runtime-term solve's bound "
@@ -512,39 +566,72 @@ def main() -> int:
         del a3e
         torch.cuda.empty_cache()
 
-        # K6: PO backward solve, the motion-blurred flagship's S slots
+        # K6: PO backward solve, the motion-blurred flagship's S slots,
+        # on one table; then on three (the chroma trio, slot % 3)
         a6 = capture(cfg, rc_full, scene, cam_to_world_end=m_end,
                      **po)["po_backward"]
-        got = pk.po_backward(*a6)
-        ref = plain_chunked(pk.po_backward_plain, a6, slice(1, 7))
-        keep_g, keep_p = got[4] > 0, ref[4] > 0
-        agree6 = float((keep_g == keep_p).double().mean())
-        both = keep_g & keep_p
-        errs = [float((g[both] - r[both]).abs().max())
-                for g, r in zip(got, ref)]
-        far = float(((got[0][both] - ref[0][both]).abs()
-                     .maximum((got[1][both] - ref[1][both]).abs()) > 1e-3)
-                    .double().mean())
+        items6 = (1, 2, 3, 4, 5, 7)       # lams (6) is a tuple of floats
         s6 = int(a6[1].shape[0])
-        print(f"K6 po_backward S={s6} trans>0 agree={agree6:.6f} "
-              f"max_abs_err(sx, sy, sdx, sdy) on items both keep (mm) "
-              f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} {errs[3]:.3e}, "
-              f"trans {errs[4]:.3e}; share of items > 1e-3 mm apart "
-              f"{far:.6f} (trans>0 rate {float(keep_g.double().mean()):.4f})",
-              flush=True)
-        if agree6 < MASK_AGREE or far > 1.0 - MASK_AGREE:
-            fail("K6 po_backward disagrees with its plain version")
-        del got, ref, keep_g, keep_p, both
-        records.append(dict(
+        if a6[6] != (cfg.lambda_um,) or a6[7] is not None:
+            fail(f"K6 got wavelengths {a6[6]} on the monochromatic frame")
+
+        def check_k6(label, args):
+            """K6 against its plain version on ``args``: (outputs, keep
+            agreement, max errors, share of kept items > 1e-3 mm apart)."""
+            got_ = pk.po_backward(*args)
+            ref_ = plain_chunked(pk.po_backward_plain, args, items6)
+            keep_g, keep_p = got_[4] > 0, ref_[4] > 0
+            agree_ = float((keep_g == keep_p).double().mean())
+            both_ = keep_g & keep_p
+            errs_ = [float((g[both_] - r[both_]).abs().max())
+                     for g, r in zip(got_, ref_)]
+            far_ = share_far(got_, ref_, both_)
+            print(f"K6 po_backward {label} S={s6} trans>0 agree={agree_:.6f}"
+                  f" max_abs_err(sx, sy, sdx, sdy) on items both keep (mm) "
+                  f"{errs_[0]:.3e} {errs_[1]:.3e} {errs_[2]:.3e} "
+                  f"{errs_[3]:.3e}, trans {errs_[4]:.3e}; share of items > "
+                  f"1e-3 mm apart {far_:.6f} (trans>0 rate "
+                  f"{float(keep_g.double().mean()):.4f})", flush=True)
+            if agree_ < MASK_AGREE or far_ > 1.0 - MASK_AGREE:
+                fail(f"K6 po_backward ({label}) disagrees with its plain "
+                     "version")
+            return (got_, ref_), agree_, errs_, far_
+
+        (got, ref), agree6, errs, far = check_k6("one table", a6)
+        w6 = f64_witness(pk.po_backward_plain, a6, items6)
+        witness6 = {who: k6_disagreement(out, w6)
+                    for who, out in (("kernel", got), ("plain_f32", ref))}
+        for who, d in witness6.items():
+            print(f"po_backward f64 witness: {who} disagrees on trans>0 "
+                  f"{d['keep'] * 100:.6f}% of items, is > 1e-3 mm off on "
+                  f"{d['far'] * 100:.6f}% of items both keep, at most "
+                  f"{d['max_mm']:.3e} mm", flush=True)
+        del got, ref, w6
+        a6c = (*a6[:6], chroma_wavelengths(cfg3),
+               (torch.arange(s6, device=dev) % 3).to(torch.int32), a6[8])
+        _, agree6c, _, far_c = check_k6("three tables", a6c)
+        k6 = dict(
             name="po_backward", route="cuda",
             source="pota_tpu_torch/csrc/po_backward.cu",
             replaces=f"{TPU_KERNELS}:419", max_abs_err=max(errs[:2]),
             ms=median_ms(lambda: pk.po_backward(*a6)),
             plain_ms=median_ms(lambda: plain_chunked(
-                pk.po_backward_plain, a6, slice(1, 7))),
-            **bound(44.0 * s6, s6 * solve_flops(lens.pt.exponents, a6[7])),
-            library_ms=None, n=s6, mask_agree=agree6, share_far=far))
-        del a6
+                pk.po_backward_plain, a6, items6), 3),
+            **bound(44.0 * s6, s6 * basis_solve_flops(a6[8])),
+            runtime_term_bound_ms=bound(44.0 * s6, s6 * solve_flops(
+                lens.pt.exponents, a6[8]))["bound_ms"],
+            **ptxas["po_backward"], library_ms=None, n=s6,
+            mask_agree=agree6, share_far=far, f64_disagreement=witness6,
+            three_tables=dict(ms=median_ms(lambda: pk.po_backward(*a6c)),
+                              mask_agree=agree6c, share_far=far_c))
+        print(f"po_backward (basis solve): one table {k6['ms']:.3f} ms, "
+              f"three tables {k6['three_tables']['ms']:.3f} ms, bound "
+              f"{k6['bound_ms']:.3f} ms ({k6['bound_by']}), runtime-term "
+              f"bound {k6['runtime_term_bound_ms']:.3f} ms, "
+              f"{k6['registers']} registers, {k6['spill_bytes']} spill "
+              f"bytes {tag}", flush=True)
+        records.append(k6)
+        del a6, a6c
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
@@ -592,6 +679,9 @@ def main() -> int:
            scene, cam_to_world_end=m_end,
            aovs=list(DEFAULT_AOVS) + [AOVSpec("P_gauss", "VECTOR", GAUSSIAN,
                                               "P")], **po)
+    parity("config 3 with image bokeh off and motion blur 128x128 @ 2 spp",
+           cfg3_nb, pt.RenderConfig(xres=128, yres=128, spp=2), scene3,
+           cam_to_world_end=m_end, **po3)
     # the thin-lens golden configurations (tests/golden_configs.py:83-100)
     cfg_tl = pt.CameraConfig(focal_length=65.0, fstop=1.8,
                              focus_distance=15.0, vignetting_retries=2,

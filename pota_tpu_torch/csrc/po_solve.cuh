@@ -1,4 +1,4 @@
-// The PO backward solve shared by K3 (po_splat.cu) and K6 (po_backward.cu):
+// The PO backward solve of K3's per-slot-wavelength variants (po_splat.cu):
 // for a target point (px, py, pz) in lens-space mm and an aperture point
 // (ax, ay) in mm, the sensor light field (x, y, dx, dy) whose ray crosses
 // the iris at the aperture point and lands on the target, and its

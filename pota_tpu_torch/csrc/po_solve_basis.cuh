@@ -1,5 +1,6 @@
-// The PO backward solve on a compile-time monomial basis, for a frame with
-// one wavelength (K3's flagship instantiation, po_splat.cu SPLAT_DISK).
+// The PO backward solve on a compile-time monomial basis, for items that
+// share one wavelength per table (K3's flagship instantiation, po_splat.cu
+// SPLAT_DISK, and K6, po_backward.cu, with one table a wavelength).
 //
 // Replaces, for that case, po_solve.cuh::po_backward_solve (and with it the
 // body of pota_tpu/ops/po_pallas.py::_emit_backward_solve): the same
@@ -25,8 +26,9 @@
 // derivative accumulators.  The coefficients come from the folded table
 // (po_kernels.py fold_solve_tables) in the caller's shared memory, at
 // compile-time offsets, as warp-uniform float4 broadcast loads.  The table
-// is passed by pointer, so any kernel whose items share one wavelength can
-// call the solve.
+// is passed by pointer, so each item may pick its own.  The loop nest of
+// the walk (for_each_monomial) also serves K1's forward table
+// (po_forward_basis.cuh).
 #pragma once
 
 #include "po_solve.cuh"
@@ -121,17 +123,16 @@ __device__ __forceinline__ float4 ld4(unsigned addr) {
 
 // ------------------------------------------------------------- the walk
 // Visits every monomial x^a y^b dx^c dy^d of the basis in kExps order and
-// calls f.term(block, value, low): block is the shared-memory address of
-// the monomial's block of the table, low whether its degree is below
-// kDegree.  The running products
-// pa = x^a, pb = x^a y^b, pc = x^a y^b dx^c stay in registers, so each
-// monomial costs one multiply.  Every loop has the constant trip count
-// kDegree + 1 and a guard, so the nest unrolls completely: the guards, the
-// block offsets and `low` become constants, and no exponent is read at run
-// time.
+// calls f(k, a, b, c, d, value), k the monomial's index.  The running
+// products pa = x^a, pb = x^a y^b, pc = x^a y^b dx^c stay in registers, so
+// each monomial costs one multiply (none where u[v] is the literal 1).
+// Every loop has the constant trip count kDegree + 1 and a guard, so the
+// nest unrolls completely: k, the exponents and whatever f derives from
+// them (table offsets, accumulator indices) become constants, and no
+// exponent is read at run time.
 template <class F>
-__device__ __forceinline__ void walk(unsigned tab, const float u[4], F& f) {
-  unsigned off = kHeader * 4;
+__device__ __forceinline__ void for_each_monomial(const float u[4], F&& f) {
+  int k = 0;
   float pa = 1.0f;
 #pragma unroll
   for (int a = 0; a <= kDegree; ++a) {
@@ -147,9 +148,8 @@ __device__ __forceinline__ void walk(unsigned tab, const float u[4], F& f) {
 #pragma unroll
             for (int d = 0; d <= kDegree; ++d) {
               if (a + b + c + d <= kDegree) {
-                const bool low = a + b + c + d < kDegree;
-                f.term(tab + off, pd, low);
-                off += 4 * (low ? kLowStride : kHighStride);
+                f(k, a, b, c, d, pd);
+                ++k;
                 pd *= u[3];
               }
             }
@@ -161,6 +161,19 @@ __device__ __forceinline__ void walk(unsigned tab, const float u[4], F& f) {
     }
     pa *= u[0];
   }
+}
+
+// The solve table's walk: calls f.term(block, value, low) for every
+// monomial, block the shared-memory address of its block of the table, low
+// whether its degree is below kDegree.
+template <class F>
+__device__ __forceinline__ void walk(unsigned tab, const float u[4], F& f) {
+  unsigned off = kHeader * 4;
+  for_each_monomial(u, [&](int, int a, int b, int c, int d, float mono) {
+    const bool low = a + b + c + d < kDegree;
+    f.term(tab + off, mono, low);
+    off += 4 * (low ? kLowStride : kHighStride);
+  });
 }
 
 // One Newton iteration's sums: the six rows and their derivatives along

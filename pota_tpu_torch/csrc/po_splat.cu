@@ -31,8 +31,8 @@
 // runs po_basis_solve (po_solve_basis.cuh): the polynomial folded at that
 // wavelength onto the compile-time degree-5 basis, its Jacobian rows
 // tabulated, both walked fully unrolled from shared memory.  The
-// per-slot-wavelength modes run po_backward_solve (po_solve.cuh, shared
-// with K6): the runtime term set (int8 exponents, the [7, T] coefficient
+// per-slot-wavelength modes run po_backward_solve (po_solve.cuh): the
+// runtime term set (int8 exponents, the [7, T] coefficient
 // rows apx, apy, o0..o3, trans) with forward-mode tangents.  A small dual
 // type (D4) carries the tangents through the pupil chart and the residual
 // in both.  The tables and the sphere table are runtime data in shared

@@ -50,7 +50,6 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     hsw = cfg.sensor_width * 0.5
     x = sx * hsw
     y = sy * hsw
-    lam = torch.full((n,), cfg.lambda_um, dtype=x.dtype, device=x.device)
 
     if cfg.enable_dof:
         tries_idx = torch.arange(1, n_tries, dtype=torch.int64,
@@ -63,8 +62,8 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
         rep = lambda a: a[:, None].expand(n, n_tries).reshape(-1)
         out4, trans, dx, dy = ops.po_forward(
             lens, rep(x), rep(y), aperture[..., 0].reshape(-1).contiguous(),
-            aperture[..., 1].reshape(-1).contiguous(), rep(lam), sensor_shift,
-            newton_iterations,
+            aperture[..., 1].reshape(-1).contiguous(), cfg.lambda_um,
+            sensor_shift, newton_iterations,
         )
         out4 = out4.reshape(n, n_tries, 4)
         trans = trans.reshape(n, n_tries)
@@ -79,7 +78,7 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
         xk = x[:, None] + zero
         yk = y[:, None] + zero
         out4, trans = pt_evaluate(
-            lens, torch.stack([xk, yk, dx, dy, lam[:, None] + zero], -1))
+            lens, torch.stack([xk, yk, dx, dy, zero + cfg.lambda_um], -1))
     shifted = torch.stack([xk, yk, dx, dy], -1)
 
     ok = trans > 0.0

@@ -41,8 +41,7 @@ _f = ctypes.c_float
 _ll = ctypes.c_longlong
 # C signatures of the entry points (csrc/*.cu); each returns cudaError_t
 SIGNATURES = {
-    "pota_po_forward": [_p, _p, _p, _p, _p, _i, _p, _p, _i, _p, _p, _i, _p,
-                        _f, _f, _i, _p, _p, _p, _p, _p],
+    "pota_po_forward": [_p] * 4 + [_i, _p, _f, _f, _i] + [_p] * 5,
     "pota_expand": [_p, _i, _p, _i, _p, _i, _i, _p, _p, _p],
     "pota_po_splat": [_p] * 9 + [_i, _p, _p, _i, _i, _p, _p, _i, _p, _p, _p],
     "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i, _p, _p, _p, _p, _p],
@@ -51,7 +50,7 @@ SIGNATURES = {
     "pota_po_splat_ext": [_p] * 10 + [_i, _p, _p, _i, _p, _p, _i, _i, _p, _p,
                                       _i, _p, _p, _p],
     "pota_tl_splat": [_p] * 9 + [_i, _i, _f, _f, _p, _p, _i, _p, _p, _p],
-    "pota_po_backward": [_p] * 6 + [_i, _p, _p, _i, _p, _p, _i, _i] + [_p] * 6,
+    "pota_po_backward": [_p] * 6 + [_i, _p, _i, _p, _i, _i] + [_p] * 6,
 }
 
 _lock = threading.Lock()

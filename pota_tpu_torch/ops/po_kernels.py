@@ -7,7 +7,8 @@ The plain versions are the same functions written with the port's tensor
 code, and are what the CPU tests hold against the JAX package.
 
 * :func:`po_forward` — K1, the PO forward trace
-  (``pota_tpu/ops/po_pallas.py::build_po_forward_kernel``);
+  (``pota_tpu/ops/po_pallas.py::build_po_forward_kernel``), on the table
+  :func:`fold_forward_tables` folds at the frame's wavelength;
 * :func:`expand` — K2, compact source table -> queue slots
   (``po_pallas.py::build_expand_kernel``);
 * :func:`po_splat` — K3, the per-slot backward splat with in-kernel aperture
@@ -18,7 +19,12 @@ code, and are what the CPU tests hold against the JAX package.
 * :func:`tl_splat` — K5, the thin-lens backward splat
   (``po_pallas.py::build_tl_splat_kernel``);
 * :func:`po_backward` — K6, the PO backward solve alone
-  (``po_pallas.py::build_po_backward_kernel``), for the decomposed splat.
+  (``po_pallas.py::build_po_backward_kernel``), for the decomposed splat,
+  on one table :func:`fold_solve_tables` folds per wavelength.
+
+On the card K1, K3's flagship route and K6 take only fits whose terms lie
+on the degree-5 basis the folds use; :func:`check_basis` refuses another
+before a frame starts.
 """
 from __future__ import annotations
 
@@ -121,58 +127,6 @@ def _exps_i8(fn, device) -> torch.Tensor:
     if int(e.min()) < 0 or int(e.max()) > 127:
         raise ValueError("exponents must lie in [0, 127]")
     return e.to(device=device, dtype=torch.int8).contiguous()
-
-
-# ------------------------------------------------------- K1: PO forward trace
-
-
-def po_forward_plain(lens: PolyLens, x, y, ax, ay, lam, sensor_shift: float,
-                     iterations: int = 3):
-    """Plain K1: Newton aperture solve, sensor shift, pt_evaluate.
-    Returns (out4 [M, 4], trans [M] >= 0, dx [M], dy [M])."""
-    zero = torch.zeros_like(x)
-    sensor5 = torch.stack([x, y, zero, zero, lam], -1)
-    solved = pt_sample_aperture(lens, sensor5, torch.stack([ax, ay], -1),
-                                iterations=iterations)
-    dx, dy = solved[..., 2], solved[..., 3]
-    shifted = torch.stack([x + dx * sensor_shift, y + dy * sensor_shift,
-                           dx, dy, lam], -1)
-    out4, trans = pt_evaluate(lens, shifted)
-    return out4, trans, dx, dy
-
-
-def po_forward(lens: PolyLens, x, y, ax, ay, lam, sensor_shift: float,
-               iterations: int = 3):
-    """K1 wrapper: plain version on the CPU, the CUDA kernel on the card.
-    Rays are f32 [M] contiguous, on the lens's device."""
-    dev = x.device
-    m = x.shape[0]
-    for name, t in (("x", x), ("y", y), ("ax", ax), ("ay", ay), ("lam", lam)):
-        _check(name, t, torch.float32, dev, (m,))
-    if lens.device != dev:
-        raise ValueError(f"lens on {lens.device}, rays on {dev}")
-    if dev.type == "cpu":
-        return po_forward_plain(lens, x, y, ax, ay, lam, sensor_shift,
-                                iterations)
-    ap_e, pt_e = _exps_i8(lens.ap, dev), _exps_i8(lens.pt, dev)
-    ap_c = lens.ap.coeffs.contiguous()
-    pt_c = lens.pt.coeffs.contiguous()
-    if ap_c.shape[0] != 2 or pt_c.shape[0] != 5:
-        raise ValueError("expected ap coeffs [2, T] and pt coeffs [5, T]")
-    cond = _cond(lens, dev)
-    out4 = torch.empty((m, 4), dtype=torch.float32, device=dev)
-    trans, dx, dy = (torch.empty((m,), dtype=torch.float32, device=dev)
-                     for _ in range(3))
-    err = _build.lib().pota_po_forward(
-        x.data_ptr(), y.data_ptr(), ax.data_ptr(), ay.data_ptr(),
-        lam.data_ptr(), m, ap_e.data_ptr(), ap_c.data_ptr(), ap_c.shape[1],
-        pt_e.data_ptr(), pt_c.data_ptr(), pt_c.shape[1], cond.data_ptr(),
-        1.0 / lens.aperture_z, float(sensor_shift), int(iterations),
-        out4.data_ptr(), trans.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        _stream(dev))
-    _build.check(err, "po_forward")
-    _build.LAUNCHES["po_forward"] += 1
-    return out4, trans, dx, dy
 
 
 # ------------------------------------------------------------- K2: expand
@@ -323,25 +277,21 @@ def _splat_lens_consts(lens: PolyLens, device) -> torch.Tensor:
     ], dtype=torch.float32, device=device)
 
 
-def _check_shared_terms(lens: PolyLens) -> None:
-    """The backward solves evaluate ap's and pt's rows on one term set."""
+def _solve_tables(lens: PolyLens, device):
+    """The runtime-term solve's lens tables (K3's per-slot-wavelength
+    variants): int8 exponents [T, 5], the [7, T] coefficient rows apx, apy,
+    o0..o3, trans of the one term set ap and pt must share, the
+    conditioning and the lens constants."""
     if not torch.equal(lens.pt.exponents, lens.ap.exponents):
         raise ValueError(
             f"lens {lens.name!r}: pt/ap term sets must be shared for the "
-            "backward solve kernels (refit with a common term set)")
-
-
-def _solve_tables(lens: PolyLens, device):
-    """The backward solve's lens tables (K3's variants and K6): int8
-    exponents [T, 5], the [7, T] coefficient rows apx, apy, o0..o3, trans,
-    the conditioning and the lens constants."""
-    _check_shared_terms(lens)
+            "runtime-term solve (refit with a common term set)")
     coeffs = torch.cat([lens.ap.coeffs[:2], lens.pt.coeffs[:5]]).contiguous()
     return (_exps_i8(lens.pt, device), coeffs, _cond(lens, device),
             _splat_lens_consts(lens, device))
 
 
-# ------------------------------------- the folded solve table (K3 flagship)
+# ------------------------------- the folded solve table (K3 flagship, K6)
 # With one wavelength per frame, every term's lambda power folds into its
 # coefficient, and the solve's polynomial becomes one over the complete
 # degree-<=5 basis in the four unknowns (x, y, dx, dy): 126 monomials, known
@@ -375,36 +325,58 @@ _BLOCK_OFF = list(itertools.accumulate(
 FOLD_TABLE_FLOATS = _BLOCK_OFF[-1] + FOLD_HIGH_STRIDE   # the last is x^5
 
 
-def fold_solve_tables(lens: PolyLens, lam_um: float, device) -> torch.Tensor:
-    """The backward solve's tables for one wavelength ``lam_um`` (um), as
-    the flagship K3 kernel reads them: f32 [FOLD_TABLE_FLOATS] on
-    ``device`` (layout above).
-
-    Takes the [7, T] coefficient rows apx, apy, o0..o3, trans and the [T, 5]
-    exponents of the shared term set, folds the conditioned wavelength's
-    power ``((lam - shift_4) * scale_4) ** e_4`` into each coefficient,
-    sums the terms onto :data:`BASIS`, and forms the Newton rows'
-    derivative tables ``(m_v + 1) * c[m + e_v] * scale_v``.  Computes in
-    float64 on ``device`` and casts to f32 at the end.  Reads the exponents
-    to the host.  Raises ``ValueError`` for a lens whose folded monomials
-    fall outside the basis."""
-    dev = torch.device(device)
-    _check_shared_terms(lens)
-    _cond(lens, dev)     # the ap rows are folded with pt's conditioning
-    exps = lens.pt.exponents.cpu().tolist()
-    pos = [_BASIS_POS.get(tuple(e[:4])) for e in exps]
-    if any(p is None for p in pos):
+def _basis_positions(lens: PolyLens, fn) -> list:
+    """Each term's index in :data:`BASIS` by its exponents of (x, y, dx,
+    dy), read to the host; ``ValueError`` for a term outside the basis."""
+    pos = [_BASIS_POS.get(tuple(e[:4])) for e in fn.exponents.cpu().tolist()]
+    if None in pos:
         raise ValueError(
             f"lens {lens.name!r}: a term's monomial in (x, y, dx, dy) lies "
-            f"outside the degree-{BASIS_DEGREE} basis of the folded solve")
-    f64 = dict(device=dev, dtype=torch.float64)
+            f"outside the degree-{BASIS_DEGREE} basis of the folded kernels "
+            "(K1, K3's flagship route, K6)")
+    return pos
+
+
+def _fold_conditioning(lens: PolyLens, lam_um: float, device):
+    """float64 scale [5] and shift [5] of the inputs (one set for ap and pt,
+    as the kernels take it) and the conditioned wavelength, on ``device``."""
+    _cond(lens, device)
+    f64 = dict(device=device, dtype=torch.float64)
     scale = lens.pt.in_scale.to(**f64)
     shift = lens.pt.in_shift.to(**f64)
-    ul = (float(lam_um) - shift[4]) * scale[4]
-    lam_pow = ul ** torch.tensor([e[4] for e in exps], **f64)
-    rows = torch.cat([lens.ap.coeffs[:2], lens.pt.coeffs[:5]]).to(**f64)
-    folded = torch.zeros((7, len(BASIS)), **f64).index_add_(
-        1, torch.tensor(pos, device=dev), rows * lam_pow)
+    return scale, shift, (float(lam_um) - shift[4]) * scale[4]
+
+
+def _fold_rows(lens: PolyLens, fn, n_rows: int, ul) -> torch.Tensor:
+    """The first ``n_rows`` coefficient rows of ``fn`` with each term's
+    conditioned wavelength power ``ul ** e_4`` folded in, summed onto
+    :data:`BASIS` by the term's own exponents: float64 [n_rows, 126] on
+    ``ul``'s device."""
+    dev = ul.device
+    pos = torch.tensor(_basis_positions(lens, fn), device=dev)
+    lam_pow = ul ** fn.exponents[:, 4].to(dev, torch.float64)
+    rows = fn.coeffs[:n_rows].to(dev, torch.float64) * lam_pow
+    return torch.zeros((n_rows, len(BASIS)), dtype=torch.float64,
+                       device=dev).index_add_(1, pos, rows)
+
+
+def fold_solve_tables(lens: PolyLens, lam_um: float, device) -> torch.Tensor:
+    """The backward solve's tables for one wavelength ``lam_um`` (um), as
+    K3's flagship instantiation and K6 read them: f32 [FOLD_TABLE_FLOATS]
+    on ``device`` (layout above).
+
+    Folds the conditioned wavelength's power ``((lam - shift_4) * scale_4)
+    ** e_4`` into each coefficient of ap's rows apx, apy and pt's rows
+    o0..o3, trans, sums the terms onto :data:`BASIS` (:func:`_fold_rows`),
+    and forms the Newton rows' derivative tables ``(m_v + 1) * c[m + e_v]
+    * scale_v``.  Computes in float64 on ``device`` and casts to f32 at the
+    end.  Reads the exponents to the host.  Raises ``ValueError`` for a
+    lens whose folded monomials fall outside the basis."""
+    dev = torch.device(device)
+    scale, shift, ul = _fold_conditioning(lens, lam_um, dev)
+    folded = torch.cat([_fold_rows(lens, lens.ap, 2, ul),
+                        _fold_rows(lens, lens.pt, 5, ul)])
+    f64 = dict(device=dev, dtype=torch.float64)
     slots = torch.tensor(FOLD_SLOTS, device=dev)
     vals = torch.zeros((len(BASIS), 8), **f64)
     vals[:, slots] = folded.T
@@ -424,6 +396,251 @@ def fold_solve_tables(lens: PolyLens, lam_um: float, device) -> torch.Tensor:
     return table.to(torch.float32)
 
 
+# ------------------------------------------ the folded forward table (K1)
+# K1's two polynomials folded at the frame's wavelength onto BASIS, each by
+# its own term set, as csrc/po_forward_basis.cuh reads them (fwd::k*).
+# Table layout (f32): a header of the unknowns' conditioning scale[4],
+# shift[4]; ap's rows (apx, apy) per monomial in basis order; pt's rows
+# (o0, o1, o2, o3) per monomial; pt's trans per monomial, padded to a
+# multiple of 4.  Every section starts on 16 bytes.
+FWD_HEADER = 8
+FWD_AP = FWD_HEADER
+FWD_PT = FWD_AP + 2 * len(BASIS)
+FWD_TRANS = FWD_PT + 4 * len(BASIS)
+FWD_TABLE_FLOATS = FWD_TRANS + -(-len(BASIS) // 4) * 4
+
+
+def fold_forward_tables(lens: PolyLens, lam_um: float,
+                        device) -> torch.Tensor:
+    """K1's table for one wavelength ``lam_um`` (um): f32
+    [FWD_TABLE_FLOATS] on ``device`` (layout above).  Folds the conditioned
+    wavelength's power into each coefficient of ap's two rows and pt's five
+    and sums each polynomial's terms onto :data:`BASIS` by its own term set
+    (:func:`_fold_rows`).  Computes in float64 on ``device`` and casts to
+    f32 at the end.  Reads the exponents to the host.  Raises
+    ``ValueError`` for a lens whose folded monomials fall outside the
+    basis."""
+    dev = torch.device(device)
+    scale, shift, ul = _fold_conditioning(lens, lam_um, dev)
+    ap = _fold_rows(lens, lens.ap, 2, ul)
+    pt = _fold_rows(lens, lens.pt, 5, ul)
+    table = torch.zeros((FWD_TABLE_FLOATS,), dtype=torch.float64, device=dev)
+    table[:4] = scale[:4]
+    table[4:8] = shift[:4]
+    table[FWD_AP:FWD_PT] = ap.T.reshape(-1)
+    table[FWD_PT:FWD_TRANS] = pt[:4].T.reshape(-1)
+    table[FWD_TRANS:FWD_TRANS + len(BASIS)] = pt[4]
+    return table.to(torch.float32)
+
+
+# ------------------------------------------------- the fold cache, the check
+_FOLDS = {"solve": fold_solve_tables, "forward": fold_forward_tables}
+# per lens: (the fit's buffer versions, {key: folded tables, or the basis
+# check's verdict})
+_FOLD_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _fold_cache(lens: PolyLens) -> dict:
+    """The lens's cache, emptied when a buffer of the fit is replaced or
+    changed in place."""
+    sig = tuple((t.data_ptr(), t._version) for t in (
+        lens.ap.coeffs, lens.pt.coeffs, lens.pt.exponents, lens.ap.exponents,
+        lens.pt.in_scale, lens.pt.in_shift, lens.ap.in_scale,
+        lens.ap.in_shift))
+    hit = _FOLD_CACHE.get(lens)
+    if hit is None or hit[0] != sig:
+        hit = _FOLD_CACHE[lens] = (sig, {})
+    return hit[1]
+
+
+def _folded_table(lens: PolyLens, kind: str, lams, device,
+                  on_fold=None) -> torch.Tensor:
+    """The ``kind`` tables of ``lens`` (``"solve"``:
+    :func:`fold_solve_tables`, ``"forward"``: :func:`fold_forward_tables`)
+    at each wavelength of ``lams`` (um), one after another, on ``device``.
+    Folded once per lens, kind, wavelengths and device (and again when a
+    buffer of the fit changes), so a frame reads nothing back from the card
+    after the first; K3's flagship route and K6 share the solve tables.
+    ``on_fold``, if given, runs before a fold."""
+    cache = _fold_cache(lens)
+    key = (kind, tuple(float(lam) for lam in lams), str(device))
+    if key not in cache:
+        if on_fold is not None:
+            on_fold()
+        cache[key] = torch.cat([_FOLDS[kind](lens, lam, device)
+                                for lam in key[1]])
+    return cache[key]
+
+
+def check_basis(lens: PolyLens) -> None:
+    """Raise ``ValueError`` (the folds' message) unless every term of the
+    fit's ``ap`` and ``pt`` is a monomial of :data:`BASIS` in (x, y, dx,
+    dy): the fits the card's PO kernels K1, K3 (flagship route) and K6 take.
+    Reads the exponents to the host once per lens and buffer version."""
+    cache = _fold_cache(lens)
+    if "basis" not in cache:
+        for fn in (lens.ap, lens.pt):
+            _basis_positions(lens, fn)
+        cache["basis"] = True
+
+
+# ------------------------------------------------------- K1: PO forward trace
+
+
+def _fma(a, b, c):
+    """``fmaf(a, b, c)`` of float32 tensors: the product is exact in
+    float64, so the sum is rounded once (to float64, then to float32: the
+    two roundings differ from one only on float32 ties)."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def _basis_walk(u):
+    """Yield (k, c, d, value) for every monomial x^a y^b dx^c dy^d of
+    :data:`BASIS` in order, the value formed by running products as
+    ``basis::for_each_monomial`` forms it; a None in ``u`` is the literal
+    1, which the kernel multiplies away."""
+    mul = lambda p, v: p if v is None else p * v
+    k = 0
+    pa = torch.ones_like(u[0])
+    for a in range(BASIS_DEGREE + 1):
+        pb = pa
+        for b in range(BASIS_DEGREE + 1 - a):
+            pc = pb
+            for c in range(BASIS_DEGREE + 1 - a - b):
+                pd = pc
+                for d in range(BASIS_DEGREE + 1 - a - b - c):
+                    yield k, c, d, pd
+                    k += 1
+                    pd = mul(pd, u[3])
+                pc = mul(pc, u[2])
+            pb = mul(pb, u[1])
+        pa = mul(pa, u[0])
+
+
+# the 21 monomials dx^c dy^d of K1's collapsed ap rows (fwd::pair_index)
+_PAIR = {(c, d): j for j, (c, d) in enumerate(
+    (c, d) for c in range(BASIS_DEGREE + 1)
+    for d in range(BASIS_DEGREE + 1 - c))}
+
+
+def _pair_poly(A, u, v):
+    """``fwd::pair_poly``: the value of sum A[pair(c, d)] u^c v^d and its
+    partials along u and v, by nested Horner (A: [N, rows] per pair)."""
+    top_d = BASIS_DEGREE
+    p = A[_PAIR[(0, top_d)]]
+    pu = pv = None
+    for d in range(top_d - 1, -1, -1):
+        top = top_d - d
+        q, qu = A[_PAIR[(top, d)]], None
+        for c in range(top - 1, -1, -1):
+            qu = q if c == top - 1 else _fma(qu, u, q)
+            q = _fma(q, u, A[_PAIR[(c, d)]])
+        pv = p if d == top_d - 1 else _fma(pv, v, p)
+        pu = qu if d == top_d - 1 else _fma(pu, v, qu)
+        p = _fma(p, v, q)
+    return p, pu, pv
+
+
+def _po_forward_terms(lens: PolyLens, x, y, ax, ay, lam_um: float,
+                      sensor_shift: float, iterations: int = 3):
+    """K1's function on the fit's own term set: ``pt_sample_aperture`` for
+    (dx, dy), the sensor shift, ``pt_evaluate``.  Returns (out4, trans,
+    dx, dy) as :func:`po_forward_plain` does."""
+    zero = torch.zeros_like(x)
+    lam = torch.full_like(x, lam_um)
+    solved = pt_sample_aperture(lens, torch.stack([x, y, zero, zero, lam], -1),
+                                torch.stack([ax, ay], -1),
+                                iterations=iterations)
+    dx, dy = solved[..., 2], solved[..., 3]
+    out4, trans = pt_evaluate(lens, torch.stack(
+        [x + dx * sensor_shift, y + dy * sensor_shift, dx, dy, lam], -1))
+    return out4, trans, dx, dy
+
+
+def po_forward_plain(lens: PolyLens, x, y, ax, ay, lam_um: float,
+                     sensor_shift: float, iterations: int = 3):
+    """Plain K1: the kernel's arithmetic (``po_forward_trace`` of
+    ``csrc/po_forward_basis.cuh``) in PyTorch, on the same table
+    (:func:`fold_forward_tables` at the frame's wavelength ``lam_um``, um):
+    ap collapsed to its 21 (dx, dy) coefficients, the 2x2 Newton on their
+    Horner rows, the sensor shift, pt's rows over the basis, every float32
+    operation in the kernel's order with its fused multiply-adds rounded
+    once.  It computes what ``pt_sample_aperture`` then ``pt_evaluate``
+    compute, with the kernel's rounding: a forward trace that rounds
+    otherwise, even an exact one, moves grazing sphere hits and so the
+    splats of whole highlight sources, which no frame parity absorbs.
+    A fit outside the basis, which the card refuses, takes
+    :func:`_po_forward_terms`.  Rays are f32 [M].
+    Returns (out4 [M, 4], trans [M] >= 0, dx [M], dy [M])."""
+    try:
+        check_basis(lens)
+    except ValueError:
+        return _po_forward_terms(lens, x, y, ax, ay, lam_um, sensor_shift,
+                                 iterations)
+    t = _folded_table(lens, "forward", (lam_um,), x.device)
+    s0, s1, s2, s3, h0, h1, h2, h3 = t[:FWD_HEADER]
+    ap = t[FWD_AP:FWD_PT].view(-1, 2)
+    A = [torch.zeros(x.shape + (2,), dtype=x.dtype, device=x.device)
+         for _ in _PAIR]
+    for k, c, d, xy in _basis_walk(((x - h0) * s0, (y - h1) * s1, None,
+                                    None)):
+        A[_PAIR[(c, d)]] = _fma(ap[k], xy[:, None], A[_PAIR[(c, d)]])
+    inv_ap_z = torch.tensor(1.0 / lens.aperture_z, dtype=x.dtype,
+                            device=x.device)
+    dx = (ax - x) * inv_ap_z
+    dy = (ay - y) * inv_ap_z
+    for _ in range(iterations):
+        p, pu, pv = _pair_poly(A, ((dx - h2) * s2)[:, None],
+                               ((dy - h3) * s3)[:, None])
+        j00, j10 = pu[:, 0] * s2, pu[:, 1] * s2
+        j01, j11 = pv[:, 0] * s3, pv[:, 1] * s3
+        r0, r1 = p[:, 0] - ax, p[:, 1] - ay
+        det = _fma(j00, j11, -(j01 * j10))
+        det = torch.where(det.abs() < 1e-12, 1e-12, det)
+        dx = dx - _fma(j11, r0, -(j01 * r1)) / det
+        dy = dy - _fma(-j10, r0, j00 * r1) / det
+    shift = torch.tensor(sensor_shift, dtype=x.dtype, device=x.device)
+    u = ((_fma(dx, shift, x) - h0) * s0, (_fma(dy, shift, y) - h1) * s1,
+         (dx - h2) * s2, (dy - h3) * s3)
+    pt_o = t[FWD_PT:FWD_TRANS].view(-1, 4)
+    pt_t = t[FWD_TRANS:FWD_TRANS + len(BASIS)]
+    out4 = torch.zeros(x.shape + (4,), dtype=x.dtype, device=x.device)
+    trans = torch.zeros_like(x)
+    for k, _, _, mono in _basis_walk(u):
+        out4 = _fma(pt_o[k], mono[:, None], out4)
+        trans = _fma(pt_t[k], mono, trans)
+    return out4, torch.clamp(trans, min=0.0), dx, dy
+
+
+def po_forward(lens: PolyLens, x, y, ax, ay, lam_um: float,
+               sensor_shift: float, iterations: int = 3):
+    """K1 wrapper: plain version on the CPU, the CUDA kernel on the card.
+    Rays are f32 [M] contiguous, on the lens's device; ``lam_um`` is the
+    frame's wavelength (um), at which the kernel's table is folded
+    (:func:`fold_forward_tables`)."""
+    dev = x.device
+    m = x.shape[0]
+    for name, t in (("x", x), ("y", y), ("ax", ax), ("ay", ay)):
+        _check(name, t, torch.float32, dev, (m,))
+    if lens.device != dev:
+        raise ValueError(f"lens on {lens.device}, rays on {dev}")
+    if dev.type == "cpu":
+        return po_forward_plain(lens, x, y, ax, ay, lam_um, sensor_shift,
+                                iterations)
+    table = _folded_table(lens, "forward", (lam_um,), dev)
+    out4 = torch.empty((m, 4), dtype=torch.float32, device=dev)
+    trans, dx, dy = (torch.empty((m,), dtype=torch.float32, device=dev)
+                     for _ in range(3))
+    err = _build.lib().pota_po_forward(
+        x.data_ptr(), y.data_ptr(), ax.data_ptr(), ay.data_ptr(), m,
+        table.data_ptr(), 1.0 / lens.aperture_z, float(sensor_shift),
+        int(iterations), out4.data_ptr(), trans.data_ptr(), dx.data_ptr(),
+        dy.data_ptr(), _stream(dev))
+    _build.check(err, "po_forward")
+    _build.LAUNCHES["po_forward"] += 1
+    return out4, trans, dx, dy
+
+
 # C order of each K3 variant's per-slot inputs; seed / ctr are int32
 _PO_SPLAT_SLOTS = {
     "po_splat": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "seed", "ctr",
@@ -433,31 +650,6 @@ _PO_SPLAT_SLOTS = {
     "po_splat_ext": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "ax", "ay",
                      "lam", "sky"),
 }
-# per lens: (key, folded table) of the last wavelength and device asked for
-_FOLD_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
-
-
-def _folded_table(lens: PolyLens, lam_um: float, params) -> torch.Tensor:
-    """:func:`fold_solve_tables` once per lens, wavelength and device (and
-    again when a buffer of the fit is replaced or changed in place), so a
-    frame reads nothing back from the card after the first.  On a fold it
-    also checks ``lam_um`` against the wavelength ``params`` carries."""
-    device = params.device
-    bufs = (lens.ap.coeffs, lens.pt.coeffs, lens.pt.exponents,
-            lens.ap.exponents, lens.pt.in_scale, lens.pt.in_shift,
-            lens.ap.in_scale, lens.ap.in_shift)
-    key = (float(lam_um), str(device),
-           *((t.data_ptr(), t._version) for t in bufs))
-    hit = _FOLD_CACHE.get(lens)
-    if hit is None or hit[0] != key:
-        lam_f32 = torch.tensor(float(lam_um), dtype=torch.float32).item()
-        if float(params[SP_LAMBDA]) != lam_f32:
-            raise ValueError(
-                f"lam_um {lam_um} is not the wavelength of params "
-                f"({float(params[SP_LAMBDA])})")
-        hit = (key, fold_solve_tables(lens, lam_um, device))
-        _FOLD_CACHE[lens] = hit
-    return hit[1]
 
 
 def _check_po_splat(name, lens, slots, params, spheres) -> torch.device:
@@ -502,16 +694,28 @@ def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
     ``params`` is :func:`splat_kernel_params`, ``spheres`` f32 [n, 4];
     ``lam_um`` is the frame's wavelength (um), a Python float, the one
     ``params`` carries, at which the kernel's solve table is folded
-    (:func:`fold_solve_tables`).  Returns (lin int32 [S], ok bool [S])."""
+    (:func:`fold_solve_tables`).  ``ValueError`` if ``params`` carries
+    another wavelength: checked on every call on the CPU, and on the card
+    when the table is folded (the check reads the card).
+    Returns (lin int32 [S], ok bool [S])."""
     slots = (pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky)
     dev = _check_po_splat("po_splat", lens, slots, params, spheres)
+
+    def check_lambda():
+        lam_f32 = torch.tensor(float(lam_um), dtype=torch.float32).item()
+        if float(params[SP_LAMBDA]) != lam_f32:
+            raise ValueError(
+                f"lam_um {lam_um} is not the wavelength of params "
+                f"({float(params[SP_LAMBDA])})")
+
     if dev.type == "cpu":
+        check_lambda()
         return po_splat_plain(lens, *slots, params, spheres, lam_um,
                               iterations)
-    return _launch_po_splat(
-        "po_splat", lens, slots,
-        (_folded_table(lens, lam_um, params), _splat_lens_consts(lens, dev)),
-        params, spheres, iterations)
+    table = _folded_table(lens, "solve", (lam_um,), dev, on_fold=check_lambda)
+    return _launch_po_splat("po_splat", lens, slots,
+                            (table, _splat_lens_consts(lens, dev)), params,
+                            spheres, iterations)
 
 
 def _po_splat_variant(name, plain, lens, slots, params, spheres, iterations):
@@ -550,40 +754,63 @@ def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam,
 # ---------------------------------------------------- K6: PO backward solve
 
 
-def po_backward_plain(lens: PolyLens, px, py, pz, ax, ay, lam,
+MAX_BACKWARD_TABLES = 3    # csrc/po_backward.cu kMaxBackwardTables
+
+
+def po_backward_plain(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
                       iterations: int = 3):
     """Plain K6: ``lt_sample_aperture`` (which carries the kernel's
-    chief-ray guard) for targets ``(px, py, pz)`` in lens-space mm (-10 * p_cam), aperture
-    points ``(ax, ay)`` (mm) and wavelengths ``lam`` (um), all f32 [S].
+    chief-ray guard) for targets ``(px, py, pz)`` in lens-space mm
+    (-10 * p_cam) and aperture points ``(ax, ay)`` (mm), f32 [S].  Item
+    ``i`` has the wavelength ``lams[lam_idx[i]]`` (um), or ``lams[0]``
+    when ``lam_idx`` is None, formed in the targets' dtype as
+    ``render/splat.py::_chroma_lambdas`` forms it.
     Returns (sx, sy, sdx, sdy, trans); ``trans`` is >= 0 and cropped by the
     outer pupil."""
+    lam_tab = torch.tensor(lams, dtype=px.dtype, device=px.device)
+    lam = lam_tab[0] if lam_idx is None else lam_tab[lam_idx.long()]
     sensor5, _, trans = lt_sample_aperture(
         lens, torch.stack([px, py, pz], -1), torch.stack([ax, ay], -1), lam,
         iterations=iterations)
     return (*(sensor5[..., k].contiguous() for k in range(4)), trans)
 
 
-def po_backward(lens: PolyLens, px, py, pz, ax, ay, lam, iterations: int = 3):
+def po_backward(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
+                iterations: int = 3):
     """K6 wrapper: the PO backward solve of JAX's decomposed splat branch
     (``po_pallas.py::build_po_backward_kernel``).  Inputs as
-    :func:`po_backward_plain` takes them, contiguous, on the lens's device;
-    the plain version on the CPU, the CUDA kernel on the card."""
+    :func:`po_backward_plain` takes them, contiguous, on the lens's device:
+    ``lams`` a tuple of one wavelength (um) and ``lam_idx`` None, or of up
+    to :data:`MAX_BACKWARD_TABLES` with ``lam_idx`` int32 [S] in
+    ``[0, len(lams))``.  The plain version on the CPU, the CUDA kernel on
+    the card, on one folded solve table a wavelength
+    (:func:`fold_solve_tables`)."""
     dev = px.device
     n = px.shape[0]
     for name, t in (("px", px), ("py", py), ("pz", pz), ("ax", ax),
-                    ("ay", ay), ("lam", lam)):
+                    ("ay", ay)):
         _check(name, t, torch.float32, dev, (n,))
+    lams = tuple(float(lam) for lam in lams)
+    if (not 1 <= len(lams) <= MAX_BACKWARD_TABLES
+            or (lam_idx is None) != (len(lams) == 1)):
+        raise ValueError(
+            f"lams {lams}: one wavelength without lam_idx, or up to "
+            f"{MAX_BACKWARD_TABLES} with an int32 lam_idx")
+    if lam_idx is not None:
+        _check("lam_idx", lam_idx, torch.int32, dev, (n,))
     if lens.device != dev:
         raise ValueError(f"lens on {lens.device}, items on {dev}")
     if dev.type == "cpu":
-        return po_backward_plain(lens, px, py, pz, ax, ay, lam, iterations)
-    exps, coeffs, cond, lensc = _solve_tables(lens, dev)
+        return po_backward_plain(lens, px, py, pz, ax, ay, lams, lam_idx,
+                                 iterations)
+    tables = _folded_table(lens, "solve", lams, dev)
+    lensc = _splat_lens_consts(lens, dev)
     outs = [torch.empty((n,), dtype=torch.float32, device=dev)
             for _ in range(5)]
     err = _build.lib().pota_po_backward(
         px.data_ptr(), py.data_ptr(), pz.data_ptr(), ax.data_ptr(),
-        ay.data_ptr(), lam.data_ptr(), n, exps.data_ptr(), coeffs.data_ptr(),
-        coeffs.shape[1], cond.data_ptr(), lensc.data_ptr(),
+        ay.data_ptr(), None if lam_idx is None else lam_idx.data_ptr(), n,
+        tables.data_ptr(), len(lams), lensc.data_ptr(),
         CHARTS.index(lens.outer_chart), int(iterations),
         *(t.data_ptr() for t in outs), _stream(dev))
     _build.check(err, "po_backward")

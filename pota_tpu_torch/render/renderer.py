@@ -23,11 +23,14 @@ from . import sampling
 
 
 def check_supported(cfg: CameraConfig, rc: RenderConfig,
-                    differentiable: bool = False):
+                    differentiable: bool = False, po_lens=None):
     """Raise ``TypeError`` unless ``cfg`` and ``rc`` are the port's config
     classes, and ``NotImplementedError`` for what the port does not run
     yet, so nothing silently takes another path.  Each message names the
-    ROADMAP item that will port it."""
+    ROADMAP item that will port it.  A PO frame whose lens lies on the card
+    raises ``ValueError`` for a fit outside the degree-5 basis of the
+    card's PO kernels (:func:`pota_tpu_torch.ops.po_kernels.check_basis`),
+    before any kernel runs; on the CPU such a fit renders."""
     require_port_configs(cfg, rc)
     reasons = []
     if rc.enable_id_matte:
@@ -37,6 +40,11 @@ def check_supported(cfg: CameraConfig, rc: RenderConfig,
     if reasons:
         raise NotImplementedError(
             "not ported to pota_tpu_torch yet: " + "; ".join(reasons))
+    if (cfg.camera_type == CameraType.POLYNOMIAL_OPTICS
+            and po_lens is not None and po_lens.device.type == "cuda"):
+        from ..ops.po_kernels import check_basis
+
+        check_basis(po_lens)
 
 
 def _unit(d):
@@ -169,7 +177,7 @@ def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
     checks on the card)."""
     from .splat import resolve_imager, splat_frame
 
-    check_supported(cfg, rc, differentiable=differentiable)
+    check_supported(cfg, rc, differentiable=differentiable, po_lens=po_lens)
     dev = scene.device
     cam_to_world = cam_to_world.to(dev, torch.float32)
     if cam_to_world_end is not None:

@@ -6,7 +6,8 @@ so this file imports none, and is run there without the suite's conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances match chip_smoke.py: masks agree on >= 99.9% of items, the
-forward trace to 1e-3 mm on rays both versions keep, the accumulator's sums
+forward trace and the backward solve to 1e-3 mm on items both versions
+keep, the accumulator's sums
 to 1e-4 of their scale (the plain version adds with atomics, in another
 order), gathers and winners exactly.
 """
@@ -51,17 +52,19 @@ def _t(a, dev):
     return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
 
-def test_po_forward_kernel_matches_plain(dev):
-    lens = load_poly_lens(FLAGSHIP, device=dev)
+@pytest.mark.parametrize("name, degree, lam_um", [
+    (FLAGSHIP, 5, 0.55), (FLAGSHIP, 3, 0.45), (ANAMORPHIC, 5, 0.65)])
+def test_po_forward_kernel_matches_plain(dev, name, degree, lam_um):
+    """K1 on the table folded at the frame's wavelength."""
+    lens = load_poly_lens(name, degree=degree, device=dev)
     rng = np.random.default_rng(0)
     n = 20000
     x, y = (rng.uniform(-14, 14, n).astype(np.float32) for _ in range(2))
     r = lens.aperture_housing_radius * 0.6
     ax, ay = (rng.uniform(-r, r, n).astype(np.float32) for _ in range(2))
-    lam = np.full(n, 0.55, np.float32)
-    args = [_t(a, dev) for a in (x, y, ax, ay, lam)]
-    got = pk.po_forward(lens, *args, STATE.sensor_shift, 3)
-    ref = pk.po_forward_plain(lens, *args, STATE.sensor_shift, 3)
+    args = [_t(a, dev) for a in (x, y, ax, ay)]
+    got = pk.po_forward(lens, *args, lam_um, STATE.sensor_shift, 3)
+    ref = pk.po_forward_plain(lens, *args, lam_um, STATE.sensor_shift, 3)
     ok_g, ok_p = got[1] > 0, ref[1] > 0
     assert float((ok_g == ok_p).double().mean()) >= 0.999
     both = ok_g & ok_p
@@ -176,25 +179,70 @@ def test_tl_splat_kernel_matches_plain(dev, abb, c2s):
     _assert_masks_agree(pk.tl_splat(*args), pk.tl_splat_plain(*args))
 
 
+CHROMA = (0.43, 0.55, 0.73)     # chroma_wavelengths at abb_chromatic 0.6
+
+
 @pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
-def test_po_backward_kernel_matches_plain(dev, name):
+@pytest.mark.parametrize("lams", [(0.55,), CHROMA])
+def test_po_backward_kernel_matches_plain(dev, name, lams):
+    """K6 on one folded table, or three picked per item by ``lam_idx``.
+    ``trans > 0`` agrees on >= 99.9% of items, (sx, sy) lie within 1e-3 mm
+    on >= 99.9% of the items both keep (measured: all but 1-2 of ~47,000,
+    items 17-48 mm off axis, outside the sensor, where the folded walk
+    falls up to 3.2e-3 mm from a float64 solve and the runtime-term plain
+    version within 1.4e-3), and (sdx, sdy, trans) within 1e-3 on all of
+    them (measured at most 4.1e-4)."""
     lens = load_poly_lens(name, device=dev)
     rng = np.random.default_rng(7)
     n = 50000
     pc, _, _, _, _ = _slot_inputs(rng, n, dev)
     r = STATE.aperture_radius
     ap = rng.uniform(-r, r, (2, n)).astype(np.float32) * 0.7
-    lam = rng.choice([0.43, 0.55, 0.73], n).astype(np.float32)
+    idx = (None if len(lams) == 1 else
+           _t(rng.integers(0, len(lams), n).astype(np.int32), dev))
     args = (lens, *(_t(-10.0 * x, dev) for x in pc), _t(ap[0], dev),
-            _t(ap[1], dev), _t(lam, dev), 3)
+            _t(ap[1], dev), lams, idx, 3)
     got = pk.po_backward(*args)
     ref = pk.po_backward_plain(*args)
     keep_g, keep_p = got[4] > 0, ref[4] > 0
     assert 0.05 < float(keep_p.double().mean()) < 0.99
     assert float((keep_g == keep_p).double().mean()) >= 0.999
     both = keep_g & keep_p
-    for g, r_ in zip(got, ref):
+    far = ((got[0] - ref[0]).abs().maximum((got[1] - ref[1]).abs())
+           > 1e-3)[both]
+    assert float(far.double().mean()) <= 1e-3
+    for g, r_ in zip(got[2:], ref[2:]):
         assert float((g[both] - r_[both]).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("lams", [(0.55,), CHROMA])
+def test_po_backward_kernel_takes_an_empty_queue(dev, lams):
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    e = torch.empty(0, device=dev)
+    idx = None if len(lams) == 1 else torch.empty(0, dtype=torch.int32,
+                                                  device=dev)
+    ops.reset_launches()
+    got = pk.po_backward(lens, e, e, e, e, e, lams, idx, 3)
+    assert [tuple(g.shape) for g in got] == [(0,)] * 5
+    assert ops.LAUNCHES["po_backward"] == 1
+
+
+def test_fit_outside_the_basis_is_refused_before_the_frame(dev):
+    """A PO frame on the card refuses a fit with a monomial outside the
+    degree-5 basis before any kernel runs."""
+    lens = load_poly_lens(FLAGSHIP, degree=3, device=dev)
+    for fn in (lens.pt, lens.ap):
+        fn.exponents[-1] = torch.tensor([6, 0, 0, 0, 0], device=dev)
+        fn.max_degree = 6
+    scene = sc.lightgrid_scene(n=2, z=-150.0, device=dev)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    ops.reset_launches()
+    for end in (None, look_at([2.0, 0, 0], [2.0, 0, -1], device=dev)):
+        with pytest.raises(ValueError, match="outside the degree-5 basis"):
+            render_frame(CFG, pt.RenderConfig(xres=32, yres=32, spp=1),
+                         scene, m, po_lens=lens, po_state=STATE,
+                         cam_to_world_end=end)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 @pytest.mark.parametrize("k", [5, 9, 17])  # RGBA, + 1 and + 3 gaussian AOVs
@@ -288,9 +336,11 @@ def test_render_variant_kernels_match_plain(dev, case, kernel):
     assert float(off) <= 0.02
 
 
-def test_render_motion_blur_kernels_match_plain(dev):
+@pytest.mark.parametrize("chroma", [0.0, 0.6])
+def test_render_motion_blur_kernels_match_plain(dev, chroma):
     """The motion-blurred flagship frame takes the decomposed route: K1, K2,
-    K6 and K4, not K3."""
+    K6 and K4, not K3; chromatic, K6 takes three tables."""
+    cfg = dataclasses.replace(CFG, abb_chromatic=chroma)
     lens = load_poly_lens(FLAGSHIP, device=dev)
     scene = sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0, radius=1.0,
                                intensity=40.0, device=dev)
@@ -298,13 +348,13 @@ def test_render_motion_blur_kernels_match_plain(dev):
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
     end = look_at([2.0, 0, 0], [2.0, 0, -1], device=dev)
     ops.reset_launches()
-    img_k, fb_k = render_frame(CFG, rc, scene, m, po_lens=lens,
+    img_k, fb_k = render_frame(cfg, rc, scene, m, po_lens=lens,
                                po_state=STATE, cam_to_world_end=end)
     assert ops.LAUNCHES == {
         "po_forward": 1, "expand": 1, "po_splat": 0, "segment_accum": 1,
         "tl_splat": 0, "po_splat_lam": 0, "po_splat_ext": 0,
         "po_backward": 1}, ops.LAUNCHES
-    img_p, _ = render_frame(CFG, rc, scene, m, po_lens=lens, po_state=STATE,
+    img_p, _ = render_frame(cfg, rc, scene, m, po_lens=lens, po_state=STATE,
                             cam_to_world_end=end, ops=ops.PLAIN)
     npix = rc.xres * rc.yres
     assert abs(float(fb_k["filter_weight"].sum()) - npix) <= 1e-4 * npix

@@ -1,7 +1,9 @@
 """The port's decomposed splat route against the JAX package on the CPU:
 K6's plain version (the PO backward solve) against the Pallas backward
 kernel in interpret mode, the motion-blurred PO frame at the
-``po_lightgrid`` golden configuration, the aberrated thin-lens goldens
+``po_lightgrid`` golden configuration and, chromatic, with BASELINE config
+3's camera (K6's three wavelength tables), the wavelengths each frame hands
+K6, the aberrated thin-lens goldens
 ``thinlens_chromatic`` and ``bokeh_image_aperture``, motion blur in the
 pattern of ``tests/test_motion_blur.py``, extra gaussian AOVs on the K3 and
 decomposed routes, and the port's independence from ``pota_tpu`` and its
@@ -19,8 +21,9 @@ branch.  Tolerances, each set from the value measured on these inputs:
   mm on a 21.7 mm scale, where the Newton has not converged), and
   ``trans > 0`` on >= 99.9% of items (measured: all);
 - the port's splat of JAX's sample stream: 1e-6 of each plane's scale
-  (measured 2.3e-7 on RGBA of the motion-blurred PO frame, every other
-  plane exact) and raw RGBA energy to 1e-5;
+  (measured 2.3e-7 on RGBA of the motion-blurred PO frame, 8.2e-7 on RGBA
+  of the chromatic one, every other plane exact) and raw RGBA energy to
+  1e-5 (measured 2.6e-9 on the chromatic one);
 - the port's own frames against JAX's frame or a golden: at most 2% of
   pixels off by more than 2e-3 of the plane's scale, as the PO slice is
   held (the forward streams differ by float32 rounding, which can move a
@@ -58,6 +61,7 @@ from tests.test_torch_slice import (
 )
 
 import pota_tpu_torch as pt
+from pota_tpu_torch import ops
 from pota_tpu_torch.ops import po_kernels as pk
 from pota_tpu_torch.optics.fit import load_poly_lens
 from pota_tpu_torch.optics.focus import setup_po_camera
@@ -113,30 +117,39 @@ def _emitter(x=0.0):
 # ------------------------------------------------------- K6 backward solve
 
 
+LAMS = (0.43, 0.55, 0.73)
+
+
 def _backward_inputs(n, seed, xy, z, ap_r):
+    """Targets, aperture points and a wavelength index into :data:`LAMS`
+    per item (int32), and the items' wavelengths (f32) for the Pallas
+    kernel."""
     rng = np.random.default_rng(seed)
     p = np.stack([rng.uniform(-xy, xy, n), rng.uniform(-xy, xy, n),
                   rng.uniform(*z, n)], 0).astype(np.float32)
     ap = (rng.uniform(-1, 1, (2, n)) * ap_r).astype(np.float32)
-    lam = rng.uniform(0.43, 0.73, n).astype(np.float32)
-    return [*p, *ap, lam]
+    idx = rng.integers(0, len(LAMS), n).astype(np.int32)
+    return [*p, *ap], idx, np.asarray(LAMS, np.float32)[idx]
 
 
 @pytest.mark.parametrize("lens_name", ["synthetic", "catalog_deg3"])
 def test_po_backward_plain_matches_pallas(synthetic_lens, lens_name):
     if lens_name == "synthetic":
         jl = synthetic_lens
-        ins = _backward_inputs(3000, 11, 250.0, (300.0, 2500.0), 8.0)
+        ins, idx, lam = _backward_inputs(3000, 11, 250.0, (300.0, 2500.0),
+                                         8.0)
     else:
         # the flagship's committed degree-3 fit (56 terms): a real catalog
         # lens whose interpret-mode kernel traces in seconds
         jl = jax_load_poly_lens(gc.FLAGSHIP, degree=3)
-        ins = _backward_inputs(3000, 5, 500.0, (500.0, 3000.0),
-                               jl.aperture_housing_radius * 0.6)
+        ins, idx, lam = _backward_inputs(3000, 5, 500.0, (500.0, 3000.0),
+                                         jl.aperture_housing_radius * 0.6)
     kern = build_po_backward_kernel(jl, iterations=5, interpret=True)
-    want = [np.asarray(a) for a in kern(*(jnp.asarray(a) for a in ins))]
+    want = [np.asarray(a) for a in kern(*(jnp.asarray(a)
+                                          for a in (*ins, lam)))]
     got = pk.po_backward(to_torch_lens(jl),
-                         *(torch.as_tensor(a) for a in ins), 5)
+                         *(torch.as_tensor(a) for a in ins), LAMS,
+                         torch.as_tensor(idx), 5)
     got = [g.numpy() for g in got]
     keep_w, keep_g = want[4] > 0, got[4] > 0
     assert 0.2 < keep_w.mean() < 0.98          # both sides of the crop
@@ -152,15 +165,20 @@ def test_po_backward_plain_matches_pallas(synthetic_lens, lens_name):
 
 def test_po_backward_guards_the_chief_ray_init(synthetic_lens):
     """A target at |z| < 1e-6 takes the kernel's floored chief-ray guess
-    and stays finite, as the Pallas kernel does."""
-    ins = _backward_inputs(64, 3, 50.0, (300.0, 900.0), 6.0)
+    and stays finite, as the Pallas kernel does, on a monochromatic frame's
+    one wavelength.  (Such a target starts the Newton ~1e8 mm off and does
+    not converge in 3 iterations; at 0.43 um the two solves then drift
+    2.5e-4 of scale apart on one of the eight, by float32 rounding.)"""
+    ins, _, _ = _backward_inputs(64, 3, 50.0, (300.0, 900.0), 6.0)
     ins[2][:8] = 0.0
     kern = build_po_backward_kernel(synthetic_lens, iterations=3,
                                     interpret=True)
-    want = [np.asarray(a) for a in kern(*(jnp.asarray(a) for a in ins))]
+    lam = np.full(64, 0.55, np.float32)
+    want = [np.asarray(a) for a in kern(*(jnp.asarray(a)
+                                          for a in (*ins, lam)))]
     got = [g.numpy() for g in pk.po_backward_plain(
         to_torch_lens(synthetic_lens), *(torch.as_tensor(a) for a in ins),
-        3)]
+        (0.55,), None, 3)]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
         ok = np.isfinite(w)
@@ -168,6 +186,21 @@ def test_po_backward_guards_the_chief_ray_init(synthetic_lens):
 
 
 # --------------------------------------------- the motion-blurred PO frame
+
+
+class Recorder:
+    """The default kernel set (:data:`pota_tpu_torch.ops.KERNELS`), keeping
+    the arguments of every ``po_backward`` call."""
+
+    def __init__(self):
+        self.backward = []
+
+        def po_backward(*args):
+            self.backward.append(args)
+            return pk.po_backward(*args)
+
+        self.ops = ops.KERNELS._replace(po_backward=po_backward)
+
 
 
 @pytest.fixture(scope="module")
@@ -202,11 +235,13 @@ def mb_frames():
                                   aovs=EXTRA_AOVS, cam_to_world_end=m1,
                                   with_diagnostics=True)
     route = tsplat.LAST_ROUTE
+    rec = Recorder()
     _, own = render_frame(cfg, RC, _grid(CPU), m0, po_lens=lens,
                           po_state=state, cam_to_world_end=m1,
-                          aovs=EXTRA_AOVS)
+                          aovs=EXTRA_AOVS, ops=rec.ops)
     return {
         "jax_path": jax_path, "route": route, "want": want,
+        "backward_calls": rec.backward, "cfg": cfg,
         "want_energy": float(np.asarray(jfb["RGBA"], np.float64).sum()),
         "same": {k: v.numpy() for k, v in
                  tsplat.resolve_aovs(RC, same, EXTRA_AOVS).items()},
@@ -245,6 +280,78 @@ def test_mb_energy_matches_jax(mb_frames):
         assert abs(e_got - e_want) <= 1e-5 * e_want
         npix = RC.xres * RC.yres
         assert abs(float(fb["filter_weight"].sum()) - npix) <= 1e-5 * npix
+
+
+# ------------------------------- the chromatic motion-blurred PO frame
+
+
+CHROMA_GRID = dict(n=4, spacing=14.0, z=-150.0, radius=0.8, intensity=40.0)
+
+
+@pytest.fixture(scope="module")
+def chroma_mb():
+    """BASELINE config 3's camera with image bokeh off (three wavelengths
+    per budget unit) and its lightgrid, with the camera trucked across the
+    shutter, at 48x48 @ 2 spp: JAX's decomposed branch and the port's splat
+    of JAX's stream (its ``po_backward`` calls recorded), and the JAX path
+    taken.  The golden camera's focus state serves: ``abb_chromatic`` does
+    not move it."""
+    from pota_tpu import CameraConfig, CameraType
+
+    _, jlens, jstate = _jax_po()
+    jcfg = CameraConfig(
+        camera_type=CameraType.POLYNOMIAL_OPTICS, lens_model=gc.FLAGSHIP,
+        fstop=2.8, focus_distance=20.0, vignetting_retries=3,
+        splat_queue_mult=8, abb_chromatic=0.6)
+    cfg = to_port(jcfg)
+    _, lens, state = _port_po()
+    rec = Recorder()
+    pair = splat_pair(cfg, RC, gc.sc.lightgrid_scene(**CHROMA_GRID),
+                      sc.lightgrid_scene(**CHROMA_GRID, device=CPU),
+                      m_end=look_at(*PAN_END, device=CPU).numpy(),
+                      po=((jlens, jstate), (lens, state)), ops=rec.ops)
+    return {"pair": pair, "jax_path": jsplat._LAST_PATH,
+            "route": tsplat.LAST_ROUTE, "cfg": cfg,
+            "backward_calls": rec.backward}
+
+
+def test_chroma_mb_routes(chroma_mb):
+    assert chroma_mb["jax_path"] == "decomposed"
+    assert chroma_mb["route"] == "decomposed_po"
+    assert int(chroma_mb["pair"][3]["_n_valid_splats"]) > 500
+
+
+@pytest.mark.parametrize("plane", PLANES[:-1])
+def test_chroma_mb_splat_matches_jax_on_same_stream(chroma_mb, plane):
+    got, want = chroma_mb["pair"][0][plane], chroma_mb["pair"][1][plane]
+    assert np.isfinite(got).all()
+    assert scaled_err(got, want) < SAME_STREAM_TOL
+
+
+def test_chroma_mb_energy_matches_jax(chroma_mb):
+    e_got, e_want = chroma_mb["pair"][2]
+    assert abs(e_got - e_want) <= 1e-5 * e_want
+    fb = chroma_mb["pair"][3]
+    npix = RC.xres * RC.yres
+    assert abs(float(fb["filter_weight"].sum()) - npix) <= 1e-5 * npix
+
+
+@pytest.mark.parametrize("frame", ["mb_frames", "chroma_mb"])
+def test_backward_gets_the_frame_wavelengths(request, frame):
+    """K6 is handed the frame's wavelengths as Python floats: one and no
+    index for a monochromatic frame, the chroma three and the slots'
+    channel (int32) as the index for a chromatic one."""
+    rec = request.getfixturevalue(frame)
+    (args,) = rec["backward_calls"]
+    lams, lam_idx = args[6], args[7]
+    cfg = rec["cfg"]
+    if frame == "mb_frames":
+        assert lams == (cfg.lambda_um,) and lam_idx is None
+        return
+    assert lams == tsplat.chroma_wavelengths(cfg) == (0.43, 0.55, 0.73)
+    assert lam_idx.dtype == torch.int32
+    assert lam_idx.shape == args[1].shape
+    assert set(lam_idx.unique().tolist()) == {0, 1, 2}
 
 
 # ------------------------------------------------------ thin-lens goldens

@@ -1,7 +1,11 @@
-"""The folded backward-solve table of K3's flagship instantiation
-(``pota_tpu_torch.ops.po_kernels.fold_solve_tables``) on the CPU.
+"""The folded tables of the card's PO kernels on the CPU: the backward-solve
+table of K3's flagship instantiation and K6
+(``pota_tpu_torch.ops.po_kernels.fold_solve_tables``), K1's forward table
+(``fold_forward_tables``, read by ``csrc/po_forward_basis.cuh``: below, with
+a float64 emulation of the whole K1 algorithm), the fold cache, and the
+basis check that refuses a fit before a frame starts on the card.
 
-The table is evaluated here in float64, as ``csrc/po_solve_basis.cuh``
+The solve table is evaluated here in float64, as ``csrc/po_solve_basis.cuh``
 walks it in float32, and held against the lens's own polynomial: the six
 Newton rows (apx, apy, o0..o3) and the transmittance through
 ``poly_eval``, the rows' derivatives along the raw unknowns (x, y, dx, dy)
@@ -132,18 +136,290 @@ def _params(lam_um):
 
 def test_folded_table_is_cached_per_lens_and_wavelength():
     lens = load_poly_lens(FLAGSHIP, degree=3, device="cpu")
-    a = pk._folded_table(lens, 0.55, _params(0.55))
-    assert pk._folded_table(lens, 0.55, _params(0.55)) is a
-    b = pk._folded_table(lens, 0.45, _params(0.45))
+    a = pk._folded_table(lens, "solve", (0.55,), "cpu")
+    assert pk._folded_table(lens, "solve", (0.55,), "cpu") is a
+    b = pk._folded_table(lens, "solve", (0.45,), "cpu")
     assert b is not a and not torch.equal(a, b)
+    fwd = pk._folded_table(lens, "forward", (0.45,), "cpu")
+    assert fwd.shape == (pk.FWD_TABLE_FLOATS,)
+    assert pk._folded_table(lens, "forward", (0.45,), "cpu") is fwd
+    # K6 under chroma: three tables, one after another
+    three = pk._folded_table(lens, "solve", (0.45, 0.55, 0.65), "cpu")
+    assert torch.equal(three, torch.cat(
+        [b, a, pk.fold_solve_tables(lens, 0.65, "cpu")]))
     with torch.no_grad():
         lens.pt.coeffs[0, 0] += 1.0
-    c = pk._folded_table(lens, 0.45, _params(0.45))
+    c = pk._folded_table(lens, "solve", (0.45,), "cpu")
     assert c is not b
     assert torch.equal(c, pk.fold_solve_tables(lens, 0.45, "cpu"))
+    assert pk._folded_table(lens, "forward", (0.45,), "cpu") is not fwd
 
 
 def test_fold_refuses_a_wavelength_params_do_not_carry():
+    """``po_splat``'s wavelength must be the one ``params`` carries: on the
+    CPU it checks every call, on the card when it folds its table."""
     lens = load_poly_lens(FLAGSHIP, degree=3, device="cpu")
+    f = torch.zeros(4)
+    i = torch.zeros(4, dtype=torch.int32)
+    slots = (f, f, f - 100.0, f, f, f - 100.0, i, i, f)
     with pytest.raises(ValueError, match="not the wavelength of params"):
-        pk._folded_table(lens, 0.55, _params(0.45))
+        pk.po_splat(lens, *slots, _params(0.45), torch.zeros(0, 4), 0.55, 3)
+    lin, ok = pk.po_splat(lens, *slots, _params(0.55), torch.zeros(0, 4),
+                          0.55, 3)
+    assert lin.shape == ok.shape == (4,)
+    folds = []
+    pk._folded_table(lens, "solve", (0.6,), "cpu",
+                     on_fold=lambda: folds.append(1))
+    pk._folded_table(lens, "solve", (0.6,), "cpu",
+                     on_fold=lambda: folds.append(1))
+    assert folds == [1]
+
+
+# ------------------------------------------ K1's folded forward table
+FWD_HEADER = os.path.join(os.path.dirname(HEADER), "po_forward_basis.cuh")
+BACKWARD_SRC = os.path.join(os.path.dirname(HEADER), "po_backward.cu")
+# the 21 monomials dx^c dy^d of the collapsed ap rows, c outer (fwd::kPairs)
+PAIRS = [(c, d) for c in range(6) for d in range(6 - c)]
+PAIR_OF = {cd: j for j, cd in enumerate(PAIRS)}
+FWD_TOL = 5e-7
+K1_TOL = 4e-6
+FITS = sorted(glob.glob(os.path.join(LENS_DIR, "*.npz")))
+
+
+def collapse(table, x, y):
+    """The coefficients A_cd(x, y) [N, 2, 21] of ap's rows apx, apy as a
+    polynomial in the conditioned (dx, dy), summed as ``fwd::Collapse``
+    sums them, in float64."""
+    t = table.double()
+    ux = (x - t[4]) * t[0]
+    uy = (y - t[5]) * t[1]
+    ap = t[pk.FWD_AP:pk.FWD_PT].reshape(len(pk.BASIS), 2)
+    A = torch.zeros(x.shape[0], 2, len(PAIRS), dtype=torch.float64)
+    for k, (a, b, c, d) in enumerate(pk.BASIS):
+        A[:, :, PAIR_OF[(c, d)]] += ap[k] * (ux ** a * uy ** b)[:, None]
+    return A
+
+
+def pair_poly(A, u, v):
+    """``fwd::pair_poly``: the value of sum A_cd u^c v^d and its partials
+    along u and v, by the kernel's nested Horner (A [N, 21])."""
+    p = A[:, PAIR_OF[(0, 5)]]
+    pu = pv = torch.zeros_like(p)
+    for d in range(4, -1, -1):
+        top = 5 - d
+        q, qu = A[:, PAIR_OF[(top, d)]], torch.zeros_like(p)
+        for c in range(top - 1, -1, -1):
+            qu = q if c == top - 1 else qu * u + q
+            q = q * u + A[:, PAIR_OF[(c, d)]]
+        pv = p if d == 4 else pv * v + p
+        pu = qu if d == 4 else pu * v + qu
+        p = p * v + q
+    return p, pu, pv
+
+
+def pt_walk(table, s):
+    """pt's rows o0..o3, trans [N, 5] over the 126 monomials of the raw
+    unknowns ``s`` [N, 4], as ``fwd::PtSums`` walks them, in float64."""
+    t = table.double()
+    u = (s - t[4:8]) * t[:4]
+    mono = torch.prod(u[:, None, :] ** torch.tensor(pk.BASIS,
+                                                    dtype=torch.float64), -1)
+    n = len(pk.BASIS)
+    rows = torch.cat([t[pk.FWD_PT:pk.FWD_TRANS].reshape(n, 4),
+                      t[pk.FWD_TRANS:pk.FWD_TRANS + n, None]], 1)
+    return mono @ rows
+
+
+def ap_rows(table, s):
+    """ap's rows [N, 2] and their derivatives [N, 2, 2] along the raw
+    (dx, dy) at ``s`` [N, 4]: the collapse, then the Horner rows."""
+    t = table.double()
+    A = collapse(t, s[:, 0], s[:, 1])
+    udx = (s[:, 2] - t[6]) * t[2]
+    udy = (s[:, 3] - t[7]) * t[3]
+    rows = [pair_poly(A[:, r], udx, udy) for r in range(2)]
+    vals = torch.stack([r[0] for r in rows], -1)
+    der = torch.stack([torch.stack([r[1] * t[2], r[2] * t[3]], -1)
+                       for r in rows], 1)
+    return vals, der
+
+
+def k1_emulation(table, x, y, ax, ay, inv_ap_z, sensor_shift, iterations):
+    """``po_forward_trace`` (csrc/po_forward_basis.cuh) in float64 on the
+    float32 ``table``: collapse, the 2x2 Newton on the Horner rows with the
+    kernel's det guard and update, the sensor shift, the pt walk.
+    Returns (out4 [N, 4], trans [N] >= 0, dx, dy)."""
+    t = table.double()
+    A = collapse(t, x, y)
+    dx = (ax - x) * inv_ap_z
+    dy = (ay - y) * inv_ap_z
+    for _ in range(iterations):
+        udx = (dx - t[6]) * t[2]
+        udy = (dy - t[7]) * t[3]
+        apx, j00, j01 = pair_poly(A[:, 0], udx, udy)
+        apy, j10, j11 = pair_poly(A[:, 1], udx, udy)
+        j00, j10, j01, j11 = j00 * t[2], j10 * t[2], j01 * t[3], j11 * t[3]
+        r0, r1 = apx - ax, apy - ay
+        det = j00 * j11 - j01 * j10
+        det = torch.where(det.abs() < 1e-12, 1e-12, det)
+        dx = dx - (j11 * r0 - j01 * r1) / det
+        dy = dy - (-j10 * r0 + j00 * r1) / det
+    s = torch.stack([x + dx * sensor_shift, y + dy * sensor_shift, dx, dy],
+                    -1)
+    out = pt_walk(t, s)
+    return out[:, :4], torch.clamp(out[:, 4], min=0.0), dx, dy
+
+
+@pytest.mark.parametrize("name, degree, lam_um", CASES)
+def test_forward_table_matches_lens(name, degree, lam_um):
+    """K1's table read the kernel's way (ap collapsed and evaluated by
+    Horner with both partials, pt walked over the basis) against
+    ``poly_eval`` and the autograd Jacobian of the lens.  Tolerance as the
+    solve table's, 5e-7 of each row's scale (measured at most 6.4e-9 on
+    values, 1.5e-9 on derivatives)."""
+    lens = load_poly_lens(name, degree=degree, device="cpu")
+    table = pk.fold_forward_tables(lens, lam_um, "cpu")
+    assert table.dtype == torch.float32
+    assert table.shape == (pk.FWD_TABLE_FLOATS,)
+    rng = np.random.default_rng(4)
+    u = torch.as_tensor(rng.uniform(-1.0, 1.0, (4000, 4)))
+    s = lens.pt.in_shift[:4].double() + u / lens.pt.in_scale[:4].double()
+    got_ap, got_der = ap_rows(table, s)
+    got_pt = pt_walk(table, s)
+
+    s_g = s.clone().requires_grad_(True)
+    s5 = torch.cat([s_g, torch.full_like(s[:, :1], lam_um)], -1)
+    want_ap = poly_eval(lens.ap.double(), s5)[:, :2]
+    want_der = torch.stack([torch.autograd.grad(
+        want_ap[:, r].sum(), s_g, retain_graph=True)[0][:, 2:]
+        for r in range(2)], 1)
+    want_pt = poly_eval(lens.pt.double(), s5)[:, :5].detach()
+    assert scaled_err(got_ap, want_ap.detach(), 0) < FWD_TOL
+    assert scaled_err(got_der, want_der, (0, 2)) < FWD_TOL
+    assert scaled_err(got_pt, want_pt, 0) < FWD_TOL
+
+
+def _rays(lens, n=4000):
+    """Seeded sensor points (mm) and aperture points within 0.6 of the
+    housing radius, f32."""
+    rng = np.random.default_rng(8)
+    x, y = (torch.as_tensor(rng.uniform(-14, 14, n).astype(np.float32))
+            for _ in range(2))
+    r = lens.aperture_housing_radius * 0.6
+    ax, ay = (torch.as_tensor(rng.uniform(-r, r, n).astype(np.float32))
+              for _ in range(2))
+    return x, y, ax, ay
+
+
+def _assert_traces_agree(got, want, tol):
+    keep_g, keep_w = got[1] > 0, want[1] > 0
+    assert 0.2 < float(keep_w.double().mean())
+    assert float((keep_g == keep_w).double().mean()) >= 0.999
+    both = keep_g & keep_w
+    for g, w in zip(got, want):
+        assert scaled_err(g[both].double(), w[both].double(), 0) < tol
+
+
+@pytest.mark.parametrize("name, degree, lam_um", CASES)
+def test_k1_emulation_matches_plain(name, degree, lam_um):
+    """The whole K1 algorithm in float64 on the folded table against
+    ``po_forward_plain`` (the same algorithm in float32) on seeded rays:
+    ``trans > 0`` agrees on >= 99.9% of rays (measured: all) and every
+    output on the rays both keep to 4e-6 of its scale (measured at most
+    1.9e-6, trans at 0.45 um: float32 rounding of the sums, whose terms
+    cancel to ~1e-5 mm of a ~10 mm pupil point)."""
+    lens = load_poly_lens(name, degree=degree, device="cpu")
+    table = pk.fold_forward_tables(lens, lam_um, "cpu")
+    x, y, ax, ay = _rays(lens)
+    shift = 2.0
+    got = k1_emulation(table, x.double(), y.double(), ax.double(),
+                       ay.double(), 1.0 / lens.aperture_z, shift, 3)
+    _assert_traces_agree(
+        got, pk.po_forward_plain(lens, x, y, ax, ay, lam_um, shift, 3),
+        K1_TOL)
+
+
+@pytest.mark.parametrize("name, degree, lam_um", CASES)
+def test_k1_plain_matches_the_term_trace(name, degree, lam_um):
+    """``po_forward_plain`` (the kernel's arithmetic on the folded table)
+    computes K1's function: against ``pt_sample_aperture`` then
+    ``pt_evaluate`` on the fit's own terms (both float32), ``trans > 0``
+    agrees on >= 99.9% of rays (measured: all) and every output on the
+    rays both keep lies within 1e-5 of its scale (measured at most
+    2.9e-6)."""
+    lens = load_poly_lens(name, degree=degree, device="cpu")
+    x, y, ax, ay = _rays(lens)
+    _assert_traces_agree(
+        pk.po_forward_plain(lens, x, y, ax, ay, lam_um, 2.0, 3),
+        pk._po_forward_terms(lens, x, y, ax, ay, lam_um, 2.0, 3), 1e-5)
+
+
+@pytest.mark.parametrize("path", FITS, ids=os.path.basename)
+def test_committed_fit_folds_forward_and_passes_the_basis_check(path):
+    lens = load_poly_lens("", path=path, device="cpu")
+    pk.check_basis(lens)
+    table = pk.fold_forward_tables(lens, 0.55, "cpu")
+    assert bool(torch.isfinite(table).all())
+    assert not bool(table[pk.FWD_TRANS + len(pk.BASIS):].any())   # padding
+
+
+def test_forward_layout_matches_the_cuda_header():
+    """The offsets of ``csrc/po_forward_basis.cuh`` (evaluated from its
+    constexpr expressions) are the Python ones; so is K6's table count."""
+    with open(FWD_HEADER) as f:
+        text = f.read()
+    env = {"kMonomials": len(pk.BASIS), "kDegree": pk.BASIS_DEGREE}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", text):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    assert env["kHeader"] == pk.FWD_HEADER
+    assert env["kAp"] == pk.FWD_AP
+    assert env["kPt"] == pk.FWD_PT
+    assert env["kTrans"] == pk.FWD_TRANS
+    assert env["kTableFloats"] == pk.FWD_TABLE_FLOATS
+    assert env["kPairs"] == len(PAIRS)
+    size = int(re.search(r"kTableFloats == (\d+)", text).group(1))
+    assert size == pk.FWD_TABLE_FLOATS
+    with open(BACKWARD_SRC) as f:
+        n_tab = re.search(r"kMaxBackwardTables = (\d+);", f.read()).group(1)
+    assert int(n_tab) == pk.MAX_BACKWARD_TABLES
+
+
+# ------------------------------------------- the basis check before a frame
+
+
+def _outside_basis_lens():
+    lens = load_poly_lens(FLAGSHIP, degree=3, device="cpu")
+    for fn in (lens.pt, lens.ap):
+        fn.exponents[-1] = torch.tensor([6, 0, 0, 0, 0])
+        fn.max_degree = 6
+    return lens
+
+
+def test_check_basis_refuses_a_monomial_outside_the_basis():
+    lens = _outside_basis_lens()
+    with pytest.raises(ValueError, match="outside the degree-5 basis"):
+        pk.check_basis(lens)
+    with pytest.raises(ValueError, match="outside the degree-5 basis"):
+        pk.fold_forward_tables(lens, 0.55, "cpu")
+
+
+def test_fit_outside_the_basis_renders_on_the_cpu():
+    """Only the card's folded kernels need the basis: on the CPU the plain
+    versions render such a fit, as JAX does."""
+    import pota_tpu_torch as pt
+    from pota_tpu_torch.optics.focus import setup_po_camera
+    from pota_tpu_torch.render import scene as sc
+    from pota_tpu_torch.render.renderer import check_supported, look_at
+    from pota_tpu_torch.render.renderer import render_frame
+
+    lens = _outside_basis_lens()
+    cfg = pt.CameraConfig(camera_type=pt.CameraType.POLYNOMIAL_OPTICS,
+                          fstop=2.8, focus_distance=20.0,
+                          vignetting_retries=1, splat_queue_mult=2)
+    rc = pt.RenderConfig(xres=8, yres=8, spp=1)
+    check_supported(cfg, rc, po_lens=lens)
+    img, fb = render_frame(cfg, rc, sc.lightgrid_scene(n=2, z=-150.0,
+                                                       device="cpu"),
+                           look_at([0, 0, 0], [0, 0, -1], device="cpu"),
+                           po_lens=lens, po_state=setup_po_camera(lens, cfg))
+    assert img.shape == (8, 8, 4) and bool(torch.isfinite(img).all())

@@ -48,13 +48,16 @@ def test_po_forward_plain_matches_pallas(synthetic_lens):
     n = 1500
     x, y = (rng.uniform(-15, 15, n).astype(np.float32) for _ in range(2))
     ax, ay = (rng.uniform(-8, 8, n).astype(np.float32) for _ in range(2))
-    lam = rng.uniform(0.4, 0.7, n).astype(np.float32)
+    # the port's K1 takes the frame's one wavelength; the Pallas kernel one
+    # per ray
+    lam_um = 0.47
+    lam = np.full(n, lam_um, np.float32)
     kern = po_pallas.build_po_forward_kernel(lens, 1.5, newton_iterations=3,
                                              interpret=True)
     want = kern(*(jnp.asarray(a) for a in (x, y, ax, ay, lam)))
     got = pk.po_forward(to_torch_lens(lens),
-                        *(torch.as_tensor(a) for a in (x, y, ax, ay, lam)),
-                        1.5, 3)
+                        *(torch.as_tensor(a) for a in (x, y, ax, ay)),
+                        lam_um, 1.5, 3)
     # float32 rounding only: measured 1.9e-7 scale-relative
     for g, w in zip(got, want):
         assert scaled_err(g, w) < 1e-6

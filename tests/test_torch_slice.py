@@ -84,12 +84,13 @@ def jax_stream_to_torch(js):
 
 
 def splat_pair(cfg, rc, jscene, tscene, m_end=None, po=None, cdf=None,
-               aovs=None):
+               aovs=None, ops=None):
     """JAX's splat_frame (on the CPU: its decomposed branch) and the port's
     of JAX's sample stream, for the port's ``cfg`` / ``rc``.  ``po`` is
     ((jax lens, jax state), (port lens, port state)), ``cdf`` (jax, port)
     bokeh tables, ``m_end`` the end-of-shutter matrix as numpy, ``aovs``
-    the port's AOV specs.  Returns (port resolved planes, JAX resolved
+    the port's AOV specs, ``ops`` the port's kernel set (default its
+    kernels).  Returns (port resolved planes, JAX resolved
     planes, (port raw RGBA energy, JAX's), the port's framebuffer)."""
     from pota_tpu.render import aov as jaov
     from pota_tpu.render import splat as jsplat
@@ -117,7 +118,7 @@ def splat_pair(cfg, rc, jscene, tscene, m_end=None, po=None, cdf=None,
             po_state=ts_, bokeh_cdf=tcdf, aovs=aovs,
             cam_to_world_end=(None if m_end is None
                               else torch.as_tensor(jend)),
-            with_diagnostics=True)
+            with_diagnostics=True, ops=ops)
     got = {k: v.numpy() for k, v in resolve_aovs(rc, fb, aovs).items()}
     energy = (float(fb["RGBA"].double().sum()),
               float(np.asarray(jfb["RGBA"], np.float64).sum()))
