@@ -7,18 +7,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   2. build     compiles the kernels from pota_tpu_torch/csrc (nvcc, one
                process per source) and prints each entry's registers/spills
   3. kernels   captures each kernel's arguments from a full-width frame of
-               its own path (K1-K4 the flagship, K5 config 1, K3's
-               per-slot-wavelength variant config 3 with image bokeh off,
-               K3's external-aperture variant config 3, K6 the flagship
-               with camera motion blur), then runs kernel and plain
-               PyTorch version on those inputs, asserts the tolerances and
-               times both (CUDA events, median after a warm-up; the plain
-               K1, K3 and K6 three times, everything else five); K6 also
-               on three tables (config 3's chroma wavelengths, ``lam_idx = slot % 3``)
+               its own path (K1-K4 the flagship, K5 config 1, K3b's
+               per-slot-wavelength instantiation config 3 with image bokeh
+               off, K3b's external-aperture instantiation config 3, K6 the
+               flagship with camera motion blur), then runs kernel and
+               plain PyTorch version on those inputs, asserts the
+               tolerances and times both (CUDA events, median after a
+               warm-up; the plain K1, K3 and K6 three times, everything
+               else five); K6 also on three tables (config 3's chroma
+               wavelengths, ``lam_idx = slot % 3``); K3b also on one table
+               and in the thread order of the other design
+               (:func:`k3b_designs`)
   4. parity    renders small frames twice, through the kernels and through
                the plain versions on CUDA tensors, and compares: the
                flagship at 256x256 @ 1 spp, config 1 at 64x64 @ 4 spp,
-               config 3 at 128x128 @ 2 spp, the motion-blurred flagship at
+               config 3 at 128x128 @ 2 spp, config 3 with image bokeh off
+               at 128x128 @ 2 spp, the motion-blurred flagship at
                256x256 @ 1 spp with an extra gaussian AOV, config 3 with
                image bokeh off and motion blur (K6 on three tables) at
                128x128 @ 2 spp, and the two
@@ -36,16 +40,15 @@ Each kernel record carries ``bound_ms``, the least time the card could take
 for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (an FMA is two; the integer TEA-8 draws are not counted),
-counted from the kernel's code and this run's shapes and exponent table
-(:func:`solve_flops` for K3's variants on the runtime-term solve, and for
-the kernels on the folded degree-5 basis the work they run:
-:func:`basis_forward_flops` for K1, :func:`basis_solve_flops` for K3's
-flagship instantiation and K6).  Those three records add
-``runtime_term_bound_ms`` (the same bound for the runtime-term code each
-ran before, :func:`forward_flops` / :func:`solve_flops`), their registers
-and spill bytes; K3's and K6's add how often they and their plain versions
-disagree with a float64 solve of the same items (:func:`f64_witness`), and
-K3's how often the runtime-term solve does.
+counted from the kernel's code and this run's shapes (for the kernels on
+the folded degree-5 basis the work they run: :func:`basis_forward_flops`
+for K1, :func:`basis_solve_flops` for K3, K3b and K6).  Those five records
+add ``runtime_term_bound_ms`` (the same bound for the runtime-term code each
+ran before, :func:`forward_flops` / :func:`solve_flops`, from the fit's
+exponent table), their registers and spill bytes; K3's, K3b's
+per-slot-wavelength record and K6's add how often they and their plain
+versions disagree with a float64 solve of the same items
+(:func:`f64_witness`).
 ``library_ms`` is the time of one PyTorch call computing the same function,
 where one exists (K2: ``index_select`` over both tables), else null.
 The last two lines of stdout are the kernels' JSON record and
@@ -108,8 +111,9 @@ def bound(n_bytes: float, flops: float) -> dict:
 
 
 def solve_flops(exps, iterations: int) -> float:
-    """f32 operations of one PO backward solve (``csrc/po_solve.cuh``) for
-    the exponent table ``exps`` [T, 5]: per Newton iteration and term the
+    """f32 operations of one PO backward solve on the runtime term list the
+    kernels ran before the folded basis, for the exponent table ``exps``
+    [T, 5]: per Newton iteration and term the
     powers and their derivatives, the monomial, four tangents and six
     output rows of five FMAs; about 400 for the chart, residual and 4x4
     solve; then the final three-row evaluation."""
@@ -245,6 +249,54 @@ def f64_witness(plain, args, items):
     return plain_chunked(plain, (lens64, *rest), items)
 
 
+def channel_order(n: int, device):
+    """The slot each thread of a chromatic K3b takes (``csrc/po_splat.cu``):
+    thread t takes 96 * (t // 96) + 3 * (t % 32) + (t // 32) % 3, so each
+    warp's 32 slots are one channel where the queue's channel is slot % 3;
+    for the first n - n % 96 threads, int64."""
+    import torch
+
+    t = torch.arange(n - n % 96, device=device)
+    return t // 96 * 96 + 3 * (t % 32) + (t // 32) % 3
+
+
+def k3b_designs(kern, args, items) -> dict:
+    """K3b's two thread orders on its captured arguments, cut to whole
+    channel groups: the kernel as it is (channel-uniform warps) and on the
+    slots permuted so that thread t meets slot t (an index per slot, K6's
+    order: a chromatic warp then reads all three tables), which must give
+    the same (lin, ok) permuted; and the same slots on one table (the green
+    channel's wavelength, no index).  Times (ms) and the share of warps
+    whose 32 slots are of one channel."""
+    import torch
+
+    idx = args[10]
+    q = channel_order(idx.shape[0], idx.device)
+    inv = torch.empty_like(q)
+    inv[q] = torch.arange(q.shape[0], device=q.device)
+
+    def on(perm, over=None):
+        over = over or {}
+        return [over[k] if k in over else a[perm] if k in items else a
+                for k, a in enumerate(args)]
+
+    own = on(slice(0, q.shape[0]))
+    slot_index = on(inv)
+    one_table = on(slice(0, q.shape[0]), {9: args[9][1:2], 10: None})
+    lin_o, ok_o = kern(*own)
+    lin_s, ok_s = kern(*slot_index)
+    if not (torch.equal(lin_s, lin_o[inv]) and torch.equal(ok_s, ok_o[inv])):
+        fail("K3b's thread order changes its result")
+    warps = idx[q].view(-1, 32)
+    return dict(
+        n=int(q.shape[0]),
+        uniform_warp_share=float((warps == warps[:, :1]).all(1)
+                                 .double().mean()),
+        channel_uniform_ms=median_ms(lambda: kern(*own)),
+        slot_index_ms=median_ms(lambda: kern(*slot_index)),
+        one_table_ms=median_ms(lambda: kern(*one_table)))
+
+
 def share_far(got, ref, both) -> float:
     """Share of the items ``both`` keep whose sensor point (sx, sy) lies
     more than 1e-3 mm apart in the two K6 outputs."""
@@ -347,6 +399,10 @@ def main() -> int:
             ("po_forward", "po_forward_kernel", "K1 (the folded forward)"),
             ("po_splat", "po_splat_kernelILi0E",
              "K3 flagship instantiation (SPLAT_DISK, the basis solve)"),
+            ("po_splat_lam", "po_splat_kernelILi1E",
+             "K3b per-slot-wavelength instantiation (SPLAT_DISK_LAM)"),
+            ("po_splat_ext", "po_splat_kernelILi2E",
+             "K3b external-aperture instantiation (SPLAT_EXTERNAL)"),
             ("po_backward", "po_backward_kernel", "K6 (the basis solve)")):
         found = [v for k, v in entries.items() if key in k]
         if len(found) != 1:
@@ -476,30 +532,27 @@ def main() -> int:
         # K3: PO splat, S slots
         a3 = rec["po_splat"]
 
-        def k3_witness(lin_g, ok_g, lin_p, ok_p):
-            """Which of K3, the runtime-term solve (K3's lam variant at the
-            frame's wavelength, the solve K3 ran before the folded basis)
-            and the f32 plain version loses the slots they disagree on,
-            against the float64 solve."""
-            lin_w, ok_w = f64_witness(pk.po_splat_plain, a3, slice(1, 10))
-            lam_q = torch.full_like(a3[1], a3[12])
-            lin_r, ok_r = pk.po_splat_lam(a3[0], *a3[1:9], lam_q, *a3[9:12],
-                                          a3[13])
-            off = {"kernel": disagreement(lin_g, ok_g, lin_w, ok_w),
-                   "runtime_term_kernel": disagreement(lin_r, ok_r, lin_w,
-                                                       ok_w),
-                   "plain_f32": disagreement(lin_p, ok_p, lin_w, ok_w)}
-            for who, d in off.items():
-                print(f"po_splat f64 witness: {who} disagrees on ok "
-                      f"{d['ok'] * 100:.6f}% of slots, on lin "
-                      f"{d['lin'] * 100:.6f}% of slots both keep", flush=True)
-            return dict(f64_disagreement=off)
+        def splat_witness(name, plain, args, items):
+            """Which of the kernel and its f32 plain version loses the
+            slots they disagree on, against the float64 solve."""
+            def witness(lin_g, ok_g, lin_p, ok_p):
+                lin_w, ok_w = f64_witness(plain, args, items)
+                off = {"kernel": disagreement(lin_g, ok_g, lin_w, ok_w),
+                       "plain_f32": disagreement(lin_p, ok_p, lin_w, ok_w)}
+                for who, d in off.items():
+                    print(f"{name} f64 witness: {who} disagrees on ok "
+                          f"{d['ok'] * 100:.6f}% of slots, on lin "
+                          f"{d['lin'] * 100:.6f}% of slots both keep",
+                          flush=True)
+                return dict(f64_disagreement=off)
+            return witness
 
         k3 = check_splat_kernel(
             "po_splat", pk.po_splat, pk.po_splat_plain, a3, slice(1, 10),
             "pota_tpu_torch/csrc/po_splat.cu", f"{TPU_KERNELS}:697", 41.0,
             basis_solve_flops(a3[13]) + splat_extra + 20, plain_reps=3,
-            witness=k3_witness)
+            witness=splat_witness("po_splat", pk.po_splat_plain, a3,
+                                  slice(1, 10)))
         k3.update(
             design_bound_ms=k3["bound_ms"],
             runtime_term_bound_ms=bound(41.0 * k3["n"], k3["n"] * (
@@ -548,22 +601,42 @@ def main() -> int:
             "pota_tpu_torch/csrc/tl_splat.cu", f"{TPU_KERNELS}:958", 41.0,
             85.0 + 20 * scene1.n_objects))
         del a5
-        # K3 variants: config 3 with image bokeh off, and config 3
-        a3l = capture(cfg3_nb, rc3, scene3, **po3)["po_splat_lam"]
+        # K3b: config 3 with image bokeh off (the per-slot-wavelength
+        # instantiation, 20 operations more for the disk), and config 3
         extra3 = 60 + 20 * scene3.n_objects
-        records.append(check_splat_kernel(
-            "po_splat_lam", pk.po_splat_lam, pk.po_splat_lam_plain, a3l,
-            slice(1, 11), "pota_tpu_torch/csrc/po_splat.cu",
-            f"{TPU_KERNELS}:697", 45.0,
-            solve_flops(lens.pt.exponents, a3l[13]) + extra3 + 20))
-        del a3l
-        a3e = capture(cfg3, rc3, scene3, bokeh_cdf=cdf3, **po3)["po_splat_ext"]
-        records.append(check_splat_kernel(
-            "po_splat_ext", pk.po_splat_ext, pk.po_splat_ext_plain, a3e,
-            slice(1, 11), "pota_tpu_torch/csrc/po_splat.cu",
-            f"{TPU_KERNELS}:697", 45.0,
-            solve_flops(lens.pt.exponents, a3e[13]) + extra3))
-        del a3e
+        items3b = (*range(1, 9), 10, 11)   # lams (9) is a tuple of floats
+        for name, plain, line, cfg_, kw, disk in (
+                ("po_splat_lam", pk.po_splat_lam_plain, 743, cfg3_nb, {}, 20),
+                ("po_splat_ext", pk.po_splat_ext_plain, 747, cfg3,
+                 dict(bokeh_cdf=cdf3), 0)):
+            a3b = capture(cfg_, rc3, scene3, **kw, **po3)[name]
+            if (a3b[9] != chroma_wavelengths(cfg3)
+                    or a3b[10].dtype != torch.int32):
+                fail(f"{name} got wavelengths {a3b[9]} on a chromatic frame")
+            flops = basis_solve_flops(a3b[14]) + extra3 + disk
+            k3b = check_splat_kernel(
+                name, getattr(pk, name), plain, a3b, items3b,
+                "pota_tpu_torch/csrc/po_splat.cu", f"{TPU_KERNELS}:{line}",
+                45.0, flops, witness=splat_witness(name, plain, a3b, items3b)
+                if name == "po_splat_lam" else None)
+            k3b.update(
+                runtime_term_bound_ms=bound(45.0 * k3b["n"], k3b["n"] * (
+                    solve_flops(lens.pt.exponents, a3b[14]) + extra3
+                    + disk))["bound_ms"],
+                designs=k3b_designs(getattr(pk, name), a3b, items3b),
+                **ptxas[name])
+            d = k3b["designs"]
+            print(f"{name} (basis solve, three tables): {k3b['ms']:.3f} ms, "
+                  f"bound {k3b['bound_ms']:.3f} ms ({k3b['bound_by']}), "
+                  f"runtime-term bound {k3b['runtime_term_bound_ms']:.3f} ms,"
+                  f" {k3b['registers']} registers, {k3b['spill_bytes']} "
+                  f"spill bytes; on {d['n']} slots: channel-uniform warps "
+                  f"{d['channel_uniform_ms']:.3f} ms, an index per slot "
+                  f"{d['slot_index_ms']:.3f} ms, one table "
+                  f"{d['one_table_ms']:.3f} ms ({d['uniform_warp_share']:.4f}"
+                  f" of warps one channel) {tag}", flush=True)
+            records.append(k3b)
+            del a3b
         torch.cuda.empty_cache()
 
         # K6: PO backward solve, the motion-blurred flagship's S slots,
@@ -675,6 +748,8 @@ def main() -> int:
         xres=64, yres=64, spp=4), scene1)
     parity("config 3 128x128 @ 2 spp", cfg3, pt.RenderConfig(
         xres=128, yres=128, spp=2), scene3, bokeh_cdf=cdf3, **po3)
+    parity("config 3 with image bokeh off 128x128 @ 2 spp", cfg3_nb,
+           pt.RenderConfig(xres=128, yres=128, spp=2), scene3, **po3)
     parity("flagship_mb 256x256 @ 1 spp with a gaussian P AOV", cfg, rc256,
            scene, cam_to_world_end=m_end,
            aovs=list(DEFAULT_AOVS) + [AOVSpec("P_gauss", "VECTOR", GAUSSIAN,

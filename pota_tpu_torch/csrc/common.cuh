@@ -30,14 +30,6 @@ __device__ __forceinline__ void block_load(T* dst, const T* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-// u ** e by repeated multiplication (u, u*u, (u*u)*u, ...), the order the
-// JAX power tables use.
-__device__ __forceinline__ float ipow(float u, int e) {
-  float p = 1.0f;
-  for (int k = 0; k < e; ++k) p *= u;
-  return p;
-}
-
 // max(v, 0) that keeps NaN, like jnp.maximum (fmaxf would drop it).
 __device__ __forceinline__ float relu_nan(float v) {
   return (v != v) ? v : fmaxf(v, 0.0f);

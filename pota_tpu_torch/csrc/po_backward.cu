@@ -18,7 +18,7 @@
 // Design: a frame has one wavelength, or under chroma three fixed ones
 // (render/splat.py::chroma_wavelengths), so the kernel runs po_basis_solve
 // on one to three tables that po_kernels.py fold_solve_tables folds at
-// those wavelengths, the tables K3's flagship route runs.  All of them go
+// those wavelengths, the tables K3 and K3b run.  All of them go
 // into shared memory (10,784 bytes each, 32.4 KB for three), and an
 // optional int32 index per item (the chroma channel) picks the item's
 // table.  Each table starts 2696 floats after the one before, 8 banks
@@ -37,7 +37,6 @@
 namespace pota {
 
 constexpr int kBackwardThreads = 256;
-constexpr int kMaxBackwardTables = 3;
 
 __global__ void __launch_bounds__(kBackwardThreads)
 po_backward_kernel(const float* __restrict__ px, const float* __restrict__ py,
@@ -87,7 +86,7 @@ extern "C" int pota_po_backward(const float* px, const float* py,
                                 float* sx, float* sy, float* sdx, float* sdy,
                                 float* trans, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (n_tables < 1 || n_tables > pota::kMaxBackwardTables ||
+  if (n_tables < 1 || n_tables > pota::kMaxSolveTables ||
       (n_tables > 1 && table_idx == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem =

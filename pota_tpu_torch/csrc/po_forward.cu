@@ -15,8 +15,8 @@
 // Design: every ray of a frame has the frame's wavelength, so the kernel
 // runs po_forward_trace (po_forward_basis.cuh) on the table
 // po_kernels.py fold_forward_tables folds at that wavelength: exponents
-// known at compile time (no ipow, no loop over a term list, no per-ray
-// wavelength), `ap` collapsed once per ray to its 21 coefficients in
+// known at compile time (no runtime powers, no loop over a term list, no
+// per-ray wavelength), `ap` collapsed once per ray to its 21 coefficients in
 // (dx, dy).  One thread per ray, a grid-stride loop; the 3.5 KB table is
 // copied into shared memory once per block and read with volatile 16-byte
 // loads (basis::ld4), which the compiler cannot hoist out of the ray loop.

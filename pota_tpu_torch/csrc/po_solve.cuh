@@ -1,22 +1,17 @@
-// The PO backward solve of K3's per-slot-wavelength variants (po_splat.cu):
-// for a target point (px, py, pz) in lens-space mm and an aperture point
-// (ax, ay) in mm, the sensor light field (x, y, dx, dy) whose ray crosses
-// the iris at the aperture point and lands on the target, and its
-// transmittance cropped by the outer pupil.
+// The parts of the PO backward solve that do not depend on how the lens
+// polynomial is stored: the lens constants, the outer-pupil chart's exit
+// ray and the blocked 4x4 solve of each Newton step.  po_solve_basis.cuh
+// builds the solve of K3, K3b (po_splat.cu) and K6 (po_backward.cu) on
+// them.
 //
-// Replaces the body both TPU backward kernels share:
-// pota_tpu/ops/po_pallas.py::_emit_backward_solve (with _solve4).
+// Replaces those parts of the body both TPU backward kernels share:
+// pota_tpu/ops/po_pallas.py::_emit_backward_solve's exit_ray and _solve4.
 //
-// A fixed-iteration 4x4 Newton from the chief-ray guess: each iteration
-// evaluates the shared-term polynomial's rows apx, apy, o0..o3 with four
-// forward-mode tangents (the counterpart of jax.linearize in the TPU
-// kernel), maps the outer-pupil chart to the exit ray through a small dual
-// type (D4), and solves the 4x4 system by the Schur complement of its
-// leading 2x2 block.  The guards (safe sqrt, sqrt floor, |d2| < 1e-9) have
-// zero tangents on their clamped branches, as JAX's `where` does.  The
-// polynomial (int8 exponents [T, 5], the [7, T] coefficient rows apx, apy,
-// o0..o3, trans) lives in the caller's shared memory; the pupil chart
-// (sphere / cyl-x / cyl-y) is a runtime switch.
+// exit_ray maps the chart to the exit ray through the dual type D4 (value
+// and tangents along the four unknowns, the counterpart of jax.linearize in
+// the TPU kernel); its guards (safe sqrt, sqrt floor) have zero tangents on
+// their clamped branches, as JAX's `where` does.  The pupil chart (sphere /
+// cyl-x / cyl-y) is a runtime switch.
 #pragma once
 
 #include "common.cuh"
@@ -30,51 +25,6 @@ struct PoLens {
 };
 
 enum : int { CHART_SPHERE = 0, CHART_CYL_X = 1, CHART_CYL_Y = 2 };
-
-// Rows 0..5 (apx, apy, o0..o3) of the shared-term polynomial with tangents
-// along the raw unknowns.  u[] are the conditioned unknowns, ul the
-// conditioned wavelength, sc the conditioning scales of the unknowns.
-__device__ __forceinline__ void poly6_d4(const int8_t* __restrict__ se,
-                                         const float* __restrict__ sc_rows,
-                                         int T, const float u[4], float ul,
-                                         const float scale[4], D4 out[6]) {
-  float acc[6][5];
-#pragma unroll
-  for (int o = 0; o < 6; ++o)
-#pragma unroll
-    for (int k = 0; k < 5; ++k) acc[o][k] = 0.0f;
-
-  for (int t = 0; t < T; ++t) {
-    const int8_t* e = se + 5 * t;
-    float p[4], q[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int ev = e[v];
-      const float pm1 = ipow(u[v], ev > 0 ? ev - 1 : 0);
-      p[v] = ev ? pm1 * u[v] : 1.0f;
-      q[v] = ev ? pm1 * (float)ev : 0.0f;
-    }
-    const float pl = ipow(ul, e[4]);
-    const float mono = p[0] * p[1] * p[2] * p[3] * pl;
-    const float p01 = p[0] * p[1];
-    const float p23 = p[2] * p[3];
-    const float g[4] = {q[0] * p[1] * p23 * pl, p[0] * q[1] * p23 * pl,
-                        p01 * q[2] * p[3] * pl, p01 * p[2] * q[3] * pl};
-#pragma unroll
-    for (int o = 0; o < 6; ++o) {
-      const float c = sc_rows[o * T + t];
-      acc[o][0] += c * mono;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[o][k + 1] += c * g[k];
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < 6; ++o) {
-    out[o].v = acc[o][0];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out[o].d[k] = acc[o][k + 1] * scale[k];
-  }
-}
 
 // Outer-pupil chart -> camera-space exit ray (po_pallas.py exit_ray):
 // returns the chart's z position and the direction.
@@ -146,69 +96,6 @@ __device__ __forceinline__ void solve4(const float J[4][4], const float r[4],
   const float t1 = r[1] - (B10 * x[2] + B11 * x[3]);
   x[0] = ia00 * t0 + ia01 * t1;
   x[1] = ia10 * t0 + ia11 * t1;
-}
-
-// The backward solve of one item: writes the sensor light field to s[] and
-// returns the transmittance, max(trans, 0) (NaN kept) and 0 outside the
-// outer pupil.  ul is the conditioned wavelength; scale / shift the
-// conditioning of the four unknowns.
-__device__ __forceinline__ float po_backward_solve(
-    const int8_t* __restrict__ s_e, const float* __restrict__ s_c, int T,
-    const float scale[4], const float shift[4], float ul, const PoLens& L,
-    int chart, int iterations, float px, float py, float pz, float ax,
-    float ay, float s[4]) {
-  // chief-ray init
-  const float pz_safe = fabsf(pz) < 1e-6f ? 1e-6f : pz;
-  s[0] = -px * L.bfl / pz_safe;
-  s[1] = -py * L.bfl / pz_safe;
-  s[2] = (ax - s[0]) * L.inv_ap_z;
-  s[3] = (ay - s[1]) * L.inv_ap_z;
-
-  for (int it = 0; it < iterations; ++it) {
-    float u[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) u[v] = (s[v] - shift[v]) * scale[v];
-    D4 o[6];
-    poly6_d4(s_e, s_c, T, u, ul, scale, o);
-    D4 qz, d0, d1, d2;
-    exit_ray(chart, L, o[2], o[3], o[4], o[5], qz, d0, d1, d2);
-    const D4 dz = fabsf(d2.v) < 1e-9f ? dconst(1e-9f) : d2;
-    const D4 t = (pz - (qz + L.front_z)) / dz;
-    const D4 r2 = o[2] + t * d0 - px;
-    const D4 r3 = o[3] + t * d1 - py;
-    const float r[4] = {o[0].v - ax, o[1].v - ay, r2.v, r3.v};
-    float J[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      J[0][j] = o[0].d[j];
-      J[1][j] = o[1].d[j];
-      J[2][j] = r2.d[j];
-      J[3][j] = r3.d[j];
-    }
-    float dxs[4];
-    solve4(J, r, dxs);
-#pragma unroll
-    for (int v = 0; v < 4; ++v) s[v] = s[v] - dxs[v];
-  }
-
-  // final evaluation: outer-pupil position and transmittance
-  float o0 = 0.f, o1 = 0.f, tr = 0.f;
-  {
-    float u[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) u[v] = (s[v] - shift[v]) * scale[v];
-    for (int t = 0; t < T; ++t) {
-      const int8_t* e = s_e + 5 * t;
-      const float m = ipow(u[0], e[0]) * ipow(u[1], e[1]) *
-                      ipow(u[2], e[2]) * ipow(u[3], e[3]) * ipow(ul, e[4]);
-      o0 += m * s_c[2 * T + t];
-      o1 += m * s_c[3 * T + t];
-      tr += m * s_c[6 * T + t];
-    }
-  }
-  tr = relu_nan(tr);
-  if (o0 * o0 + o1 * o1 > L.r_outer2) tr = 0.0f;
-  return tr;
 }
 
 }  // namespace pota

@@ -1,23 +1,28 @@
-// The PO backward solve on a compile-time monomial basis, for items that
-// share one wavelength per table (K3's flagship instantiation, po_splat.cu
-// SPLAT_DISK, and K6, po_backward.cu, with one table a wavelength).
+// The PO backward solve of every kernel that runs one: K3 and K3b
+// (po_splat.cu) and K6 (po_backward.cu).  For a target point (px, py, pz)
+// in lens-space mm and an aperture point (ax, ay) in mm, the sensor light
+// field (x, y, dx, dy) whose ray crosses the iris at the aperture point and
+// lands on the target, and its transmittance cropped by the outer pupil.
 //
-// Replaces, for that case, po_solve.cuh::po_backward_solve (and with it the
-// body of pota_tpu/ops/po_pallas.py::_emit_backward_solve): the same
-// chief-ray guess, chart, residual, 4x4 solve, relu_nan and outer-pupil
-// crop, on another form of the same polynomial.
+// Replaces the body both TPU backward kernels share,
+// pota_tpu/ops/po_pallas.py::_emit_backward_solve: the same chief-ray
+// guess, fixed-iteration 4x4 Newton, chart, residual, 4x4 solve
+// (po_solve.cuh), relu_nan and outer-pupil crop, on another form of the
+// same polynomial.
 //
 // What bounds it on the H100: the instruction stream, FMAs and the shared-
-// memory loads of their coefficients (one 16-byte load per 3.6 FMAs).  With
-// the wavelength fixed, its power folds into every term's coefficient, and
-// the rows apx, apy, o0..o3, trans become polynomials over the complete
-// degree-<=5 basis in the four unknowns (x, y, dx, dy): 126 monomials, the
-// same for every committed fit.  The derivative of each monomial is a constant times a monomial of
-// degree <= 4 (70 of them), so the Newton rows' Jacobian is a polynomial
-// over those 70 with coefficients formed once per frame.  A Newton
-// iteration is then 70 x 30 + 56 x 6 = 2,436 FMAs and 125 multiplies,
-// against the runtime-exponent solve's ~90 operations for each of 160 terms
-// plus its integer decode and loops.
+// memory loads of their coefficients (one 16-byte load per 3.6 FMAs).  Each
+// table holds one wavelength: its power folds into every term's
+// coefficient, and the rows apx, apy, o0..o3, trans become polynomials over
+// the complete degree-<=5 basis in the four unknowns (x, y, dx, dy): 126
+// monomials, the same for every committed fit.  The derivative of each
+// monomial is a constant times a monomial of degree <= 4 (70 of them), so
+// the Newton rows' Jacobian is a polynomial over those 70 with coefficients
+// formed once per frame.  A Newton iteration is then 70 x 30 + 56 x 6 =
+// 2,436 FMAs and 125 multiplies.  A fit with a term outside the basis
+// (a degree above 5) has no table: the wrappers refuse it on the card
+// (po_kernels.py check_basis), and its route there would be a larger basis
+// with the degree as a parameter, not a walk over a runtime term list.
 //
 // Design: the walk over the basis (walk below) is a loop nest that unrolls
 // completely at compile time: it keeps the prefix products x^a, x^a y^b,
@@ -111,8 +116,8 @@ static_assert(loop_order_is_kexps(), "the walk's order differs from kExps");
 // The table does not change while a block runs, so the compiler hoists
 // plain loads of it, all ~3,200 of the walks', out of the slot loop and
 // keeps the values in local memory (CUDA 12.8 for sm_90a: 13.5 KB of stack
-// and 32 registers, 6x the time of the runtime-term solve); a volatile asm
-// load stays where the walk puts it.
+// and 32 registers, six times the time of the kernel's loads left in
+// place); a volatile asm load stays where the walk puts it.
 __device__ __forceinline__ float4 ld4(unsigned addr) {
   float4 v;
   asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
@@ -218,11 +223,14 @@ struct FinalSums {
 
 }  // namespace basis
 
+// The most tables a kernel takes at once: one wavelength a frame, or the
+// three chroma wavelengths (po_kernels.py MAX_SOLVE_TABLES).
+constexpr int kMaxSolveTables = 3;
+
 // The backward solve of one item on the folded table `tab` (in shared
-// memory, 16-byte aligned, basis::kTableFloats floats): as
-// po_backward_solve, it writes the sensor light field to s[] and returns
-// the transmittance, max(trans, 0) (NaN kept) and 0 outside the outer
-// pupil.
+// memory, 16-byte aligned, basis::kTableFloats floats): writes the sensor
+// light field to s[] and returns the transmittance, max(trans, 0) (NaN
+// kept) and 0 outside the outer pupil.
 __device__ __forceinline__ float po_basis_solve(
     const float* __restrict__ tab, const PoLens& L, int chart, int iterations,
     float px, float py, float pz, float ax, float ay, float s[4]) {

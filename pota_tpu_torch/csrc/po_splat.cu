@@ -1,14 +1,17 @@
-// PO splat kernel (K3): the whole per-slot program of the bidirectional
-// redistribution, in three variants chosen at compile time (SplatMode):
-//   SPLAT_DISK      in-kernel disk sample, one wavelength (the flagship);
-//   SPLAT_DISK_LAM  in-kernel disk sample, a wavelength per slot (chroma);
-//   SPLAT_EXTERNAL  aperture point and wavelength per slot (image bokeh,
-//                   blade apertures).
+// PO splat kernel (K3 and K3b): the whole per-slot program of the
+// bidirectional redistribution, in three instantiations chosen at compile
+// time (SplatMode):
+//   SPLAT_DISK      in-kernel disk sample, the frame's one wavelength (K3,
+//                   the flagship);
+//   SPLAT_DISK_LAM  in-kernel disk sample, a wavelength per slot (K3b, the
+//                   chromatic splat);
+//   SPLAT_EXTERNAL  the aperture point per slot, and the wavelength per slot
+//                   or the frame's (K3b, image bokeh and blade apertures).
 //
 // Replaces: pota_tpu/ops/po_pallas.py::build_po_splat_kernel with
-// sample_aperture=True, lam_input=False / True, and sample_aperture=False
-// (and its helpers _emit_backward_solve, _solve4, _tea_lcg2,
-// _tea_concentric_disk).
+// sample_aperture=True (K3), lam_input=True and sample_aperture=False (K3b),
+// and its helpers _emit_backward_solve, _solve4, _tea_lcg2,
+// _tea_concentric_disk.
 //
 // Per queue slot:
 //   1. the aperture point: a TEA-8/LCG concentric-disk sample from
@@ -23,75 +26,86 @@
 // Returns (lin int32, ok uint8).
 //
 // What bounds it on the H100: arithmetic.  Each Newton iteration evaluates
-// six polynomial rows with four tangents each, plus the chart and a blocked
-// 4x4 solve; the slot's memory traffic is 40 bytes in, 5 bytes out.
+// six polynomial rows and their Jacobian over the 126-monomial basis
+// (2,436 FMAs), plus the chart and a blocked 4x4 solve; the slot's memory
+// traffic is 40-44 bytes in, 5 bytes out.
 //
-// Design: one thread per slot, a grid-stride loop.  Steps 2-3 are the
-// backward solve.  SPLAT_DISK, whose slots share the frame's wavelength,
-// runs po_basis_solve (po_solve_basis.cuh): the polynomial folded at that
-// wavelength onto the compile-time degree-5 basis, its Jacobian rows
-// tabulated, both walked fully unrolled from shared memory.  The
-// per-slot-wavelength modes run po_backward_solve (po_solve.cuh): the
-// runtime term set (int8 exponents, the [7, T] coefficient
-// rows apx, apy, o0..o3, trans) with forward-mode tangents.  A small dual
-// type (D4) carries the tangents through the pupil chart and the residual
-// in both.  The tables and the sphere table are runtime data in shared
-// memory: one build serves every lens and scene.
+// Design: one thread per slot, a grid-stride loop, 256 threads a block.
+// Steps 2-3 are po_basis_solve (po_solve_basis.cuh) on a solve table that
+// po_kernels.py fold_solve_tables folds at one wavelength.  A frame has one
+// wavelength, or under chroma three fixed ones
+// (render/splat.py::chroma_wavelengths), so the chromatic instantiations
+// take one to three tables in shared memory (10,784 bytes each) and an
+// optional int32 table index per slot (the chroma channel), as K6 does;
+// SPLAT_DISK takes one table and no index.  A chromatic queue gives each
+// budget unit three consecutive slots, one per channel, so slot q has
+// channel q % 3 wherever its source's range starts on a multiple of 3.  With
+// an index, thread i therefore takes slot 96 * (i / 96) + 3 * (i % 32) +
+// (i / 32) % 3: each warp's 32 slots are of one channel and read one table,
+// where consecutive slots would put all three tables' addresses into every
+// warp's 16-byte loads.  Correctness never depends on the channel pattern:
+// each slot reads its own index.  The sphere table and the frame's
+// parameters are runtime data in shared memory: one build serves every
+// lens and scene.
 #include "po_solve_basis.cuh"
 
 namespace pota {
 
 enum SplatMode : int { SPLAT_DISK = 0, SPLAT_DISK_LAM = 1, SPLAT_EXTERNAL = 2 };
 
-// Threads per block.  SPLAT_DISK takes 256, so each block's load of the
-// 10.8 KB folded table serves twice the slots; at its 126 registers that is
-// 2 blocks (16 warps) an SM, as 4 blocks of 128 would be.
-constexpr int kDiskThreads = 256;
-__host__ __device__ constexpr int splat_threads(int mode) {
-  return mode == SPLAT_DISK ? kDiskThreads : 128;
-}
+// Threads per block: each block's load of the folded tables serves 256
+// slots a round; at ~126 registers that is 2 blocks (16 warps) an SM.
+constexpr int kSplatThreads = 256;
+// The slot group of channel-uniform warps: three warps, one per channel.
+constexpr int kChannelGroup = 96;
 
 // a_in / b_in: (seed, counter) uint32 words in the disk modes, the aperture
-// point (mm) in SPLAT_EXTERNAL; lam_in: the per-slot wavelength (um), unused
-// by SPLAT_DISK.  g_tab: SPLAT_DISK's folded table (basis::kTableFloats
-// floats), else the [7, T] coefficient rows with the int8 exponents g_e
-// [T, 5] and the conditioning cond (scale[5], shift[5]).
+// point (mm) in SPLAT_EXTERNAL.  g_tab: n_tab folded solve tables
+// (basis::kTableFloats floats each); table_idx: int32 [n] in [0, n_tab), or
+// null for one table (always null in SPLAT_DISK).
 template <int MODE>
-__global__ void __launch_bounds__(splat_threads(MODE))
+__global__ void __launch_bounds__(kSplatThreads)
 po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
                 const float* __restrict__ pcz, const float* __restrict__ pwx,
                 const float* __restrict__ pwy, const float* __restrict__ pwz,
                 const void* __restrict__ a_in, const void* __restrict__ b_in,
-                const float* __restrict__ lam_in, const float* __restrict__ sky,
-                int n, const float* __restrict__ g_tab, int n_tab,
-                const int8_t* __restrict__ g_e, int T,
-                const float* __restrict__ cond, const float* __restrict__ lensc,
-                int chart, int iterations, const float* __restrict__ g_par,
+                const int* __restrict__ table_idx,
+                const float* __restrict__ sky, int n,
+                const float* __restrict__ g_tab, int n_tab,
+                const float* __restrict__ lensc, int chart, int iterations,
+                const float* __restrict__ g_par,
                 const float* __restrict__ g_sph, int n_sph,
                 int* __restrict__ lin_out, uint8_t* __restrict__ ok_out) {
   extern __shared__ __align__(16) float smem[];
-  float* s_tab = smem;                  // n_tab
-  float* s_sph = s_tab + n_tab;         // [n_sph, 4]
-  float* s_par = s_sph + 4 * n_sph;     // [32]
-  float* s_lens = s_par + SP_COUNT;     // PoLens
-  float* s_cond = s_lens + 8;           // scale[5], shift[5]
-  int8_t* s_e = (int8_t*)(s_cond + 10);  // [T, 5]
-  block_load(s_tab, g_tab, n_tab);
+  float* s_tab = smem;                                 // [n_tab, kTableFloats]
+  float* s_sph = s_tab + n_tab * basis::kTableFloats;  // [n_sph, 4]
+  float* s_par = s_sph + 4 * n_sph;                    // [32]
+  float* s_lens = s_par + SP_COUNT;                    // PoLens
+  block_load(s_tab, g_tab, n_tab * basis::kTableFloats);
   block_load(s_sph, g_sph, 4 * n_sph);
   block_load(s_par, g_par, (int)SP_COUNT);
   block_load(s_lens, lensc, 8);
-  if constexpr (MODE != SPLAT_DISK) {
-    block_load(s_cond, cond, 10);
-    block_load(s_e, g_e, 5 * T);
-  }
   __syncthreads();
 
   const PoLens L{s_lens[0], s_lens[1], s_lens[2], s_lens[3],
                  s_lens[4], s_lens[5], s_lens[6], s_lens[7]};
   const float ap_radius = s_par[SP_AP_RADIUS];
+  // with an index, the thread count rounds up to whole channel groups
+  const bool by_channel = MODE != SPLAT_DISK && table_idx != nullptr;
+  const int n_threads =
+      by_channel ? (n + kChannelGroup - 1) / kChannelGroup * kChannelGroup : n;
 
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n_threads;
+       t += gridDim.x * blockDim.x) {
+    int i = t;
+    const float* tab = s_tab;
+    if constexpr (MODE != SPLAT_DISK) {
+      if (by_channel) {
+        i = t / kChannelGroup * kChannelGroup + 3 * (t % 32) + (t / 32) % 3;
+        if (i >= n) continue;
+        tab = s_tab + table_idx[i] * basis::kTableFloats;
+      }
+    }
     float ax, ay;
     if constexpr (MODE == SPLAT_EXTERNAL) {
       ax = static_cast<const float*>(a_in)[i];
@@ -110,16 +124,8 @@ po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
     const float pz = pcz[i] * -10.0f;
 
     float s[4];
-    float tr;
-    if constexpr (MODE == SPLAT_DISK) {
-      tr = po_basis_solve(s_tab, L, chart, iterations, px, py, pz, ax, ay, s);
-    } else {
-      const float scale[4] = {s_cond[0], s_cond[1], s_cond[2], s_cond[3]};
-      const float shift[4] = {s_cond[5], s_cond[6], s_cond[7], s_cond[8]};
-      const float ul = (lam_in[i] - s_cond[9]) * s_cond[4];
-      tr = po_backward_solve(s_e, s_tab, T, scale, shift, ul, L, chart,
-                             iterations, px, py, pz, ax, ay, s);
-    }
+    const float tr =
+        po_basis_solve(tab, L, chart, iterations, px, py, pz, ax, ay, s);
 
     const float x = s[0], y = s[1], dx = s[2], dy = s[3];
     const float ipx = x + dx * L.bfl;
@@ -159,73 +165,50 @@ po_splat_kernel(const float* __restrict__ pcx, const float* __restrict__ pcy,
 template <int MODE>
 static int launch_po_splat(const float* pcx, const float* pcy, const float* pcz,
                            const float* pwx, const float* pwy, const float* pwz,
-                           const void* a, const void* b, const float* lam,
-                           const float* sky, int n, const float* tab,
-                           int n_tab, const int8_t* exps, int T,
-                           const float* cond, const float* lensc, int chart,
+                           const void* a, const void* b, const int* table_idx,
+                           const float* sky, int n, const float* tables,
+                           int n_tables, const float* lensc, int chart,
                            int iterations, const float* params,
                            const float* spheres, int n_spheres, int* lin,
                            uint8_t* ok, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * ((size_t)n_tab + 4 * (size_t)n_spheres +
-                                       pota::SP_COUNT + 8 + 10) +
-                      5 * (size_t)T;
+  if (n_tables < 1 || n_tables > pota::kMaxSolveTables ||
+      (n_tables > 1 && table_idx == nullptr) ||
+      (MODE == pota::SPLAT_DISK && table_idx != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((size_t)n_tables * pota::basis::kTableFloats +
+                       4 * (size_t)n_spheres + pota::SP_COUNT + 8);
   if (smem > pota::kSmemDefaultMax) return (int)cudaErrorInvalidValue;
-  constexpr int threads = pota::splat_threads(MODE);
+  constexpr int threads = pota::kSplatThreads;
   pota::po_splat_kernel<MODE>
       <<<pota::grid_for(n, threads), threads, smem, stream>>>(
-          pcx, pcy, pcz, pwx, pwy, pwz, a, b, lam, sky, n, tab, n_tab, exps,
-          T, cond, lensc, chart, iterations, params, spheres, n_spheres, lin,
+          pcx, pcy, pcz, pwx, pwy, pwz, a, b, table_idx, sky, n, tables,
+          n_tables, lensc, chart, iterations, params, spheres, n_spheres, lin,
           ok);
   return (int)cudaGetLastError();
 }
 
-// table: the folded solve table of the frame's wavelength
-// (po_kernels.py fold_solve_tables, pota::basis::kTableFloats floats)
-extern "C" int pota_po_splat(const float* pcx, const float* pcy, const float* pcz,
-                             const float* pwx, const float* pwy, const float* pwz,
-                             const uint32_t* seed, const uint32_t* ctr,
-                             const float* sky, int n, const float* table,
-                             const float* lensc, int chart, int iterations,
-                             const float* params, const float* spheres,
-                             int n_spheres, int* lin, uint8_t* ok,
-                             cudaStream_t stream) {
-  return launch_po_splat<pota::SPLAT_DISK>(
-      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, nullptr, sky, n, table,
-      pota::basis::kTableFloats, nullptr, 0, nullptr, lensc, chart,
-      iterations, params, spheres, n_spheres, lin, ok, stream);
-}
+// The three entry points take the same arguments.  tables: n_tables folded
+// solve tables (po_kernels.py fold_solve_tables, pota::basis::kTableFloats
+// floats each), one after another; table_idx: int32 [n] in [0, n_tables),
+// or null for one table.  K3 (pota_po_splat) takes one table and no index.
+#define POTA_PO_SPLAT_ENTRY(NAME, MODE, A_TYPE)                              \
+  extern "C" int NAME(const float* pcx, const float* pcy, const float* pcz, \
+                      const float* pwx, const float* pwy, const float* pwz, \
+                      const A_TYPE* a, const A_TYPE* b, const int* table_idx, \
+                      const float* sky, int n, const float* tables,          \
+                      int n_tables, const float* lensc, int chart,           \
+                      int iterations, const float* params,                   \
+                      const float* spheres, int n_spheres, int* lin,         \
+                      uint8_t* ok, cudaStream_t stream) {                    \
+    return launch_po_splat<MODE>(pcx, pcy, pcz, pwx, pwy, pwz, a, b,         \
+                                 table_idx, sky, n, tables, n_tables, lensc, \
+                                 chart, iterations, params, spheres,         \
+                                 n_spheres, lin, ok, stream);                \
+  }
 
-extern "C" int pota_po_splat_lam(const float* pcx, const float* pcy,
-                                 const float* pcz, const float* pwx,
-                                 const float* pwy, const float* pwz,
-                                 const uint32_t* seed, const uint32_t* ctr,
-                                 const float* lam, const float* sky, int n,
-                                 const int8_t* exps, const float* coeffs,
-                                 int T, const float* cond, const float* lensc,
-                                 int chart, int iterations,
-                                 const float* params, const float* spheres,
-                                 int n_spheres, int* lin, uint8_t* ok,
-                                 cudaStream_t stream) {
-  return launch_po_splat<pota::SPLAT_DISK_LAM>(
-      pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky, n, coeffs, 7 * T,
-      exps, T, cond, lensc, chart, iterations, params, spheres, n_spheres,
-      lin, ok, stream);
-}
-
-extern "C" int pota_po_splat_ext(const float* pcx, const float* pcy,
-                                 const float* pcz, const float* pwx,
-                                 const float* pwy, const float* pwz,
-                                 const float* ax, const float* ay,
-                                 const float* lam, const float* sky, int n,
-                                 const int8_t* exps, const float* coeffs,
-                                 int T, const float* cond, const float* lensc,
-                                 int chart, int iterations,
-                                 const float* params, const float* spheres,
-                                 int n_spheres, int* lin, uint8_t* ok,
-                                 cudaStream_t stream) {
-  return launch_po_splat<pota::SPLAT_EXTERNAL>(
-      pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky, n, coeffs, 7 * T, exps,
-      T, cond, lensc, chart, iterations, params, spheres, n_spheres, lin, ok,
-      stream);
-}
+// a / b: (seed, counter) uint32 words, or the aperture point (mm)
+POTA_PO_SPLAT_ENTRY(pota_po_splat, pota::SPLAT_DISK, uint32_t)
+POTA_PO_SPLAT_ENTRY(pota_po_splat_lam, pota::SPLAT_DISK_LAM, uint32_t)
+POTA_PO_SPLAT_ENTRY(pota_po_splat_ext, pota::SPLAT_EXTERNAL, float)

@@ -39,16 +39,16 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 _ll = ctypes.c_longlong
+# the one C signature of K3's and K3b's three entry points (csrc/po_splat.cu)
+_PO_SPLAT = [_p] * 10 + [_i, _p, _i, _p, _i, _i, _p, _p, _i, _p, _p, _p]
 # C signatures of the entry points (csrc/*.cu); each returns cudaError_t
 SIGNATURES = {
     "pota_po_forward": [_p] * 4 + [_i, _p, _f, _f, _i] + [_p] * 5,
     "pota_expand": [_p, _i, _p, _i, _p, _i, _i, _p, _p, _p],
-    "pota_po_splat": [_p] * 9 + [_i, _p, _p, _i, _i, _p, _p, _i, _p, _p, _p],
+    "pota_po_splat": _PO_SPLAT,
     "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i, _p, _p, _p, _p, _p],
-    "pota_po_splat_lam": [_p] * 10 + [_i, _p, _p, _i, _p, _p, _i, _i, _p, _p,
-                                      _i, _p, _p, _p],
-    "pota_po_splat_ext": [_p] * 10 + [_i, _p, _p, _i, _p, _p, _i, _i, _p, _p,
-                                      _i, _p, _p, _p],
+    "pota_po_splat_lam": _PO_SPLAT,
+    "pota_po_splat_ext": _PO_SPLAT,
     "pota_tl_splat": [_p] * 9 + [_i, _i, _f, _f, _p, _p, _i, _p, _p, _p],
     "pota_po_backward": [_p] * 6 + [_i, _p, _i, _p, _i, _i] + [_p] * 6,
 }

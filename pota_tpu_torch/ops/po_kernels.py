@@ -13,18 +13,19 @@ code, and are what the CPU tests hold against the JAX package.
   (``po_pallas.py::build_expand_kernel``);
 * :func:`po_splat` — K3, the per-slot backward splat with in-kernel aperture
   sampling (``po_pallas.py::build_po_splat_kernel``, ``sample_aperture=True``),
-  and its variants :func:`po_splat_lam` (a wavelength per slot,
+  and K3b, its variants :func:`po_splat_lam` (a wavelength per slot,
   ``lam_input=True``) and :func:`po_splat_ext` (the aperture point and
-  wavelength per slot, ``sample_aperture=False``);
+  wavelength per slot, ``sample_aperture=False``), the wavelengths picked
+  per slot from one to three folded tables;
 * :func:`tl_splat` — K5, the thin-lens backward splat
   (``po_pallas.py::build_tl_splat_kernel``);
 * :func:`po_backward` — K6, the PO backward solve alone
   (``po_pallas.py::build_po_backward_kernel``), for the decomposed splat,
   on one table :func:`fold_solve_tables` folds per wavelength.
 
-On the card K1, K3's flagship route and K6 take only fits whose terms lie
-on the degree-5 basis the folds use; :func:`check_basis` refuses another
-before a frame starts.
+On the card every PO kernel (K1, K3, K3b, K6) takes only fits whose terms
+lie on the degree-5 basis the folds use; :func:`check_basis` refuses
+another before a frame starts.  The plain versions take any fit.
 """
 from __future__ import annotations
 
@@ -111,22 +112,41 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _cond(lens: PolyLens, device) -> torch.Tensor:
-    """[10] f32: input scales then shifts.  The kernels condition every
-    variable with one set, so pt and ap must share it."""
+def _check_shared_conditioning(lens: PolyLens) -> None:
+    """The folded tables condition every variable with one set of scales
+    and shifts, so pt and ap must share it."""
     if not (torch.equal(lens.pt.in_scale, lens.ap.in_scale)
             and torch.equal(lens.pt.in_shift, lens.ap.in_shift)):
         raise ValueError(f"lens {lens.name!r}: pt and ap must share their "
                          "input conditioning for the kernels")
-    return torch.cat([lens.pt.in_scale, lens.pt.in_shift]).to(
-        device, torch.float32).contiguous()
 
 
-def _exps_i8(fn, device) -> torch.Tensor:
-    e = fn.exponents
-    if int(e.min()) < 0 or int(e.max()) > 127:
-        raise ValueError("exponents must lie in [0, 127]")
-    return e.to(device=device, dtype=torch.int8).contiguous()
+# the most folded solve tables K3b and K6 take at once: one wavelength a
+# frame, or the three chroma wavelengths (csrc/po_solve_basis.cuh
+# kMaxSolveTables)
+MAX_SOLVE_TABLES = 3
+
+
+def _check_lams(lams, lam_idx, device, n) -> tuple:
+    """K3b's and K6's wavelength arguments: ``lams`` one wavelength (um)
+    and ``lam_idx`` None, or up to :data:`MAX_SOLVE_TABLES` and ``lam_idx``
+    int32 [n] on ``device``.  Returns ``lams`` as a tuple of floats."""
+    lams = tuple(float(lam) for lam in lams)
+    if (not 1 <= len(lams) <= MAX_SOLVE_TABLES
+            or (lam_idx is None) != (len(lams) == 1)):
+        raise ValueError(
+            f"lams {lams}: one wavelength without lam_idx, or up to "
+            f"{MAX_SOLVE_TABLES} with an int32 lam_idx")
+    if lam_idx is not None:
+        _check("lam_idx", lam_idx, torch.int32, device, (n,))
+    return lams
+
+
+def _lam_per_item(lams, lam_idx, like) -> torch.Tensor:
+    """Item ``i``'s wavelength ``lams[lam_idx[i]]``, or ``lams[0]`` when
+    ``lam_idx`` is None, in ``like``'s dtype and on its device."""
+    lam_tab = torch.tensor(lams, dtype=like.dtype, device=like.device)
+    return lam_tab[0] if lam_idx is None else lam_tab[lam_idx.long()]
 
 
 # ------------------------------------------------------------- K2: expand
@@ -226,30 +246,36 @@ def po_splat_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
     wavelength ``lam_um`` (um).  Returns (lin int32 [S], ok bool [S])."""
     ax, ay = _disk_aperture(seed, ctr, params[SP_AP_RADIUS])
     return po_splat_ext_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
-                              lam_um, sky, params, spheres, iterations)
+                              (lam_um,), None, sky, params, spheres,
+                              iterations)
 
 
 def po_splat_lam_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed,
-                       ctr, lam, sky, params, spheres, iterations: int = 3):
-    """Plain K3 ``lam_input`` variant: disk aperture from (seed, counter),
-    wavelength ``lam`` [S] per slot."""
+                       ctr, lams, lam_idx, sky, params, spheres,
+                       iterations: int = 3):
+    """Plain K3b ``lam_input`` variant: disk aperture from (seed, counter),
+    slot ``i`` at the wavelength ``lams[lam_idx[i]]`` (um; ``lams[0]`` when
+    ``lam_idx`` is None)."""
     ax, ay = _disk_aperture(seed, ctr, params[SP_AP_RADIUS])
     return po_splat_ext_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
-                              lam, sky, params, spheres, iterations)
+                              lams, lam_idx, sky, params, spheres, iterations)
 
 
 def po_splat_ext_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
-                       lam, sky, params, spheres, iterations: int = 3):
-    """Plain K3 external-aperture variant: the PO splat for the aperture
-    point ``ax, ay`` (mm) and wavelength ``lam`` [S] of each slot, composed
-    of ``lt_sample_aperture``, the pupil crops, the pixel map and the
-    occlusion probe (as JAX's decomposed path is).  The other two plain
-    variants draw the aperture point first and call it.
-    Returns (lin int32 [S], ok bool [S])."""
+                       lams, lam_idx, sky, params, spheres,
+                       iterations: int = 3):
+    """Plain K3b external-aperture variant: the PO splat for the aperture
+    point ``ax, ay`` (mm) of each slot at the wavelength ``lams[lam_idx[i]]``
+    (um; ``lams[0]`` when ``lam_idx`` is None), formed in the points' dtype,
+    composed of ``lt_sample_aperture`` on the fit's own terms, the pupil
+    crops, the pixel map and the occlusion probe (as JAX's decomposed path
+    is).  The other two plain variants draw the aperture point first and
+    call it.  Returns (lin int32 [S], ok bool [S])."""
     p = params
     target = torch.stack([pcx * -10.0, pcy * -10.0, pcz * -10.0], -1)
     sensor5, _, trans = lt_sample_aperture(
-        lens, target, torch.stack([ax, ay], -1), lam, iterations=iterations)
+        lens, target, torch.stack([ax, ay], -1),
+        _lam_per_item(lams, lam_idx, pcx), iterations=iterations)
     ok = (trans > 0.0) & inner_pupil_ok(lens, sensor5)
     x, y, dx, dy = (sensor5[..., k] for k in range(4))
     sx = (x + dx * -p[SP_SHIFT]) / p[SP_HSW]
@@ -277,21 +303,7 @@ def _splat_lens_consts(lens: PolyLens, device) -> torch.Tensor:
     ], dtype=torch.float32, device=device)
 
 
-def _solve_tables(lens: PolyLens, device):
-    """The runtime-term solve's lens tables (K3's per-slot-wavelength
-    variants): int8 exponents [T, 5], the [7, T] coefficient rows apx, apy,
-    o0..o3, trans of the one term set ap and pt must share, the
-    conditioning and the lens constants."""
-    if not torch.equal(lens.pt.exponents, lens.ap.exponents):
-        raise ValueError(
-            f"lens {lens.name!r}: pt/ap term sets must be shared for the "
-            "runtime-term solve (refit with a common term set)")
-    coeffs = torch.cat([lens.ap.coeffs[:2], lens.pt.coeffs[:5]]).contiguous()
-    return (_exps_i8(lens.pt, device), coeffs, _cond(lens, device),
-            _splat_lens_consts(lens, device))
-
-
-# ------------------------------- the folded solve table (K3 flagship, K6)
+# ------------------------------------ the folded solve table (K3, K3b, K6)
 # With one wavelength per frame, every term's lambda power folds into its
 # coefficient, and the solve's polynomial becomes one over the complete
 # degree-<=5 basis in the four unknowns (x, y, dx, dy): 126 monomials, known
@@ -333,14 +345,14 @@ def _basis_positions(lens: PolyLens, fn) -> list:
         raise ValueError(
             f"lens {lens.name!r}: a term's monomial in (x, y, dx, dy) lies "
             f"outside the degree-{BASIS_DEGREE} basis of the folded kernels "
-            "(K1, K3's flagship route, K6)")
+            "(K1, K3, K3b, K6)")
     return pos
 
 
 def _fold_conditioning(lens: PolyLens, lam_um: float, device):
     """float64 scale [5] and shift [5] of the inputs (one set for ap and pt,
     as the kernels take it) and the conditioned wavelength, on ``device``."""
-    _cond(lens, device)
+    _check_shared_conditioning(lens)
     f64 = dict(device=device, dtype=torch.float64)
     scale = lens.pt.in_scale.to(**f64)
     shift = lens.pt.in_shift.to(**f64)
@@ -362,7 +374,7 @@ def _fold_rows(lens: PolyLens, fn, n_rows: int, ul) -> torch.Tensor:
 
 def fold_solve_tables(lens: PolyLens, lam_um: float, device) -> torch.Tensor:
     """The backward solve's tables for one wavelength ``lam_um`` (um), as
-    K3's flagship instantiation and K6 read them: f32 [FOLD_TABLE_FLOATS]
+    K3, K3b and K6 read them: f32 [FOLD_TABLE_FLOATS]
     on ``device`` (layout above).
 
     Folds the conditioned wavelength's power ``((lam - shift_4) * scale_4)
@@ -460,7 +472,7 @@ def _folded_table(lens: PolyLens, kind: str, lams, device,
     at each wavelength of ``lams`` (um), one after another, on ``device``.
     Folded once per lens, kind, wavelengths and device (and again when a
     buffer of the fit changes), so a frame reads nothing back from the card
-    after the first; K3's flagship route and K6 share the solve tables.
+    after the first; K3, K3b and K6 share the solve tables.
     ``on_fold``, if given, runs before a fold."""
     cache = _fold_cache(lens)
     key = (kind, tuple(float(lam) for lam in lams), str(device))
@@ -475,7 +487,7 @@ def _folded_table(lens: PolyLens, kind: str, lams, device,
 def check_basis(lens: PolyLens) -> None:
     """Raise ``ValueError`` (the folds' message) unless every term of the
     fit's ``ap`` and ``pt`` is a monomial of :data:`BASIS` in (x, y, dx,
-    dy): the fits the card's PO kernels K1, K3 (flagship route) and K6 take.
+    dy): the fits the card's PO kernels K1, K3, K3b and K6 take.
     Reads the exponents to the host once per lens and buffer version."""
     cache = _fold_cache(lens)
     if "basis" not in cache:
@@ -641,24 +653,17 @@ def po_forward(lens: PolyLens, x, y, ax, ay, lam_um: float,
     return out4, trans, dx, dy
 
 
-# C order of each K3 variant's per-slot inputs; seed / ctr are int32
-_PO_SPLAT_SLOTS = {
-    "po_splat": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "seed", "ctr",
-                 "sky"),
-    "po_splat_lam": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "seed", "ctr",
-                     "lam", "sky"),
-    "po_splat_ext": ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz", "ax", "ay",
-                     "lam", "sky"),
-}
-
-
-def _check_po_splat(name, lens, slots, params, spheres) -> torch.device:
-    """Check one K3 variant's per-slot tensors (in the order
-    ``_PO_SPLAT_SLOTS[name]``), ``params`` and ``spheres``; returns their
-    device."""
+def _check_po_splat(lens, slots, params, spheres,
+                    external: bool = False) -> torch.device:
+    """Check the per-slot tensors of K3 or K3b, in C order: the camera and
+    world points f32, (seed, ctr) int32 or, ``external``, the aperture
+    point (ax, ay) f32, and sky f32, all [S]; ``params`` and ``spheres``.
+    Returns their device."""
     dev = slots[0].device
     s = slots[0].shape[0]
-    for nm, t in zip(_PO_SPLAT_SLOTS[name], slots):
+    names = ("pcx", "pcy", "pcz", "pwx", "pwy", "pwz",
+             *(("ax", "ay") if external else ("seed", "ctr")), "sky")
+    for nm, t in zip(names, slots, strict=True):
         dtype = torch.int32 if nm in ("seed", "ctr") else torch.float32
         _check(nm, t, dtype, dev, (s,))
     _check("params", params, torch.float32, dev, (SPLAT_PARAM_COUNT,))
@@ -668,17 +673,20 @@ def _check_po_splat(name, lens, slots, params, spheres) -> torch.device:
     return dev
 
 
-def _launch_po_splat(name, lens, slots, tables, params, spheres,
-                     iterations):
-    """Launch one K3 variant's kernel; ``tables`` are its lens-table
-    arguments (tensors are passed by pointer)."""
+def _launch_po_splat(name, lens, slots, lam_idx, tables, n_tables, params,
+                     spheres, iterations):
+    """Launch K3 (``name`` ``po_splat``) or K3b on ``n_tables`` folded
+    solve tables ``tables`` with the per-slot table index ``lam_idx`` (or
+    None); every entry point takes the same C arguments."""
     dev = slots[0].device
     s = slots[0].shape[0]
     lin = torch.empty((s,), dtype=torch.int32, device=dev)
     ok = torch.empty((s,), dtype=torch.bool, device=dev)
+    lensc = _splat_lens_consts(lens, dev)
+    idx = None if lam_idx is None else lam_idx.data_ptr()
     err = getattr(_build.lib(), f"pota_{name}")(
-        *(t.data_ptr() for t in slots), s,
-        *(t.data_ptr() if isinstance(t, torch.Tensor) else t for t in tables),
+        *(t.data_ptr() for t in slots[:8]), idx, slots[8].data_ptr(), s,
+        tables.data_ptr(), n_tables, lensc.data_ptr(),
         CHARTS.index(lens.outer_chart), int(iterations), params.data_ptr(),
         spheres.data_ptr(), spheres.shape[0], lin.data_ptr(), ok.data_ptr(),
         _stream(dev))
@@ -699,7 +707,7 @@ def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
     when the table is folded (the check reads the card).
     Returns (lin int32 [S], ok bool [S])."""
     slots = (pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky)
-    dev = _check_po_splat("po_splat", lens, slots, params, spheres)
+    dev = _check_po_splat(lens, slots, params, spheres)
 
     def check_lambda():
         lam_f32 = torch.tensor(float(lam_um), dtype=torch.float32).item()
@@ -713,48 +721,51 @@ def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
         return po_splat_plain(lens, *slots, params, spheres, lam_um,
                               iterations)
     table = _folded_table(lens, "solve", (lam_um,), dev, on_fold=check_lambda)
-    return _launch_po_splat("po_splat", lens, slots,
-                            (table, _splat_lens_consts(lens, dev)), params,
+    return _launch_po_splat("po_splat", lens, slots, None, table, 1, params,
                             spheres, iterations)
 
 
-def _po_splat_variant(name, plain, lens, slots, params, spheres, iterations):
-    """A K3 variant on the runtime-term solve (``po_solve.cuh``): its plain
-    version for CPU tensors, its kernel for CUDA tensors."""
-    dev = _check_po_splat(name, lens, slots, params, spheres)
+def _po_splat_k3b(name, plain, lens, slots, lams, lam_idx, params, spheres,
+                  iterations):
+    """K3b: its plain version for CPU tensors, its kernel for CUDA tensors
+    on one folded solve table a wavelength of ``lams`` (cached, so a frame
+    reads nothing back from the card), ``lam_idx`` picking each slot's."""
+    dev = _check_po_splat(lens, slots, params, spheres,
+                          external=name == "po_splat_ext")
+    lams = _check_lams(lams, lam_idx, dev, slots[0].shape[0])
     if dev.type == "cpu":
-        return plain(lens, *slots, params, spheres, iterations)
-    exps, coeffs, cond, lensc = _solve_tables(lens, dev)
-    return _launch_po_splat(name, lens, slots,
-                            (exps, coeffs, coeffs.shape[1], cond, lensc),
-                            params, spheres, iterations)
+        return plain(lens, *slots[:8], lams, lam_idx, slots[8], params,
+                     spheres, iterations)
+    return _launch_po_splat(name, lens, slots, lam_idx,
+                            _folded_table(lens, "solve", lams, dev),
+                            len(lams), params, spheres, iterations)
 
 
 def po_splat_lam(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
-                 lam, sky, params, spheres, iterations: int = 3):
-    """K3 ``lam_input`` wrapper: as :func:`po_splat`, with a wavelength
-    ``lam`` f32 [S] (um) per slot (the chromatic splat)."""
-    return _po_splat_variant(
+                 lams, lam_idx, sky, params, spheres, iterations: int = 3):
+    """K3b ``lam_input`` wrapper (the chromatic splat): as :func:`po_splat`,
+    with the wavelengths (um) ``lams`` a tuple of one and ``lam_idx`` None,
+    or of up to :data:`MAX_SOLVE_TABLES` and ``lam_idx`` int32 [S] in
+    ``[0, len(lams))`` (the chroma channel); slot ``i`` is solved at
+    ``lams[lam_idx[i]]``."""
+    return _po_splat_k3b(
         "po_splat_lam", po_splat_lam_plain, lens,
-        (pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, lam, sky), params, spheres,
-        iterations)
+        (pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky), lams, lam_idx,
+        params, spheres, iterations)
 
 
-def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam,
-                 sky, params, spheres, iterations: int = 3):
-    """K3 external-aperture wrapper: the aperture point ``ax, ay`` f32 [S]
-    (mm) and wavelength ``lam`` f32 [S] come per slot (image bokeh, blade
-    apertures)."""
-    return _po_splat_variant(
+def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lams,
+                 lam_idx, sky, params, spheres, iterations: int = 3):
+    """K3b external-aperture wrapper (image bokeh, blade apertures): the
+    aperture point ``ax, ay`` f32 [S] (mm) comes per slot; ``lams`` and
+    ``lam_idx`` as :func:`po_splat_lam` takes them."""
+    return _po_splat_k3b(
         "po_splat_ext", po_splat_ext_plain, lens,
-        (pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lam, sky), params, spheres,
-        iterations)
+        (pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, sky), lams, lam_idx, params,
+        spheres, iterations)
 
 
 # ---------------------------------------------------- K6: PO backward solve
-
-
-MAX_BACKWARD_TABLES = 3    # csrc/po_backward.cu kMaxBackwardTables
 
 
 def po_backward_plain(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
@@ -763,15 +774,12 @@ def po_backward_plain(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
     chief-ray guard) for targets ``(px, py, pz)`` in lens-space mm
     (-10 * p_cam) and aperture points ``(ax, ay)`` (mm), f32 [S].  Item
     ``i`` has the wavelength ``lams[lam_idx[i]]`` (um), or ``lams[0]``
-    when ``lam_idx`` is None, formed in the targets' dtype as
-    ``render/splat.py::_chroma_lambdas`` forms it.
+    when ``lam_idx`` is None, formed in the targets' dtype.
     Returns (sx, sy, sdx, sdy, trans); ``trans`` is >= 0 and cropped by the
     outer pupil."""
-    lam_tab = torch.tensor(lams, dtype=px.dtype, device=px.device)
-    lam = lam_tab[0] if lam_idx is None else lam_tab[lam_idx.long()]
     sensor5, _, trans = lt_sample_aperture(
-        lens, torch.stack([px, py, pz], -1), torch.stack([ax, ay], -1), lam,
-        iterations=iterations)
+        lens, torch.stack([px, py, pz], -1), torch.stack([ax, ay], -1),
+        _lam_per_item(lams, lam_idx, px), iterations=iterations)
     return (*(sensor5[..., k].contiguous() for k in range(4)), trans)
 
 
@@ -781,7 +789,7 @@ def po_backward(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
     (``po_pallas.py::build_po_backward_kernel``).  Inputs as
     :func:`po_backward_plain` takes them, contiguous, on the lens's device:
     ``lams`` a tuple of one wavelength (um) and ``lam_idx`` None, or of up
-    to :data:`MAX_BACKWARD_TABLES` with ``lam_idx`` int32 [S] in
+    to :data:`MAX_SOLVE_TABLES` with ``lam_idx`` int32 [S] in
     ``[0, len(lams))``.  The plain version on the CPU, the CUDA kernel on
     the card, on one folded solve table a wavelength
     (:func:`fold_solve_tables`)."""
@@ -790,14 +798,7 @@ def po_backward(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
     for name, t in (("px", px), ("py", py), ("pz", pz), ("ax", ax),
                     ("ay", ay)):
         _check(name, t, torch.float32, dev, (n,))
-    lams = tuple(float(lam) for lam in lams)
-    if (not 1 <= len(lams) <= MAX_BACKWARD_TABLES
-            or (lam_idx is None) != (len(lams) == 1)):
-        raise ValueError(
-            f"lams {lams}: one wavelength without lam_idx, or up to "
-            f"{MAX_BACKWARD_TABLES} with an int32 lam_idx")
-    if lam_idx is not None:
-        _check("lam_idx", lam_idx, torch.int32, dev, (n,))
+    lams = _check_lams(lams, lam_idx, dev, n)
     if lens.device != dev:
         raise ValueError(f"lens on {lens.device}, items on {dev}")
     if dev.type == "cpu":

@@ -223,13 +223,6 @@ def chroma_wavelengths(cfg: CameraConfig) -> tuple:
     return (0.35 + (1.0 - ca) * 0.2, 0.55, 0.55 + ca * 0.3)
 
 
-def _chroma_lambdas(cfg: CameraConfig, channel, dtype):
-    """Wavelength of each slot's chromatic channel [S]."""
-    lam_tab = torch.tensor(chroma_wavelengths(cfg), dtype=dtype,
-                           device=channel.device)
-    return lam_tab[channel]
-
-
 def _chroma_rgb_weight(channel, dtype):
     """Channel weights (3, 0, 0) / (0, 3, 0) / (0, 0, 3) per slot."""
     return (torch.eye(3, dtype=dtype, device=channel.device) * 3.0)[channel]
@@ -543,6 +536,10 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
                     ex_f[pk.TF_PWX], ex_f[pk.TF_PWY], ex_f[pk.TF_PWZ])
         seed_i, ctr_i = seed.to(torch.int32), ctr.to(torch.int32)
         iters = cfg.lt_newton_iterations
+        # K3b's wavelengths, from cfg on the host: the chroma three with the
+        # slot's channel as the index, or the frame's one
+        lams, lam_idx = ((chroma_wavelengths(cfg), channel.to(torch.int32))
+                         if chroma else ((cfg.lambda_um,), None))
         if thin:
             LAST_ROUTE = "k5"
             lin_splat, ok = ops.tl_splat(
@@ -560,19 +557,15 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
                 unit_disk = samplers.triangular_aperture_sample(
                     u[..., 0], u[..., 1], 1.0, cfg.aperture_blades)
             aperture = unit_disk * po_state.aperture_radius
-            lam_q = (_chroma_lambdas(cfg, channel, dtype) if chroma
-                     else torch.full((s_cap,), cfg.lambda_um, dtype=dtype,
-                                     device=dev))
             lin_splat, ok = ops.po_splat_ext(
                 po_lens, *slot_geo, aperture[:, 0].contiguous(),
-                aperture[:, 1].contiguous(), lam_q, sky_q, params, spheres,
-                iters)
+                aperture[:, 1].contiguous(), lams, lam_idx, sky_q, params,
+                spheres, iters)
         elif chroma:
             LAST_ROUTE = "k3_lam"
             lin_splat, ok = ops.po_splat_lam(
-                po_lens, *slot_geo, seed_i, ctr_i,
-                _chroma_lambdas(cfg, channel, dtype), sky_q, params, spheres,
-                iters)
+                po_lens, *slot_geo, seed_i, ctr_i, lams, lam_idx, sky_q,
+                params, spheres, iters)
         else:
             LAST_ROUTE = "k3"
             lin_splat, ok = ops.po_splat(po_lens, *slot_geo, seed_i, ctr_i,

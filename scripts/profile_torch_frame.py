@@ -1,18 +1,24 @@
-"""Stage profile of one warm 1080p flagship frame of the PyTorch / CUDA port
-(pota_tpu_torch) on one GPU.
+"""Stage profile of one warm frame of the PyTorch / CUDA port
+(pota_tpu_torch) on one GPU, per cell.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--cells flagship flagship_mb]
+    python3 scripts/profile_torch_frame.py [--cells flagship flagship_mb
+                                            config3 config3_no_bokeh]
 
 ``flagship`` is BASELINE config 4 (bench.py:172-246: 1920x1080 @ 1 spp,
 lens angenieux__double_gauss__1953__49mm, fstop 2.8, focus 20, lightgrid
 n=5); ``flagship_mb`` the same frame with the camera trucked 2 units across
-the shutter (motion blur, the decomposed route with K6).  For each cell it
+the shutter (motion blur, the decomposed route with K6); ``config3``
+BASELINE config 3 (bench.py:117-169: 512x512 @ 2 spp, abb_chromatic 0.6,
+image bokeh through chip_smoke.py's procedural ring, lightgrid n=4, K3b
+``po_splat_ext``) and ``config3_no_bokeh`` the same without image bokeh
+(K3b ``po_splat_lam``).  For each cell it
 prints five unprofiled frame wall times, then profiles one warm frame with
 ``torch.profiler`` (CPU and CUDA activities), reads the kernels from the
 exported trace, and splits them into stages at the port's own kernels
-(K1 po_forward, K2 expand, K3 po_splat / K6 po_backward, K4 segment_accum)
+(K1 po_forward, K2 expand, K3 / K3b po_splat / K6 po_backward, K4
+segment_accum)
 and at the first radix-sort kernel after the splat: device busy ms, wall
 span ms and kernel count per stage, and the device's idle share of the
 frame's kernel span.  It then charges each kernel to the innermost of the
@@ -35,8 +41,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 FLAGSHIP = "angenieux__double_gauss__1953__49mm"
 OWN = (("po_forward_kernel", "K1 po_forward"), ("expand_kernel", "K2 expand"),
-       ("po_splat_kernel", "K3 po_splat"), ("po_backward_kernel",
-                                           "K6 po_backward"),
+       ("po_splat_kernel", "K3/K3b po_splat"), ("po_backward_kernel",
+                                               "K6 po_backward"),
        ("segment_accum_kernel", "K4 segment_accum"))
 # the port's functions whose device time is reported, innermost first
 # when ranges nest: (module, function)
@@ -136,7 +142,9 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cells", nargs="+", default=["flagship", "flagship_mb"])
+    ap.add_argument("--cells", nargs="+", default=["flagship", "flagship_mb"],
+                    choices=["flagship", "flagship_mb", "config3",
+                             "config3_no_bokeh"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -147,11 +155,15 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    import dataclasses
+
     import pota_tpu_torch as pt
+    from chip_smoke import ring_pixels
     from pota_tpu_torch.optics.fit import load_poly_lens
     from pota_tpu_torch.optics.focus import setup_po_camera
     from pota_tpu_torch.render import scene as sc
     from pota_tpu_torch.render import renderer, splat
+    from pota_tpu_torch.render.bokeh_image import build_bokeh_cdf
     from pota_tpu_torch.render.renderer import look_at
 
     dev = torch.device("cuda", 0)
@@ -162,21 +174,38 @@ def main() -> int:
     lens = load_poly_lens(FLAGSHIP, device=dev)
     scene = sc.lightgrid_scene(n=5, spacing=12.0, z=-150.0, radius=0.8,
                                intensity=40.0, device=dev)
-    state = setup_po_camera(lens, cfg)
     rc = pt.RenderConfig(xres=1920, yres=1080, spp=1)
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
-    ends = {"flagship": None,
-            "flagship_mb": look_at([2.0, 0, 0], [2.0, 0, -1], device=dev)}
+    po = dict(po_lens=lens, po_state=setup_po_camera(lens, cfg))
+    # config 3 (chip_smoke.py's cfg3, scene3, rc3, cdf3)
+    cfg3 = dataclasses.replace(cfg, abb_chromatic=0.6,
+                               bokeh_enable_image=True)
+    scene3 = sc.lightgrid_scene(n=4, spacing=14.0, z=-150.0, radius=0.8,
+                                intensity=40.0, device=dev)
+    po3 = dict(po_lens=lens, po_state=setup_po_camera(lens, cfg3,
+                                                      scene=scene3))
+    rc3 = pt.RenderConfig(xres=512, yres=512, spp=2)
+    cells = {
+        "flagship": (cfg, rc, scene, po),
+        "flagship_mb": (cfg, rc, scene, dict(
+            po, cam_to_world_end=look_at([2.0, 0, 0], [2.0, 0, -1],
+                                         device=dev))),
+        "config3": (cfg3, rc3, scene3, dict(
+            po3, bokeh_cdf=build_bokeh_cdf(ring_pixels(), device=dev))),
+        "config3_no_bokeh": (dataclasses.replace(cfg3,
+                                                 bokeh_enable_image=False),
+                             rc3, scene3, po3),
+    }
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
 
     for cell in args.cells:
+        cfg_, rc_, scene_, kw = cells[cell]
+
         def frame():
             with torch.no_grad():
-                _, fb = renderer.render_frame(cfg, rc, scene, m, po_lens=lens,
-                                              po_state=state,
-                                              cam_to_world_end=ends[cell])
-                splat.resolve_aovs(rc, fb)
+                _, fb = renderer.render_frame(cfg_, rc_, scene_, m, **kw)
+                splat.resolve_aovs(rc_, fb)
 
         frame()
         torch.cuda.synchronize()

@@ -5,7 +5,8 @@ PO forward trace with image bokeh, the plain versions of K3's two variants
 interpret mode, and small PO frames on the synthetic lens (chromatic, with
 and without a queue rescale, image bokeh, image bokeh + chromatic, blades)
 against JAX's expanded branch, run through its interpret-mode kernels, on
-the same sample stream.
+the same sample stream, and the wavelength tables and index each frame
+hands K3b.
 
 Tolerances, each set from the value measured on these inputs:
 - the bokeh tables are the same numpy build, and the samplers integer
@@ -15,7 +16,7 @@ Tolerances, each set from the value measured on these inputs:
   3.0e-7 on the origins, 1.8e-7 on the directions; tries and weights
   exactly);
 - the K3 variants' plain versions: ``ok`` and ``lin`` on >= 99.9% of slots,
-  as K3 is held (measured: all 6,000 slots agree in both variants);
+  as K3 is held (measured: all 6,000 slots agree in every case);
 - the frames: at most 2% of pixels off by more than 2e-3 of the plane's
   scale and RGBA energy to 1e-3, the bound the PO slice is held to.
   Measured: no pixel off in any frame, every plane within 1.3e-8 of scale
@@ -43,6 +44,7 @@ from tests.test_torch_kernels import _splat_inputs
 from tests.test_torch_optics import scaled_err, to_torch_lens
 from tests.test_torch_slice import frac_pixels_off, to_port
 
+from pota_tpu_torch import ops
 from pota_tpu_torch.models import po_camera as tpc
 from pota_tpu_torch.ops import po_kernels as pk
 from pota_tpu_torch.optics.focus import POState
@@ -156,23 +158,34 @@ def test_trace_fw_po_image_bokeh_matches_jax(synthetic_lens, blades):
 # --------------------------------------------------------- K3 variants
 
 
-@pytest.mark.parametrize("variant", ["po_splat_lam", "po_splat_ext"])
+CHROMA = (0.43, 0.55, 0.73)      # chroma_wavelengths at abb_chromatic 0.6
+
+
+@pytest.mark.parametrize("variant", ["po_splat_lam", "po_splat_ext",
+                                     "po_splat_ext_mono"])
 def test_po_splat_variant_plain_matches_pallas(synthetic_lens, variant):
+    """K3b's plain versions against the Pallas kernel: the port takes the
+    wavelengths as a tuple and an int32 index per slot (the chroma three),
+    or one wavelength and no index (``po_splat_ext_mono``: non-chromatic
+    image bokeh); JAX takes ``lam = lams[idx]`` per slot."""
     lens = synthetic_lens
     n = 6000
     pc, pw, seeds, ctr, sky, spheres = _splat_inputs(n, 13)
     rng = np.random.default_rng(17)
-    lam = rng.choice([0.43, 0.55, 0.73], n).astype(np.float32)
+    mono = variant == "po_splat_ext_mono"
+    lams = (0.55,) if mono else CHROMA
+    idx = rng.integers(0, len(lams), n).astype(np.int32)
+    lam = np.asarray(lams, np.float32)[idx]
     cfg = CameraConfig(camera_type=CameraType.POLYNOMIAL_OPTICS,
                        lens_model="synthetic_test_lens", fstop=2.0,
-                       focus_distance=30.0, abb_chromatic=0.6)
+                       focus_distance=30.0, abb_chromatic=0.0 if mono else 0.6)
     rc = RenderConfig(xres=48, yres=40, spp=2)
     params = po_pallas.splat_kernel_params(cfg, rc, JPOState(**STATE),
                                            jnp.eye(4, dtype=jnp.float32))
-    ext = variant == "po_splat_ext"
+    ext = variant != "po_splat_lam"
     kern = po_pallas.build_po_splat_kernel(
         lens, 3, spheres.shape[0], interpret=True,
-        sample_aperture=not ext, lam_input=not ext)
+        sample_aperture=not ext, lam_input=True)
     t = torch.as_tensor
     if ext:
         ap = rng.uniform(-1, 1, (2, n)).astype(np.float32) * 7.0
@@ -185,14 +198,44 @@ def test_po_splat_variant_plain_matches_pallas(synthetic_lens, variant):
     want_lin, want_ok = (np.asarray(a) for a in kern(
         *(jnp.asarray(a) for a in (*pc, *pw)), a_j, b_j, jnp.asarray(lam),
         jnp.asarray(sky), params, jnp.asarray(spheres)))
-    got_lin, got_ok = getattr(pk, variant)(
-        to_torch_lens(lens), *(t(a) for a in (*pc, *pw)), a_t, b_t, t(lam),
-        t(sky), t(np.asarray(params)[0]), t(spheres), 3)
+    got_lin, got_ok = getattr(pk, "po_splat_ext" if ext else variant)(
+        to_torch_lens(lens), *(t(a) for a in (*pc, *pw)), a_t, b_t, lams,
+        None if mono else t(idx), t(sky), t(np.asarray(params)[0]),
+        t(spheres), 3)
     got_lin, got_ok = got_lin.numpy(), got_ok.numpy()
     assert 0.2 < want_ok.mean() < 0.95
     assert (got_ok == want_ok).mean() >= 0.999
     both = got_ok & want_ok
     assert (got_lin[both] == want_lin[both]).mean() >= 0.999
+
+
+@pytest.mark.parametrize("variant", ["po_splat_lam", "po_splat_ext"])
+@pytest.mark.parametrize("case", ["no_index", "four_lams", "index_int64",
+                                  "index_on_one_lam"])
+def test_po_splat_variant_refuses_bad_wavelengths(synthetic_lens, variant,
+                                                  case):
+    """K3b takes one wavelength and no index, or up to three and an int32
+    index per slot, as K6 does; anything else raises before any work."""
+    n = 16
+    pc, pw, seeds, ctr, sky, spheres = _splat_inputs(n, 3)
+    t = torch.as_tensor
+    if variant == "po_splat_ext":
+        a = b = torch.zeros(n)
+    else:
+        a = t(seeds.astype(np.int64)).to(torch.int32)
+        b = t(ctr.astype(np.int64)).to(torch.int32)
+    idx = torch.zeros(n, dtype=torch.int32)
+    lams, lam_idx, err = {
+        "no_index": (CHROMA, None, ValueError),
+        "four_lams": (CHROMA + (0.6,), idx, ValueError),
+        "index_int64": (CHROMA, idx.long(), TypeError),
+        "index_on_one_lam": ((0.55,), idx, ValueError),
+    }[case]
+    with pytest.raises(err, match="lam"):
+        getattr(pk, variant)(to_torch_lens(synthetic_lens),
+                             *(t(v) for v in (*pc, *pw)), a, b, lams, lam_idx,
+                             t(sky), torch.zeros(pk.SPLAT_PARAM_COUNT),
+                             t(spheres), 3)
 
 
 # ---------------------------------------------------------------- frames
@@ -213,7 +256,8 @@ GRID = dict(n=3, spacing=30.0, z=-150.0, radius=6.0, intensity=40.0)
 
 def _frame_pair(lens, case):
     """Resolved AOVs and raw energy of JAX's expanded branch and of the
-    port's splat, on JAX's sample stream of the synthetic lens."""
+    port's splat, on JAX's sample stream of the synthetic lens, the
+    port's framebuffer, and the (name, arguments) of every K3b call."""
     from pota_tpu.render.renderer import render_sample_stream as jstream
 
     kw = {"max_bidir_samples": 16, "splat_queue_mult": 6, **FRAMES[case]}
@@ -242,15 +286,26 @@ def _frame_pair(lens, case):
     tcdf = (tbi.bokeh_image_from_numpy(*_tables(jcdf), jcdf.resolution,
                                        device="cpu")
             if jcdf is not None else None)
+    calls = []
+
+    def recorder(name):
+        def call(*args):
+            calls.append((name, args))
+            return getattr(ops.KERNELS, name)(*args)
+        return call
+
     fb = splat_frame(to_port(cfg), to_port(RC),
                      sc.lightgrid_scene(**GRID, device="cpu"), tjs,
                      look_at([0, 0, 0], [0, 0, -1], device="cpu"),
                      po_lens=to_torch_lens(lens), po_state=POState(**STATE),
-                     bokeh_cdf=tcdf, with_diagnostics=True)
+                     bokeh_cdf=tcdf, with_diagnostics=True,
+                     ops=ops.KERNELS._replace(
+                         po_splat_lam=recorder("po_splat_lam"),
+                         po_splat_ext=recorder("po_splat_ext")))
     got = {k: v.numpy() for k, v in resolve_aovs(RC, fb).items()}
     energy = (float(fb["RGBA"].double().sum()),
               float(np.asarray(jfb["RGBA"], np.float64).sum()))
-    return got, want, energy, fb
+    return got, want, energy, fb, calls
 
 
 @pytest.fixture(scope="module")
@@ -260,7 +315,7 @@ def frames(synthetic_lens):
 
 @pytest.mark.parametrize("case", list(FRAMES))
 def test_frame_matches_jax_expanded_on_same_stream(frames, case):
-    got, want, (e_got, e_want), fb = frames[case]
+    got, want, (e_got, e_want), fb, _ = frames[case]
     assert int(fb["_n_valid_splats"]) > 1000
     for plane in want:
         assert np.isfinite(got[plane]).all(), plane
@@ -270,3 +325,22 @@ def test_frame_matches_jax_expanded_on_same_stream(frames, case):
     assert abs(e_got - e_want) <= ENERGY_TOL * abs(e_want)
     npix = RC.xres * RC.yres
     assert abs(float(fb["filter_weight"].sum()) - npix) <= 1e-5 * npix
+
+
+@pytest.mark.parametrize("case", list(FRAMES))
+def test_k3b_gets_the_frame_wavelengths(frames, case):
+    """Each frame hands K3b its wavelengths as Python floats: the chroma
+    three and the slots' channel (int32, lane % 3 of the source's range) as
+    the index when chromatic, else the frame's one and no index; image
+    bokeh and blades take the external-aperture kernel."""
+    (name, args), = frames[case][4]
+    cfg = CameraConfig(**FRAMES[case])
+    ext = cfg.bokeh_enable_image or cfg.aperture_blades > 2
+    assert name == ("po_splat_ext" if ext else "po_splat_lam")
+    lams, lam_idx = args[9], args[10]
+    if cfg.abb_chromatic == 0.0:
+        assert lams == (cfg.lambda_um,) and lam_idx is None
+        return
+    assert lams == CHROMA
+    assert lam_idx.dtype == torch.int32 and lam_idx.shape == args[1].shape
+    assert set(lam_idx.unique().tolist()) == {0, 1, 2}

@@ -142,13 +142,14 @@ def _assert_masks_agree(got, ref):
     assert float((lin_g[both] == lin_p[both]).double().mean()) >= 0.999
 
 
-@pytest.mark.parametrize("variant", ["po_splat_lam", "po_splat_ext"])
-def test_po_splat_variant_kernel_matches_plain(dev, variant):
-    lens = load_poly_lens(FLAGSHIP, device=dev)
-    rng = np.random.default_rng(5)
-    n = 50000
+CHROMA = (0.43, 0.55, 0.73)     # chroma_wavelengths at abb_chromatic 0.6
+
+
+def _k3b_args(variant, lens, n, lams, dev, rng, chromatic_queue=False):
+    """K3b's arguments for ``n`` seeded slots: one wavelength and no index,
+    or three and an index per slot, drawn at random or, with
+    ``chromatic_queue``, ``slot % 3`` as a chromatic queue lays them out."""
     pc, seed, ctr, sky, spheres = _slot_inputs(rng, n, dev)
-    lam = rng.choice([0.43, 0.55, 0.73], n).astype(np.float32)
     rc = pt.RenderConfig(xres=512, yres=512, spp=2)
     params = pk.splat_kernel_params(CFG, rc, STATE, torch.eye(4, device=dev))
     if variant == "po_splat_ext":
@@ -157,11 +158,43 @@ def test_po_splat_variant_kernel_matches_plain(dev, variant):
                 for _ in range(2))
     else:
         a, b = _t(seed, dev), _t(ctr, dev)
-    args = (lens, *(_t(x, dev) for x in pc), *(_t(x, dev) for x in pc), a, b,
-            _t(lam, dev), _t(sky, dev), params, spheres, 3)
+    idx = (np.arange(n) % 3 if chromatic_queue
+           else rng.integers(0, len(lams), n)).astype(np.int32)
+    return (lens, *(_t(x, dev) for x in pc), *(_t(x, dev) for x in pc), a, b,
+            lams, None if len(lams) == 1 else _t(idx, dev), _t(sky, dev),
+            params, spheres, 3)
+
+
+@pytest.mark.parametrize("variant", ["po_splat_lam", "po_splat_ext"])
+@pytest.mark.parametrize("degree", [5, 3])
+@pytest.mark.parametrize("lams, layout", [
+    ((0.55,), "one"), (CHROMA, "random"), (CHROMA, "chromatic_queue")])
+def test_po_splat_variant_kernel_matches_plain(dev, variant, degree, lams,
+                                               layout):
+    """K3b on one folded table, or three picked per slot (at random, or
+    ``slot % 3`` as a chromatic queue has them, which the kernel's
+    channel-uniform warps take), against its plain version, for the
+    flagship's degree-5 and degree-3 fits; 50,001 slots, a ragged last
+    channel group."""
+    lens = load_poly_lens(FLAGSHIP, degree=degree, device=dev)
+    args = _k3b_args(variant, lens, 50001, lams, dev,
+                     np.random.default_rng(5),
+                     chromatic_queue=layout == "chromatic_queue")
+    ops.reset_launches()
     got = getattr(pk, variant)(*args)
-    ref = getattr(pk, f"{variant}_plain")(*args)
-    _assert_masks_agree(got, ref)
+    assert ops.LAUNCHES[variant] == 1
+    _assert_masks_agree(got, getattr(pk, f"{variant}_plain")(*args))
+
+
+@pytest.mark.parametrize("variant", ["po_splat_lam", "po_splat_ext"])
+@pytest.mark.parametrize("lams", [(0.55,), CHROMA])
+def test_po_splat_variant_kernel_takes_an_empty_queue(dev, variant, lams):
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    args = _k3b_args(variant, lens, 0, lams, dev, np.random.default_rng(1))
+    ops.reset_launches()
+    lin, ok = getattr(pk, variant)(*args)
+    assert lin.shape == ok.shape == (0,)
+    assert ops.LAUNCHES[variant] == 1
 
 
 @pytest.mark.parametrize("abb, c2s", [(0.5, 0.01), (0.3, 0.2)])
@@ -177,9 +210,6 @@ def test_tl_splat_kernel_matches_plain(dev, abb, c2s):
             _t(seed, dev), _t(ctr, dev), _t(sky, dev), params, spheres, abb,
             c2s)
     _assert_masks_agree(pk.tl_splat(*args), pk.tl_splat_plain(*args))
-
-
-CHROMA = (0.43, 0.55, 0.73)     # chroma_wavelengths at abb_chromatic 0.6
 
 
 @pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
