@@ -17,7 +17,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                else five); K6 also on three tables (config 3's chroma
                wavelengths, ``lam_idx = slot % 3``); K3b also on one table
                and in the thread order of the other design
-               (:func:`k3b_designs`)
+               (:func:`k3b_designs`); K4 also on config 1's and configs
+               3's streams and on two seeded 1080p streams, uniform and
+               piled up (:func:`writer_stream`), each run twice and held
+               to identical bits; K5 with its occupancy and compiled
+               instruction mix (:func:`k5_profile`); K4 and K5 timed over
+               50 runs, with the spread (:func:`timed_ms`)
   4. parity    renders small frames twice, through the kernels and through
                the plain versions on CUDA tensors, and compares: the
                flagship at 256x256 @ 1 spp, config 1 at 64x64 @ 4 spp,
@@ -42,7 +47,8 @@ read once, each output written once) over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (an FMA is two; the integer TEA-8 draws are not counted),
 counted from the kernel's code and this run's shapes (for the kernels on
 the folded degree-5 basis the work they run: :func:`basis_forward_flops`
-for K1, :func:`basis_solve_flops` for K3, K3b and K6).  Those five records
+for K1, :func:`basis_solve_flops` for K3, K3b and K6; for K4 the bytes of
+its live writers only, :func:`accum_bound`).  Those five records
 add ``runtime_term_bound_ms`` (the same bound for the runtime-term code each
 ran before, :func:`forward_flops` / :func:`solve_flops`, from the fit's
 exponent table), their registers and spill bytes; K3's, K3b's
@@ -51,6 +57,9 @@ versions disagree with a float64 solve of the same items
 (:func:`f64_witness`).
 ``library_ms`` is the time of one PyTorch call computing the same function,
 where one exists (K2: ``index_select`` over both tables), else null.
+Every record carries the kernel's registers and spill bytes; K5's its
+resident blocks an SM, its instructions a slot by kind and the time they
+take to issue (``issue_ms``, beside ``bound_ms``).
 The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -157,6 +166,254 @@ def basis_forward_flops(iterations: int) -> float:
     return float(4 + 524 + 4 + iterations * 175 + 12 + 125 + 1260 + 1)
 
 
+def accum_bound(args) -> dict:
+    """K4's live writers, live segments (heads) and bound on ``args``: the
+    key, permutation entry and payload row of each live writer, the sample
+    id of each head, and every output once (each pixel's K sums, depth,
+    sample id and has-winner byte, zeroed or written); one add per live
+    writer and column."""
+    keys, perm, payload, sid, npix = args
+    pix = keys >> 32
+    live = int((pix < npix).sum())
+    heads = int(((pix[1:] != pix[:-1]) & (pix[1:] < npix)).sum()) + (
+        1 if live else 0)
+    k = payload.shape[1]
+    return dict(live_writers=live, heads=heads, **bound(
+        live * (16.0 + 4.0 * k) + 4.0 * heads + npix * (4.0 * k + 9.0),
+        float(live * k)))
+
+
+def row_gather_ms(args) -> float:
+    """Time of ``payload.index_select(0, perm[:live])``: the live writers'
+    payload rows gathered alone, in sorted order, as K4 gathers them (a
+    yardstick of its random reads, not the same function)."""
+    keys, perm, payload, _, npix = args
+    rows = perm[:int(((keys >> 32) < npix).sum())].contiguous()
+    return median_ms(lambda: payload.index_select(0, rows))
+
+
+def writer_stream(w: int, k: int, npix: int, hot: int, device, seed: int = 7):
+    """A seeded writer stream for K4 (``torch.Generator``), sorted as the
+    splat sorts it: a quarter of the writers dead, and with ``hot`` > 0
+    half of the live writers on ``hot`` pixels, the rest uniform over the
+    frame; depths rounded to whole units, so that pixels hold ties."""
+    import torch
+
+    from pota_tpu_torch.ops.splat_accum import sort_writers
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    pix = torch.randint(0, npix, (w,), generator=g, device=device)
+    u = torch.rand(w, generator=g, device=device)
+    if hot:
+        hot_pix = torch.randint(0, npix, (hot,), generator=g, device=device)
+        pick = torch.randint(0, hot, (w,), generator=g, device=device)
+        pix = torch.where(u >= 0.625, pix, hot_pix[pick])
+    pix = torch.where(u < 0.25, npix, pix)
+    depth = torch.round(torch.rand(w, generator=g, device=device) * 100 + 1)
+    payload = torch.randn(w, k, generator=g, device=device)
+    sid = torch.randint(0, 1 << 30, (w,), generator=g, device=device,
+                        dtype=torch.int32)
+    keys, perm = sort_writers(pix, depth)
+    del pix, u, depth
+    return keys, perm, payload, sid, npix
+
+
+def check_accum(label, kern, plain, args) -> float:
+    """K4 against its plain version on ``args``: sums within 1e-4 of their
+    scale, winners identical, two runs identical bit for bit.  Returns the
+    largest sum error."""
+    import torch
+
+    got = kern(*args)
+    again = kern(*args)
+    ref = plain(*args)
+    scale = max(float(ref[0].abs().max()), 1.0)
+    err = float((got[0] - ref[0]).abs().max())
+    same_win = (torch.equal(got[3], ref[3])
+                and torch.equal(got[1][got[3]], ref[1][ref[3]])
+                and torch.equal(got[2][got[3]], ref[2][ref[3]]))
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"K4 segment_accum ({label}) W={args[0].shape[0]} "
+          f"K={args[2].shape[1]} max_abs_err={err:.3e} (scale {scale:.3e}) "
+          f"winners identical={same_win} two runs identical={same_bits}",
+          flush=True)
+    if err > 1e-4 * scale or not same_win or not same_bits:
+        fail(f"K4 segment_accum ({label}) disagrees with its plain version "
+             "or with itself")
+    return err
+
+
+SASS_KINDS = {
+    "MUFU": "mufu",
+    **{op: "memory" for op in (
+        "LDG", "STG", "LDS", "STS", "LDL", "STL", "LD", "ST", "LDC", "ATOM",
+        "ATOMS", "ATOMG", "RED", "LDSM", "LDGSTS")},
+    **{op: "fp32" for op in (
+        "FADD", "FMUL", "FFMA", "FSETP", "FSET", "FMNMX", "FSEL", "FCHK",
+        "FSWZADD")},
+    **{op: "integer" for op in (
+        "IADD3", "IMAD", "IMUL", "LOP3", "SHF", "LEA", "ISETP", "IABS",
+        "IMNMX", "PRMT", "POPC", "FLO", "BREV", "SGXT", "BMSK", "IADD",
+        "SHL", "SHR", "LOP", "IDP", "VIADD", "VIMNMX")},
+    **{op: "conversion" for op in ("I2F", "F2I", "F2F", "I2I", "F2FP",
+                                   "I2FP", "F2IP", "FRND")},
+    **{op: "control" for op in (
+        "BRA", "EXIT", "BSSY", "BSYNC", "CALL", "RET", "BAR", "WARPSYNC",
+        "NOP", "YIELD", "JMP", "BRX", "BPT", "BREAK")},
+}
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` text -> {mangled name: [(address, opcode, branch
+    target or None, opcode with its modifiers, predicated)]}."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", ln)
+        if m and cur is not None:
+            op = m.group(3).split(".")[0]
+            tgt = re.search(r"0x([0-9a-f]+)", m.group(4)) if op in (
+                "BRA", "JMP") else None
+            pred = m.group(2) is not None and "PT" not in m.group(2)
+            cur.append((int(m.group(1), 16), op,
+                        int(tgt.group(1), 16) if tgt else None, m.group(3),
+                        pred))
+    return funcs
+
+
+def sass_kind(op: str) -> str:
+    base = op[1:] if op.startswith("U") and op[1:] in SASS_KINDS else op
+    return SASS_KINDS.get(base, "other")
+
+
+def sass_loops(instrs) -> list:
+    """The loops of a function: (head address, back-edge address) of each
+    backward branch, outermost (longest) first."""
+    loops = [(x[2], x[0]) for x in instrs if x[2] is not None and x[2] <= x[0]]
+    return sorted(loops, key=lambda lp: lp[0] - lp[1])
+
+
+def shared_bytes(instrs) -> int:
+    """Bytes the shared-memory loads of ``instrs`` read (LDS 4, .64 8,
+    .128 16)."""
+    return sum(16 if ".128" in x[3] else 8 if ".64" in x[3] else 4
+               for x in instrs if x[1] == "LDS")
+
+
+def path_mix(instrs, lo: int, hi: int, loops: dict, force: bool) -> dict:
+    """The instructions, by kind, on the cheapest path from address ``lo``
+    to the one after ``hi``: straight-line code and forward branches (a
+    predicated branch may fall through; a CALL, which goes to a slow path,
+    costs 1,000), each loop of ``loops`` {head: (back edge, passes, kinds
+    of one pass)} taken whole where the path meets its head, and with
+    ``force`` every such loop the path can reach taken."""
+    step = 16
+    end = hi + step
+    at = {x[0]: x for x in instrs if lo <= x[0] <= hi}
+    best = {lo: (0.0, {})}
+
+    def relax(to, cost, mix):
+        if to <= end and (to not in best or cost < best[to][0]):
+            best[to] = (cost, mix)
+
+    for a in sorted(at):
+        if a not in best:
+            continue
+        cost, mix = best[a]
+        if a in loops:
+            back, passes, one = loops[a]
+            add = {k: mix.get(k, 0.0) + passes * one.get(k, 0.0)
+                   for k in set(mix) | set(one)}
+            n = passes * sum(one.values())
+            relax(back + step, cost + n - (1e9 if force else 0.0), add)
+            continue
+        _, op, tgt, _, pred = at[a]
+        nmix = dict(mix)
+        nmix[sass_kind(op)] = nmix.get(sass_kind(op), 0.0) + 1.0
+        ncost = cost + (1000.0 if op == "CALL" else 1.0)
+        if op in ("BRA", "JMP") and tgt is not None and tgt > a:
+            relax(tgt, ncost, nmix)
+        if op in ("BRA", "JMP", "EXIT", "RET") and not pred:
+            continue
+        relax(a + step, ncost, nmix)
+    if end not in best:
+        fail("no path through K5's compiled loop")
+    return best[end][1]
+
+
+def per_slot_sass(instrs, n_sph: int, probed: float) -> dict:
+    """The instructions K5 issues for one slot, by kind, from its compiled
+    code (:func:`path_mix`): one pass of the grid-stride loop (its
+    outermost backward branch) on its cheapest path, the slow paths and
+    rare branches skipped, with each sphere loop (an inner loop that reads
+    the sphere table from shared memory, ``b`` bytes a pass) taken
+    ``16 n_sph / b`` times, each pass on its own cheapest path (a ray that
+    misses every sphere); the share ``probed`` of the slots takes the
+    probe, the rest the cheapest path without it."""
+    loops = sass_loops(instrs)
+    if not loops:
+        fail("no grid-stride loop in K5's compiled code")
+    head, back = loops[0]
+    sphere = {}
+    for h, e in loops[1:]:
+        if head <= h and e <= back:
+            body = [x for x in instrs if h <= x[0] <= e]
+            b = shared_bytes(body)
+            if b:
+                sphere[h] = (e, 16.0 * n_sph / b,
+                             path_mix(instrs, h, e, {}, False))
+    on = path_mix(instrs, head, back, sphere, True)
+    off = path_mix(instrs, head, back, sphere, False)
+    out = {k: probed * on.get(k, 0.0) + (1 - probed) * off.get(k, 0.0)
+           for k in set(on) | set(off)}
+    out["total"] = sum(out.values())
+    return out
+
+
+def sm_clock_mhz() -> int:
+    """The card's top SM clock (MHz), as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return int(out.stdout.split()[0])
+
+
+def k5_profile(args, n: int) -> dict:
+    """K5's resident blocks an SM (the occupancy its grid is sized from),
+    its compiled instructions a slot by kind (:func:`per_slot_sass`) and
+    the time they take to issue at the card's top SM clock (132 SMs x 4
+    schedulers x 32 lanes, an instruction a cycle each)."""
+    from pota_tpu_torch.ops import _build, po_kernels as pk
+
+    n_sph = int(args[10].shape[0])
+    # the slots whose ok the probe can change: in bounds (the plain
+    # version without spheres) and off sky
+    _, inb = plain_chunked(pk.tl_splat_plain,
+                           (*args[:10], args[10][:0], *args[11:]),
+                           slice(0, 9))
+    probed = float((inb & (args[8] < 0.5)).double().mean())
+    found = [v for k, v in sass_functions(_build.sass_text()).items()
+             if "tl_splat_kernel" in k]
+    if len(found) != 1:
+        fail("no compiled code for K5")
+    sass = per_slot_sass(found[0], n_sph, probed)
+    clock = sm_clock_mhz()
+    blocks = _build.lib().pota_tl_splat_blocks_per_sm(n_sph)
+    if blocks < 1:
+        fail(f"K5's occupancy query failed ({blocks})")
+    return dict(blocks_per_sm=blocks, probed_share=probed,
+                sass_per_slot=sass, clock_mhz=clock,
+                issue_ms=sass["total"] * n / (132 * 4 * 32 * clock * 1e6)
+                * 1e3)
+
+
 def median_ms(fn, reps: int = 5) -> float:
     import torch
 
@@ -172,6 +429,26 @@ def median_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_ms(fn, reps: int = 50) -> dict:
+    """CUDA-event time of fn() after a warm-up: the median of ``reps`` runs
+    (``ms``) and their 10th and 90th percentiles (``ms_spread``)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    q = statistics.quantiles(times, n=10)
+    return dict(ms=statistics.median(times), ms_spread=[q[0], q[-1]])
 
 
 def host_ms(fn, reps: int = 3) -> float:
@@ -393,7 +670,7 @@ def main() -> int:
     entries = _build.ptxas_entries()
     for mangled, info in sorted(entries.items()):
         print(f"ptxas {mangled}: {info}", flush=True)
-    # the kernels on the folded degree-5 basis: registers and spills
+    # every kernel's registers and spills
     ptxas = {}
     for name, key, label in (
             ("po_forward", "po_forward_kernel", "K1 (the folded forward)"),
@@ -403,7 +680,11 @@ def main() -> int:
              "K3b per-slot-wavelength instantiation (SPLAT_DISK_LAM)"),
             ("po_splat_ext", "po_splat_kernelILi2E",
              "K3b external-aperture instantiation (SPLAT_EXTERNAL)"),
-            ("po_backward", "po_backward_kernel", "K6 (the basis solve)")):
+            ("po_backward", "po_backward_kernel", "K6 (the basis solve)"),
+            ("expand", "expand_kernelILi4E", "K2 (four slots a thread)"),
+            ("segment_accum", "segment_tile_kernel", "K4 tiles"),
+            ("segment_carry", "segment_carry_kernel", "K4 carries"),
+            ("tl_splat", "tl_splat_kernel", "K5")):
         found = [v for k, v in entries.items() if key in k]
         if len(found) != 1:
             fail(f"no ptxas report for {label}")
@@ -526,7 +807,8 @@ def main() -> int:
             ms=median_ms(lambda: pk.expand(*a2)),
             plain_ms=median_ms(lambda: pk.expand_plain(*a2)),
             **bound(4.0 * (s2 + rows * (s2 + n2)), 0.0),
-            library_ms=median_ms(index_select), n=int(s2)))
+            library_ms=median_ms(index_select), n=int(s2),
+            **ptxas["expand"]))
         del got, ref
 
         # K3: PO splat, S slots
@@ -568,39 +850,83 @@ def main() -> int:
         records.append(k3)
         del a3
 
-        # K4: segment accumulate, W writers
+        # K4: segment accumulate over the flagship's W writers
+        seg = splat_accum.segment_accum
+        seg_plain = splat_accum.segment_accum_plain
         a4 = rec["segment_accum"]
-        got = splat_accum.segment_accum(*a4)
-        ref = splat_accum.segment_accum_plain(*a4)
-        scale = max(float(ref[0].abs().max()), 1.0)
-        err4 = float((got[0] - ref[0]).abs().max())
-        same_win = (torch.equal(got[3], ref[3])
-                    and torch.equal(got[1][got[3]], ref[1][ref[3]])
-                    and torch.equal(got[2][got[3]], ref[2][ref[3]]))
-        print(f"K4 segment_accum W={a4[0].shape[0]} max_abs_err={err4:.3e} "
-              f"(scale {scale:.3e}) winners identical={same_win}", flush=True)
-        if err4 > 1e-4 * scale or not same_win:
-            fail("K4 segment_accum disagrees with its plain version")
+        err4 = check_accum("flagship", seg, seg_plain, a4)
         w4, k4, npix4 = a4[0].shape[0], a4[2].shape[1], a4[4]
-        records.append(dict(
+        k4rec = dict(
             name="segment_accum", route="cuda",
             source="pota_tpu_torch/csrc/segment_accum.cu",
             replaces="pota_tpu/ops/splat_accum.py:59", max_abs_err=err4,
-            ms=median_ms(lambda: splat_accum.segment_accum(*a4)),
-            plain_ms=median_ms(lambda: splat_accum.segment_accum_plain(*a4)),
-            **bound(w4 * (20.0 + 4.0 * k4) + npix4 * (4.0 * k4 + 9.0),
-                    float(w4 * k4)),
-            library_ms=None, n=int(w4)))
-        del got, ref, rec, a1, a2, a4
+            **timed_ms(lambda: seg(*a4)),
+            plain_ms=median_ms(lambda: seg_plain(*a4)),
+            **accum_bound(a4), row_gather_ms=row_gather_ms(a4),
+            every_writer_bound_ms=bound(
+                w4 * (20.0 + 4.0 * k4) + npix4 * (4.0 * k4 + 9.0),
+                float(w4 * k4))["bound_ms"],
+            library_ms=None, n=int(w4), **ptxas["segment_accum"],
+            carry_kernel=ptxas["segment_carry"])
+        print(f"segment_accum (tiles and carries): {k4rec['ms']:.3f} ms "
+              f"(10-90%: {k4rec['ms_spread'][0]:.3f}-"
+              f"{k4rec['ms_spread'][1]:.3f}), "
+              f"{k4rec['live_writers']} live writers of {w4}, "
+              f"{k4rec['heads']} pixels written, bound "
+              f"{k4rec['bound_ms']:.3f} ms ({k4rec['bound_by']}; every "
+              f"writer counted: {k4rec['every_writer_bound_ms']:.3f} ms), "
+              f"the live rows' payload gathered alone (index_select) "
+              f"{k4rec['row_gather_ms']:.3f} ms, "
+              f"{k4rec['registers']} registers, {k4rec['spill_bytes']} spill "
+              f"bytes {tag}", flush=True)
+        records.append(k4rec)
+        del rec, a1, a2, a4
         torch.cuda.empty_cache()
 
+        # K4 on a piled-up stream at the flagship's shape (half of the live
+        # writers on 64 pixels) and on the same stream without the pile-up
+        piled = {}
+        for label, hot in (("uniform", 0), ("piled", 64)):
+            a4s = writer_stream(w4, k4, npix4, hot, dev)
+            check_accum(f"{label} stream", seg, seg_plain, a4s)
+            piled[label] = dict(**timed_ms(lambda: seg(*a4s)),
+                                plain_ms=median_ms(lambda: seg_plain(*a4s)),
+                                row_gather_ms=row_gather_ms(a4s),
+                                **accum_bound(a4s))
+            del a4s
+            torch.cuda.empty_cache()
+        piled["ratio"] = piled["piled"]["ms"] / piled["uniform"]["ms"]
+        k4rec["streams"] = piled
+        print(f"segment_accum on W={w4} K={k4}: uniform stream "
+              f"{piled['uniform']['ms']:.3f} ms, piled-up stream (half the "
+              f"live writers on 64 pixels) {piled['piled']['ms']:.3f} ms "
+              f"({piled['ratio']:.3f}x; plain "
+              f"{piled['uniform']['plain_ms']:.3f} / "
+              f"{piled['piled']['plain_ms']:.3f} ms) {tag}", flush=True)
+
         # K5: thin-lens splat, config 1's S slots
-        a5 = capture(cfg1, rc1, scene1)["tl_splat"]
-        records.append(check_splat_kernel(
+        rec1 = capture(cfg1, rc1, scene1)
+        a5 = rec1["tl_splat"]
+        k5 = check_splat_kernel(
             "tl_splat", pk.tl_splat, pk.tl_splat_plain, a5, slice(0, 9),
             "pota_tpu_torch/csrc/tl_splat.cu", f"{TPU_KERNELS}:958", 41.0,
-            85.0 + 20 * scene1.n_objects))
-        del a5
+            85.0 + 20 * scene1.n_objects)
+        k5.update(**timed_ms(lambda: pk.tl_splat(*a5)), **ptxas["tl_splat"],
+                  **k5_profile(a5, k5["n"]))
+        mix = ", ".join(f"{k} {v:.1f}" for k, v in
+                        sorted(k5["sass_per_slot"].items()))
+        print(f"tl_splat: {k5['ms']:.3f} ms (10-90%: "
+              f"{k5['ms_spread'][0]:.3f}-{k5['ms_spread'][1]:.3f}), bound "
+              f"{k5['bound_ms']:.3f} ms ({k5['bound_by']}), issue-rate time "
+              f"{k5['issue_ms']:.3f} ms ({k5['sass_per_slot']['total']:.0f} "
+              f"instructions a slot at {k5['clock_mhz']} MHz, "
+              f"{k5['probed_share']:.4f} of slots probed), "
+              f"{k5['registers']} registers, {k5['spill_bytes']} spill bytes,"
+              f" {k5['blocks_per_sm']} blocks an SM; instructions a slot: "
+              f"{mix} {tag}", flush=True)
+        records.append(k5)
+        check_accum("config 1", seg, seg_plain, rec1["segment_accum"])
+        del a5, rec1
         # K3b: config 3 with image bokeh off (the per-slot-wavelength
         # instantiation, 20 operations more for the disk), and config 3
         extra3 = 60 + 20 * scene3.n_objects
@@ -609,7 +935,10 @@ def main() -> int:
                 ("po_splat_lam", pk.po_splat_lam_plain, 743, cfg3_nb, {}, 20),
                 ("po_splat_ext", pk.po_splat_ext_plain, 747, cfg3,
                  dict(bokeh_cdf=cdf3), 0)):
-            a3b = capture(cfg_, rc3, scene3, **kw, **po3)[name]
+            rec3 = capture(cfg_, rc3, scene3, **kw, **po3)
+            a3b = rec3[name]
+            check_accum(name, seg, seg_plain, rec3["segment_accum"])
+            del rec3
             if (a3b[9] != chroma_wavelengths(cfg3)
                     or a3b[10].dtype != torch.int32):
                 fail(f"{name} got wavelengths {a3b[9]} on a chromatic frame")

@@ -83,33 +83,6 @@ __device__ __forceinline__ void tea_concentric_disk(uint32_t seed, uint32_t ctr,
   y = both_zero ? 0.0f : r * sinf(phi);
 }
 
-// Aberrated concentric disk point (po_pallas.py
-// _tea_concentric_disk_aberrated): with ``bias`` the radius becomes
-// sign(r) |r|^expo, expo = log(abb_spherical) / log(0.5), written as
-// exp(log(max(|r|, 1e-30)) * expo); then the squircle lerp by c2s.
-__device__ __forceinline__ void tea_concentric_disk_aberrated(
-    uint32_t seed, uint32_t ctr, bool bias, float expo, float c2s, float& x,
-    float& y) {
-  uint32_t state = tea8(seed, ctr);
-  const float r1 = lcg_uniform(state);
-  const float r2 = lcg_uniform(state);
-  float r, phi, a, b;
-  concentric_polar(r1, r2, r, phi, a, b);
-  if (bias) {
-    const float sgn = (r > 0.0f) ? 1.0f : ((r < 0.0f) ? -1.0f : 0.0f);
-    r = sgn * expf(logf(fmaxf(fabsf(r), 1e-30f)) * expo);
-  }
-  x = r * cosf(phi);
-  y = r * sinf(phi);
-  if (c2s > 0.0f) {
-    x = x + c2s * (a - x);
-    y = y + c2s * (b - y);
-  }
-  const bool both_zero = (a == 0.0f) && (b == 0.0f);
-  x = both_zero ? 0.0f : x;
-  y = both_zero ? 0.0f : y;
-}
-
 // ------------------------------------------------------------ splat helpers
 // Per-frame scalar layout of the splat kernels (po_pallas.py _SP_*,
 // SPLAT_PARAM_COUNT = 32).

@@ -46,10 +46,11 @@ SIGNATURES = {
     "pota_po_forward": [_p] * 4 + [_i, _p, _f, _f, _i] + [_p] * 5,
     "pota_expand": [_p, _i, _p, _i, _p, _i, _i, _p, _p, _p],
     "pota_po_splat": _PO_SPLAT,
-    "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i, _p, _p, _p, _p, _p],
+    "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i] + [_p] * 8,
     "pota_po_splat_lam": _PO_SPLAT,
     "pota_po_splat_ext": _PO_SPLAT,
     "pota_tl_splat": [_p] * 9 + [_i, _i, _f, _f, _p, _p, _i, _p, _p, _p],
+    "pota_tl_splat_blocks_per_sm": [_i],
     "pota_po_backward": [_p] * 6 + [_i, _p, _i, _p, _i, _i] + [_p] * 6,
 }
 
@@ -150,6 +151,14 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
         return _lib
+
+
+def sass_text() -> str:
+    """``cuobjdump -sass`` of the built library (the toolkit's cuobjdump,
+    beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", build()], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def check(err: int, name: str) -> None:

@@ -6,6 +6,11 @@ its kernel) on one int64 key ``pixel << 32 | float_bits(|z|)``: depths are
 >= 0, so their bits order like the floats, and equal keys keep writer
 order.  Over the sorted stream the accumulator sums the payload per pixel
 and takes each pixel's closest winner from its first row.
+
+The kernel (``csrc/segment_accum.cu``) cuts the sorted rows into tiles of
+:data:`TILE_THREADS` x :data:`THREAD_ROWS` rows; a segment that crosses a
+tile edge is finished from a carry buffer of the tiles' first and last
+segments, which the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -13,6 +18,11 @@ import torch
 
 from . import _build
 from .po_kernels import _check, _stream
+
+# the kernel's tile (csrc/segment_accum.cu kAccThreads, kAccRows)
+TILE_THREADS = 256
+THREAD_ROWS = 4
+TILE_ROWS = TILE_THREADS * THREAD_ROWS
 
 
 def writer_keys(pix, depth):
@@ -66,14 +76,23 @@ def segment_accum(keys_sorted, perm, payload, sample_id, npix: int):
     if dev.type == "cpu":
         return segment_accum_plain(keys_sorted, perm, payload, sample_id,
                                    npix)
-    accum = torch.empty((npix, k), dtype=torch.float32, device=dev)
-    winner_depth = torch.empty((npix,), dtype=torch.float32, device=dev)
-    winner_sample = torch.empty((npix,), dtype=torch.int32, device=dev)
-    has_winner = torch.empty((npix,), dtype=torch.bool, device=dev)
+    if w >= 2 ** 31 or npix >= 2 ** 31:
+        raise ValueError(f"segment_accum: {w} writers or {npix} pixels "
+                         "exceed the kernel's int32 rows")
+    # a pixel no writer touches reads zeros
+    accum = torch.zeros((npix, k), dtype=torch.float32, device=dev)
+    winner_depth = torch.zeros((npix,), dtype=torch.float32, device=dev)
+    winner_sample = torch.zeros((npix,), dtype=torch.int32, device=dev)
+    has_winner = torch.zeros((npix,), dtype=torch.bool, device=dev)
+    n_tiles = -(-w // TILE_ROWS)
+    lead = torch.empty((n_tiles, k), dtype=torch.float32, device=dev)
+    trail = torch.empty((n_tiles, k), dtype=torch.float32, device=dev)
+    tail_pix = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
     err = _build.lib().pota_segment_accum(
         keys_sorted.data_ptr(), perm.data_ptr(), w, payload.data_ptr(), k,
         sample_id.data_ptr(), npix, accum.data_ptr(), winner_depth.data_ptr(),
-        winner_sample.data_ptr(), has_winner.data_ptr(), _stream(dev))
+        winner_sample.data_ptr(), has_winner.data_ptr(), lead.data_ptr(),
+        trail.data_ptr(), tail_pix.data_ptr(), _stream(dev))
     _build.check(err, "segment_accum")
     _build.LAUNCHES["segment_accum"] += 1
     return accum, winner_depth, winner_sample, has_winner

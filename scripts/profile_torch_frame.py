@@ -4,12 +4,14 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 scripts/profile_torch_frame.py [--cells flagship flagship_mb
-                                            config3 config3_no_bokeh]
+                                            config1 config3 config3_no_bokeh]
 
 ``flagship`` is BASELINE config 4 (bench.py:172-246: 1920x1080 @ 1 spp,
 lens angenieux__double_gauss__1953__49mm, fstop 2.8, focus 20, lightgrid
 n=5); ``flagship_mb`` the same frame with the camera trucked 2 units across
-the shutter (motion blur, the decomposed route with K6); ``config3``
+the shutter (motion blur, the decomposed route with K6); ``config1``
+BASELINE config 1 (bench.py:58-83: thin lens, teapot, 256x256 @ 16 spp,
+K5 ``tl_splat``); ``config3``
 BASELINE config 3 (bench.py:117-169: 512x512 @ 2 spp, abb_chromatic 0.6,
 image bokeh through chip_smoke.py's procedural ring, lightgrid n=4, K3b
 ``po_splat_ext``) and ``config3_no_bokeh`` the same without image bokeh
@@ -17,8 +19,8 @@ image bokeh through chip_smoke.py's procedural ring, lightgrid n=4, K3b
 prints five unprofiled frame wall times, then profiles one warm frame with
 ``torch.profiler`` (CPU and CUDA activities), reads the kernels from the
 exported trace, and splits them into stages at the port's own kernels
-(K1 po_forward, K2 expand, K3 / K3b po_splat / K6 po_backward, K4
-segment_accum)
+(K1 po_forward, K2 expand, K3 / K3b po_splat / K5 tl_splat / K6
+po_backward, K4 segment_accum's tile and carry kernels)
 and at the first radix-sort kernel after the splat: device busy ms, wall
 span ms and kernel count per stage, and the device's idle share of the
 frame's kernel span.  It then charges each kernel to the innermost of the
@@ -43,7 +45,9 @@ FLAGSHIP = "angenieux__double_gauss__1953__49mm"
 OWN = (("po_forward_kernel", "K1 po_forward"), ("expand_kernel", "K2 expand"),
        ("po_splat_kernel", "K3/K3b po_splat"), ("po_backward_kernel",
                                                "K6 po_backward"),
-       ("segment_accum_kernel", "K4 segment_accum"))
+       ("tl_splat_kernel", "K5 tl_splat"),
+       ("segment_tile_kernel", "K4 segment_accum tiles"),
+       ("segment_carry_kernel", "K4 segment_accum carries"))
 # the port's functions whose device time is reported, innermost first
 # when ranges nest: (module, function)
 FUNCTIONS = (
@@ -128,7 +132,7 @@ def stages(kernels):
                 out.append((label, cur))
             if own:
                 out.append((f"**{own}**", [k]))
-                after_splat |= own.startswith(("K3", "K6"))
+                after_splat |= own.startswith(("K3", "K5", "K6"))
                 cur, label = [], f"after {own.split()[0]}"
                 continue
             cur, label = [], "sort (cub radix) and after, up to K4"
@@ -143,7 +147,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", nargs="+", default=["flagship", "flagship_mb"],
-                    choices=["flagship", "flagship_mb", "config3",
+                    choices=["flagship", "flagship_mb", "config1", "config3",
                              "config3_no_bokeh"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -185,7 +189,12 @@ def main() -> int:
     po3 = dict(po_lens=lens, po_state=setup_po_camera(lens, cfg3,
                                                       scene=scene3))
     rc3 = pt.RenderConfig(xres=512, yres=512, spp=2)
+    # config 1 (chip_smoke.py's cfg1, scene1, rc1)
+    cfg1 = pt.CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
+                           vignetting_retries=3, splat_queue_mult=8)
     cells = {
+        "config1": (cfg1, pt.RenderConfig(xres=256, yres=256, spp=16),
+                    sc.teapot_scene(device=dev), {}),
         "flagship": (cfg, rc, scene, po),
         "flagship_mb": (cfg, rc, scene, dict(
             po, cam_to_world_end=look_at([2.0, 0, 0], [2.0, 0, -1],

@@ -8,8 +8,9 @@ so this file imports none, and is run there without the suite's conftest:
 Tolerances match chip_smoke.py: masks agree on >= 99.9% of items, the
 forward trace and the backward solve to 1e-3 mm on items both versions
 keep, the accumulator's sums
-to 1e-4 of their scale (the plain version adds with atomics, in another
-order), gathers and winners exactly.
+to 1e-4 of their scale (the plain version adds in another order; K4
+matches its tile-and-carry emulation bit for bit), gathers and winners
+exactly.
 """
 import dataclasses
 
@@ -19,12 +20,14 @@ import torch
 
 import pota_tpu_torch as pt
 from pota_tpu_torch import ops
-from pota_tpu_torch.ops import po_kernels as pk
+from pota_tpu_torch.ops import _build, po_kernels as pk
 from pota_tpu_torch.ops import splat_accum as acc
 from pota_tpu_torch.optics.fit import load_poly_lens
 from pota_tpu_torch.optics.focus import POState
 from pota_tpu_torch.render import scene as sc
 from pota_tpu_torch.render.renderer import look_at, render_frame
+from test_torch_accum import (
+    head_on_tile_edge, tiled_segment_accum, tiles_spanned)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -197,19 +200,55 @@ def test_po_splat_variant_kernel_takes_an_empty_queue(dev, variant, lams):
     assert ops.LAUNCHES[variant] == 1
 
 
-@pytest.mark.parametrize("abb, c2s", [(0.5, 0.01), (0.3, 0.2)])
-def test_tl_splat_kernel_matches_plain(dev, abb, c2s):
-    rng = np.random.default_rng(6)
-    n = 100000
-    pc, seed, ctr, sky, spheres = _slot_inputs(rng, n, dev)
+def _tl_args(dev, n, abb=0.5, c2s=0.01, seed=6):
+    rng = np.random.default_rng(seed)
+    pc, seed_, ctr, sky, spheres = _slot_inputs(rng, n, dev)
     cfg = pt.CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
                           bokeh_anamorphic=0.2)
     rc = pt.RenderConfig(xres=256, yres=256, spp=16)
     params = pk.splat_kernel_params(cfg, rc, None, torch.eye(4, device=dev))
-    args = (*(_t(x * 0.1, dev) for x in pc), *(_t(x * 0.1, dev) for x in pc),
-            _t(seed, dev), _t(ctr, dev), _t(sky, dev), params, spheres, abb,
+    return (*(_t(x * 0.1, dev) for x in pc), *(_t(x * 0.1, dev) for x in pc),
+            _t(seed_, dev), _t(ctr, dev), _t(sky, dev), params, spheres, abb,
             c2s)
+
+
+@pytest.mark.parametrize("abb, c2s", [(0.5, 0.01), (0.3, 0.2)])
+def test_tl_splat_kernel_matches_plain(dev, abb, c2s):
+    args = _tl_args(dev, 100000, abb, c2s)
     _assert_masks_agree(pk.tl_splat(*args), pk.tl_splat_plain(*args))
+
+
+@pytest.mark.parametrize("n", [1000, 2_000_003])
+def test_tl_splat_kernel_below_one_wave_and_many(dev, n):
+    """K5's grid holds whole waves of resident blocks: 1,000 slots fill
+    part of one block, 2,000,003 slots take each thread round a
+    grid-stride loop many times (a ragged last round)."""
+    args = _tl_args(dev, n, seed=n)
+    ops.reset_launches()
+    got = pk.tl_splat(*args)
+    assert ops.LAUNCHES["tl_splat"] == 1
+    assert got[0].shape == got[1].shape == (n,)
+    _assert_masks_agree(got, pk.tl_splat_plain(*args))
+
+
+def test_tl_splat_kernel_takes_an_empty_queue(dev):
+    args = _tl_args(dev, 0)
+    ops.reset_launches()
+    lin, ok = pk.tl_splat(*args)
+    assert lin.shape == ok.shape == (0,)
+    assert ops.LAUNCHES["tl_splat"] == 1
+
+
+def test_tl_splat_blocks_per_sm(dev):
+    """The occupancy K5 sizes its grid from: 1-8 resident blocks of 256
+    threads, the same when asked again (kept) and for another sphere
+    count."""
+    lib = _build.lib()
+    got = lib.pota_tl_splat_blocks_per_sm(9)
+    assert 1 <= got <= 8
+    assert lib.pota_tl_splat_blocks_per_sm(9) == got
+    assert 1 <= lib.pota_tl_splat_blocks_per_sm(1) <= 8
+    assert lib.pota_tl_splat_blocks_per_sm(9) == got
 
 
 @pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
@@ -294,6 +333,85 @@ def test_segment_accum_kernel_matches_plain(dev, k):
         assert torch.equal(g, r_)
     # two runs give identical bits (no atomics)
     assert torch.equal(acc.segment_accum(*args)[0], got[0])
+
+
+def _accum_args(stream, dev):
+    pix, depth, payload, sid, npix = stream
+    keys, perm = acc.sort_writers(_t(pix, dev), _t(depth, dev))
+    return keys, perm, _t(payload, dev), _t(sid, dev), npix
+
+
+def _long_stream(case, k):
+    """Streams whose segments cross K4's tiles of acc.TILE_ROWS rows:
+    ``spanning`` 40 pixels over 60,000 writers (each segment ~1,100-1,900
+    rows, most crossing a tile edge), ``hot`` one pixel holding 250,000 of
+    300,000 writers (more than 100 tiles), ``edge`` segment heads exactly
+    on tile edges and one segment of exactly two tiles, ``no_writer`` a
+    writer on every 16th pixel only; a quarter of the other writers
+    dead."""
+    if case == "edge":
+        return head_on_tile_edge(acc.TILE_ROWS, k)
+    rng = np.random.default_rng(12)
+    npix, n = {"spanning": (40, 60000), "hot": (5000, 300000),
+               "no_writer": (20000, 60000)}[case]
+    pix = rng.integers(0, npix, n)
+    if case == "no_writer":
+        pix = pix // 16 * 16
+    pix[rng.uniform(size=n) < 0.25] = npix
+    if case == "hot":
+        pix[:250000] = 1234
+    depth = np.round(rng.uniform(1, 50, n)).astype(np.float32)  # ties
+    payload = rng.normal(size=(n, k)).astype(np.float32)
+    sid = rng.integers(0, 1 << 30, n).astype(np.int32)
+    return pix.astype(np.int32), depth, payload, sid, npix
+
+
+@pytest.mark.parametrize("k", [5, 9, 17])
+@pytest.mark.parametrize("case", ["spanning", "hot", "edge", "no_writer"])
+def test_segment_accum_kernel_tiles(dev, case, k):
+    """K4 sums a segment that crosses tiles in every thread and tile it
+    spans: its sums are the tile-and-carry emulation's bit for bit
+    (tests/test_torch_accum.py, at the kernel's tile), within 1e-4 of
+    scale of the plain version's, its winners identical, two runs
+    identical."""
+    args = _accum_args(_long_stream(case, k), dev)
+    ops.reset_launches()
+    got = acc.segment_accum(*args)
+    assert ops.LAUNCHES["segment_accum"] == 1
+    spans = tiles_spanned(args[0].cpu(), args[4], acc.TILE_ROWS)
+    assert spans >= {"spanning": 2, "hot": 101, "edge": 2,
+                     "no_writer": 1}[case]
+    ref = acc.segment_accum_plain(*args)
+    scale = max(float(ref[0].abs().max()), 1.0)
+    assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * scale
+    for g, r_ in zip(got[1:], ref[1:]):
+        assert torch.equal(g, r_)
+    emu = tiled_segment_accum(*(a.cpu() if torch.is_tensor(a) else a
+                                for a in args))
+    for g, e in zip(got, emu):
+        assert torch.equal(g.cpu(), e)
+    again = acc.segment_accum(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if case == "hot":
+        # the hot pixel's sum is not the sequential one
+        rows = args[2].cpu()[args[1].cpu()[(args[0] >> 32).cpu() == 1234]]
+        seq = np.cumsum(rows.numpy(), axis=0, dtype=np.float32)[-1]
+        assert not np.array_equal(got[0][1234].cpu().numpy(), seq)
+
+
+@pytest.mark.parametrize("n", [0, 5000])
+def test_segment_accum_kernel_without_live_writers(dev, n):
+    """W = 0, and a stream whose writers are all dead: every output zero."""
+    npix = 700
+    pix = np.full(n, npix, np.int32)
+    stream = (pix, np.ones(n, np.float32),
+              np.ones((n, 5), np.float32), np.arange(n, dtype=np.int32), npix)
+    ops.reset_launches()
+    got = acc.segment_accum(*_accum_args(stream, dev))
+    assert ops.LAUNCHES["segment_accum"] == 1
+    assert got[0].shape == (npix, 5)
+    for g in got:
+        assert not bool(g.any())
 
 
 def test_render_kernels_match_plain(dev):
