@@ -22,7 +22,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                piled up (:func:`writer_stream`), each run twice and held
                to identical bits; K5 with its occupancy and compiled
                instruction mix (:func:`k5_profile`); K4 and K5 timed over
-               50 runs, with the spread (:func:`timed_ms`)
+               50 runs, with the spread (:func:`timed_ms`); K2, K3 and K4
+               again on the arguments of config 5's 4K differentiable step
+               (records with ``path: "config5"``; the plain K3 on the
+               queue's first :data:`CONFIG5_PLAIN_SLOTS` slots), and the
+               VJPs of K2 and K4 there (``ExpandFn``, ``AccumFn``) against
+               float64 oracles (:func:`config5_vjp_checks`)
   4. parity    renders small frames twice, through the kernels and through
                the plain versions on CUDA tensors, and compares: the
                flagship at 256x256 @ 1 spp, config 1 at 64x64 @ 4 spp,
@@ -41,6 +46,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                config 3 with image bokeh off (its chromatic PO path) and
                config 3 (chromatic image-bokeh lightgrid, 512x512 @ 2 spp):
                launch counts, finite planes, energy, frame ms, AA samples/s
+  8. config5   BASELINE config 5 (bench.py:249-297), the differentiable
+               4K step: ``render_frame(differentiable=True)`` of the
+               teapot at 3840x2160 @ 1 spp (``splat_queue_mult`` 4,
+               ``trace_chunks`` 32, 3 candidates a ray), loss
+               ``mean(img[..., :3])``, ``loss.backward()`` to the flagship
+               fit's ``pt`` and ``ap`` coefficients; launch counts (K2, K3,
+               K4 once each, K1 never), one warm-up and three timed steps
+               (``config5_step_s``, the median), peak memory, the
+               gradient's norm; then three gradient-descent steps of JAX's
+               ``train_step_sharded`` L2 loss (one device) from seeded
+               1e-3 perturbed coefficients toward the frame of the fit's
+               own, each of which must fold K3's table again.  There is no
+               1080p fallback: an out-of-memory error fails the run.  Its
+               parity frame (phase 4, 256x144 @ 1 spp, ``trace_chunks``
+               4) holds the image and the ``pt`` gradient through the
+               kernels to the plain versions' (:data:`CONFIG5_GRAD_TOL`)
 Each kernel record carries ``bound_ms``, the least time the card could take
 for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
@@ -91,7 +112,15 @@ PATH_KERNELS = {
     "config3_no_bokeh": ("po_forward", "expand", "po_splat_lam",
                          "segment_accum"),
     "config3": ("po_forward", "expand", "po_splat_ext", "segment_accum"),
+    "config5": ("expand", "po_splat", "segment_accum"),
 }
+# config 5's plain K3 runs on the leading slots of its 33M-slot queue
+CONFIG5_PLAIN_SLOTS = 1 << 22
+# relative L2 of config 5's parity gradient of pt (kernels against the
+# plain versions; measured 1.14e-5, ap 8.2e-6, on an NVIDIA H100 80GB HBM3:
+# K3 and its plain version disagree on a few slots); the images are held
+# by the parity frames' pixel limit
+CONFIG5_GRAD_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -602,34 +631,377 @@ def disagreement(lin, ok, lin_w, ok_w) -> dict:
                 lin=float((lin[both] != lin_w[both]).double().mean()))
 
 
+def leading(args, items, n: int):
+    """``args`` with the per-item tensors ``args[items]`` cut to their
+    first ``n`` items."""
+    idx = set(range(len(args))[items] if isinstance(items, slice) else items)
+    return tuple(a[:n] if k in idx and a is not None else a
+                 for k, a in enumerate(args))
+
+
 def check_splat_kernel(name, kern, plain, args, items, source, replaces,
                        bytes_per_slot, flops_per_slot, plain_reps=5,
-                       witness=None):
+                       witness=None, plain_n=None):
     """Hold a splat kernel (K3, its variants, K5) to its plain version on
     captured main-path arguments; return its record.  ``witness``, if
     given, takes the kernel's and the plain version's (lin, ok) and returns
-    more fields for the record."""
+    more fields for the record.  With ``plain_n`` the plain version runs
+    (and is timed) on the first ``plain_n`` slots only, and the kernel's
+    output there is held to it."""
     lin_g, ok_g = kern(*args)
-    lin_p, ok_p = plain_chunked(plain, args, items)
     s = lin_g.shape[0]
+    pargs = args if plain_n is None else leading(args, items, plain_n)
+    lin_p, ok_p = plain_chunked(plain, pargs, items)
+    lin_g, ok_g = lin_g[:lin_p.shape[0]], ok_g[:lin_p.shape[0]]
     ok_agree = float((ok_g == ok_p).double().mean())
     both = ok_g & ok_p
     lin_agree = float((lin_g[both] == lin_p[both]).double().mean())
     err = float((lin_g[both] - lin_p[both]).abs().max())
     print(f"{name} S={s} ok agree={ok_agree:.6f} lin agree={lin_agree:.6f} "
           f"max_abs_err(lin)={err} (ok rate "
-          f"{float(ok_g.double().mean()):.4f})", flush=True)
+          f"{float(ok_g.double().mean()):.4f}; plain version on "
+          f"{lin_p.shape[0]} slots)", flush=True)
     if ok_agree < MASK_AGREE or lin_agree < MASK_AGREE:
         fail(f"{name} disagrees with its plain version")
     extra = witness(lin_g, ok_g, lin_p, ok_p) if witness else {}
     del lin_g, ok_g, lin_p, ok_p, both
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=median_ms(lambda: kern(*args)),
-                plain_ms=median_ms(lambda: plain_chunked(plain, args, items),
+                plain_ms=median_ms(lambda: plain_chunked(plain, pargs, items),
                                    plain_reps),
                 **bound(bytes_per_slot * s, flops_per_slot * s),
-                library_ms=None, n=int(s), ok_agree=ok_agree,
-                lin_agree=lin_agree, **extra)
+                library_ms=None, n=int(s), plain_n=int(pargs[1].shape[0]),
+                ok_agree=ok_agree, lin_agree=lin_agree, **extra)
+
+
+def config5_vjp_checks(fn_args, accum_args) -> dict:
+    """The VJPs of config 5's K2 and K4 on the 4K step's own arguments,
+    each against a float64 oracle, with a seeded cotangent: ``ExpandFn``'s
+    table gradient (a float32 ``index_add_`` of ``d_ex`` by source over the
+    live slots) against the same sum in float64, and ``AccumFn``'s payload
+    gradient (the accumulator's gradient gathered at each live writer's
+    pixel) against the float64 gather.  Errors are the largest absolute
+    error over the oracle's largest magnitude; times are the backward
+    alone (CUDA events)."""
+    import torch
+
+    with torch.enable_grad():
+        return _config5_vjp_checks(fn_args, accum_args)
+
+
+def _config5_vjp_checks(fn_args, accum_args) -> dict:
+    import torch
+
+    from pota_tpu_torch.ops import po_kernels as pk, splat_accum
+
+    table_f, src, table_i, slot_on = fn_args
+    dev = table_f.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    d_ex = torch.randn((table_f.shape[0], src.shape[0]), generator=g,
+                       device=dev)
+    t = table_f.detach().clone().requires_grad_(True)
+    ex_f, _ = pk.ExpandFn.apply(t, src, table_i, slot_on, pk.expand)
+
+    def expand_bwd():
+        return torch.autograd.grad(ex_f, t, d_ex, retain_graph=True)[0]
+
+    got = expand_bwd()
+    n = table_f.shape[1]
+    col = torch.where(slot_on, src.long(), n)
+    oracle = torch.zeros((table_f.shape[0], n + 1), dtype=torch.float64,
+                         device=dev).index_add_(1, col, d_ex.double())[:, :n]
+    out = dict(expand_rel_err=float((got.double() - oracle).abs().max()
+                                    / oracle.abs().max()),
+               expand_backward_ms=median_ms(expand_bwd),
+               live_slots=int(slot_on.sum()), slots=int(src.shape[0]))
+    del d_ex, t, ex_f, got, col, oracle
+
+    keys, perm, payload, sid, npix = accum_args
+    pix = torch.empty_like(keys)
+    pix[perm] = keys >> 32
+    depth = torch.empty(keys.shape, dtype=torch.float32, device=dev)
+    depth[perm] = (keys & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
+    p = payload.detach().clone().requires_grad_(True)
+    acc = splat_accum.AccumFn.apply(p, pix, depth, sid, npix,
+                                    splat_accum.segment_accum)[0]
+    d_acc = torch.randn(acc.shape, generator=g, device=dev)
+
+    def accum_bwd():
+        return torch.autograd.grad(acc, p, d_acc, retain_graph=True)[0]
+
+    got = accum_bwd()
+    live = pix < npix
+    oracle = torch.where(live[:, None],
+                         d_acc.double()[torch.clamp(pix, max=npix - 1)], 0.0)
+    out.update(accum_rel_err=float((got.double() - oracle).abs().max()
+                                   / oracle.abs().max()),
+               accum_backward_ms=median_ms(accum_bwd),
+               writers=int(keys.shape[0]))
+    print(f"config 5 VJPs: ExpandFn backward vs float64 segment sums "
+          f"max rel err {out['expand_rel_err']:.3e} ({out['live_slots']} live "
+          f"of {out['slots']} slots, {out['expand_backward_ms']:.3f} ms); "
+          f"AccumFn backward vs float64 gather max rel err "
+          f"{out['accum_rel_err']:.3e} ({out['writers']} writers, "
+          f"{out['accum_backward_ms']:.3f} ms)", flush=True)
+    if out["expand_rel_err"] > 1e-5 or out["accum_rel_err"] != 0.0:
+        fail("config 5: a VJP disagrees with its float64 oracle")
+    return out
+
+
+class Config5:
+    """BASELINE config 5 (bench.py:249-297), the differentiable 4K step:
+    the flagship fit (its own copy, whose ``pt`` and ``ap`` coefficients
+    require grad), fstop 2.8, focus 20, 3 candidates a ray,
+    ``splat_queue_mult`` 4, ``trace_chunks`` 32, ``teapot_scene()``,
+    3840x2160 @ 1 spp (``rc``); bench.py's ``splat_chunks`` only chunks
+    the TPU's memory (same output).  ``parity_rc`` is the parity frame."""
+
+    def __init__(self, dev, m, rc=(3840, 2160), parity_rc=(256, 144)):
+        import pota_tpu_torch as pt
+        from pota_tpu_torch.optics.fit import load_poly_lens
+        from pota_tpu_torch.optics.focus import setup_po_camera
+        from pota_tpu_torch.render import scene as sc
+
+        self.dev, self.m = dev, m
+        self.cfg = pt.CameraConfig(
+            camera_type=pt.CameraType.POLYNOMIAL_OPTICS, lens_model=FLAGSHIP,
+            fstop=2.8, focus_distance=20.0, vignetting_retries=2,
+            splat_queue_mult=4, trace_chunks=32)
+        self.scene = sc.teapot_scene(device=dev)
+        self.lens = load_poly_lens(FLAGSHIP, device=dev)
+        self.state = setup_po_camera(self.lens, self.cfg, scene=self.scene)
+        self.coeffs = (self.lens.pt.coeffs.requires_grad_(True),
+                       self.lens.ap.coeffs.requires_grad_(True))
+        self.rc = pt.RenderConfig(xres=rc[0], yres=rc[1], spp=1)
+        self.parity_rc = pt.RenderConfig(xres=parity_rc[0],
+                                         yres=parity_rc[1], spp=1)
+
+    def render(self, rc=None, cfg=None, ops=None):
+        """The differentiable frame: (image, framebuffer)."""
+        from pota_tpu_torch.render.renderer import render_frame
+
+        return render_frame(cfg or self.cfg, rc or self.rc, self.scene,
+                            self.m, seed=0, po_lens=self.lens,
+                            po_state=self.state, differentiable=True,
+                            ops=ops)
+
+    def step(self, rc=None, cfg=None, target=None, ops=None):
+        """One step: the differentiable frame, its loss (the mean of RGB,
+        or with ``target`` the L2 loss of JAX's ``train_step_sharded``)
+        and ``loss.backward()`` into the coefficients' ``grad``,
+        synchronised.  Returns (loss, image, framebuffer)."""
+        import torch
+
+        for c in self.coeffs:
+            c.grad = None
+        img, fb = self.render(rc, cfg, ops)
+        loss = (img[..., :3].mean() if target is None
+                else ((img - target) ** 2).mean())
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), img.detach(), fb
+
+    def kernel_records(self, ptxas, tag) -> list:
+        """K2, K3 and K4 on the arguments of one 4K step (``path:
+        "config5"``; the plain K3 on the queue's first
+        :data:`CONFIG5_PLAIN_SLOTS` slots), and the VJPs of K2 and K4 on
+        them (:func:`config5_vjp_checks`, in K4's record)."""
+        import torch
+
+        from pota_tpu_torch import ops
+        from pota_tpu_torch.ops import po_kernels as pk, splat_accum
+
+        rec = Recorder(ops.KERNELS)
+        fn_args = {}
+        expand_apply = pk.ExpandFn.apply
+
+        def recording_apply(*a):
+            fn_args.setdefault("expand_fn", (a[0].detach(), *a[1:4]))
+            return expand_apply(*a)
+
+        pk.ExpandFn.apply = recording_apply
+        try:
+            self.render(ops=rec)
+        finally:
+            del pk.ExpandFn.apply
+        torch.cuda.synchronize()
+        records = []
+        a2 = rec.args["expand"]
+        got = pk.expand(*a2)
+        ref = pk.expand_plain(*a2)
+        err2 = max(float((got[0] - ref[0]).abs().max()),
+                   float((got[1] - ref[1]).abs().max()))
+        print(f"K2 expand (config 5) S={a2[0].shape[0]} max_abs_err={err2}",
+              flush=True)
+        if err2 != 0:
+            fail("K2 expand disagrees with its plain version on config 5")
+        del got, ref
+        s2, n2 = a2[0].shape[0], a2[1].shape[1]
+        rows = a2[1].shape[0] + a2[2].shape[0]
+        records.append(dict(
+            name="expand", path="config5", route="cuda",
+            source="pota_tpu_torch/csrc/expand.cu",
+            replaces=f"{TPU_KERNELS}:877", max_abs_err=err2,
+            ms=median_ms(lambda: pk.expand(*a2)),
+            plain_ms=median_ms(lambda: pk.expand_plain(*a2)),
+            **bound(4.0 * (s2 + rows * (s2 + n2)), 0.0),
+            library_ms=median_ms(lambda: (a2[1].index_select(1, a2[0]),
+                                          a2[2].index_select(1, a2[0]))),
+            n=int(s2), **ptxas["expand"]))
+        del a2
+        a3 = rec.args["po_splat"]
+        k3 = check_splat_kernel(
+            "po_splat", pk.po_splat, pk.po_splat_plain, a3, slice(1, 10),
+            "pota_tpu_torch/csrc/po_splat.cu", f"{TPU_KERNELS}:697", 41.0,
+            basis_solve_flops(a3[13]) + 60 + 20 * self.scene.n_objects + 20,
+            plain_reps=3, plain_n=CONFIG5_PLAIN_SLOTS)
+        k3.update(path="config5", **ptxas["po_splat"])
+        records.append(k3)
+        del a3
+        seg = splat_accum.segment_accum
+        seg_plain = splat_accum.segment_accum_plain
+        a4 = rec.args["segment_accum"]
+        err4 = check_accum("config 5", seg, seg_plain, a4)
+        records.append(dict(
+            name="segment_accum", path="config5", route="cuda",
+            source="pota_tpu_torch/csrc/segment_accum.cu",
+            replaces="pota_tpu/ops/splat_accum.py:59", max_abs_err=err4,
+            **timed_ms(lambda: seg(*a4)),
+            plain_ms=median_ms(lambda: seg_plain(*a4)),
+            **accum_bound(a4), row_gather_ms=row_gather_ms(a4),
+            library_ms=None, n=int(a4[0].shape[0]),
+            **ptxas["segment_accum"],
+            config5_vjp=config5_vjp_checks(fn_args["expand_fn"], a4)))
+        # the Recorder refers to itself: drop the 4K tensors it holds now
+        # rather than at the next cycle collection
+        rec.args.clear()
+        fn_args.clear()
+        for r in records:
+            print(f"{r['name']} (config 5): kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms (on {r.get('plain_n', r['n'])} "
+                  f"items), bound {r['bound_ms']:.3f} ms ({r['bound_by']}) "
+                  f"{tag}", flush=True)
+        return records
+
+    def parity(self) -> None:
+        """The parity frame (``trace_chunks`` 4) through the kernels and
+        through the plain versions: the image by the parity frames' pixel
+        limit, the ``pt`` gradient by :data:`CONFIG5_GRAD_TOL`."""
+        import torch
+
+        from pota_tpu_torch import ops
+
+        rc = self.parity_rc
+        phase(f"parity config 5 {rc.xres}x{rc.yres} @ 1 spp, "
+              "differentiable: kernels vs plain versions")
+        cfg = dataclasses.replace(self.cfg, trace_chunks=4)
+        res = {}
+        for label, kset in (("kernels", None), ("plain", ops.PLAIN)):
+            _, img, fb = self.step(rc, cfg, ops=kset)
+            res[label] = (img, float(fb["RGBA"].detach().double().sum()),
+                          *(c.grad.clone() for c in self.coeffs))
+        off = frac_pixels_off(res["kernels"][0], res["plain"][0])
+        g_err = [float((res["kernels"][i] - res["plain"][i]).norm()
+                       / res["plain"][i].norm()) for i in (2, 3)]
+        print(f"  RGBA: pixels off {off:.5f}; energy kernels "
+              f"{res['kernels'][1]:.6f} plain {res['plain'][1]:.6f}; "
+              f"gradient rel L2 pt {g_err[0]:.3e} ap {g_err[1]:.3e}",
+              flush=True)
+        if (off > MAX_PIXELS_OFF or g_err[0] > CONFIG5_GRAD_TOL
+                or abs(res["kernels"][1] - res["plain"][1])
+                > 2e-3 * abs(res["plain"][1])
+                or not all(bool(torch.isfinite(res["kernels"][i]).all())
+                           for i in (0, 2, 3))):
+            fail("config 5 parity: image, energy or gradient")
+
+    def run(self, tag) -> dict:
+        """The config 5 phase: one step with the launch counters set to 0
+        just before it and read just after (K2, K3, K4 once each, nothing
+        else), its peak memory, energy, planes and gradient norms; a
+        warm-up and three timed steps; three descent steps.  Returns the
+        launches."""
+        import torch
+
+        from pota_tpu_torch import ops
+        from pota_tpu_torch.ops import po_kernels as pk
+        from pota_tpu_torch.render.splat import resolve_aovs
+
+        rc = self.rc
+        phase(f"config 5: the differentiable step, {rc.xres}x{rc.yres} "
+              "@ 1 spp")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        loss, _, fb = self.step()
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"launches in the config 5 step: {launches}", flush=True)
+        if {k: v for k, v in launches.items() if v} != {
+                k: 1 for k in PATH_KERNELS["config5"]}:
+            fail("config 5: K2, K3 and K4 must launch once each, and "
+                 "nothing else")
+        with torch.no_grad():
+            npix = rc.xres * rc.yres
+            w_sum = float(fb["filter_weight"].double().sum())
+            for k, v in resolve_aovs(rc, fb).items():
+                if not bool(torch.isfinite(v).all()):
+                    fail(f"config 5: plane {k} is not finite")
+        del fb
+        gnorm = [float(c.grad.norm()) for c in self.coeffs]
+        print(f"config5 sum(filter_weight) {w_sum:.4f} vs {npix}",
+              flush=True)
+        if abs(w_sum - npix) > ENERGY_TOL * npix:
+            fail("config 5: energy conservation")
+        if not all(np.isfinite(g) and g > 0 for g in gnorm):
+            fail(f"config 5: gradient norms {gnorm}")
+        self.step()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            self.step()
+            walls.append(time.perf_counter() - t0)
+        print(f"config5_step_s {statistics.median(walls)} (steps "
+              f"{' / '.join(f'{w:.4f}' for w in walls)}) {tag}", flush=True)
+        print(f"config5_peak_gib {peak} {tag}", flush=True)
+        print(f"config5_loss {loss}", flush=True)
+        print(f"config5_grad_norm pt {gnorm[0]} ap {gnorm[1]}", flush=True)
+
+        # three descent steps of the L2 loss toward the fit's own frame,
+        # from seeded 1e-3 perturbed coefficients; each must fold K3's
+        # table again
+        folds = [0]
+        folded_table = pk._folded_table
+
+        def counted_fold(lens, kind, lams, device, on_fold=None):
+            def hook():
+                folds[0] += kind == "solve"
+                if on_fold is not None:
+                    on_fold()
+            return folded_table(lens, kind, lams, device, on_fold=hook)
+
+        pk._folded_table = counted_fold
+        try:
+            _, target, _ = self.step()
+            g = torch.Generator(device=self.dev).manual_seed(5)
+            with torch.no_grad():
+                for c in self.coeffs:
+                    c.mul_(1.0 + 1e-3 * torch.randn(c.shape, generator=g,
+                                                    device=self.dev))
+            for i in range(3):
+                before = folds[0]
+                loss_i, _, _ = self.step(target=target)
+                print(f"config5 descent step {i}: L2 loss {loss_i} (K3 "
+                      f"solve tables folded {folds[0] - before})", flush=True)
+                if folds[0] == before or not np.isfinite(loss_i):
+                    fail(f"config 5 descent step {i} did not fold K3's "
+                         "table again")
+                with torch.no_grad():
+                    for c in self.coeffs:
+                        # a step of 1e-4 of the coefficients' norm
+                        c.sub_(c.grad * (1e-4 * c.norm() / c.grad.norm()))
+        finally:
+            pk._folded_table = folded_table
+        return launches
 
 
 def main() -> int:
@@ -736,6 +1108,9 @@ def main() -> int:
     cdf3 = build_bokeh_cdf(ring_pixels(), device=dev)
     rc3 = pt.RenderConfig(xres=512, yres=512, spp=2)
     po3 = dict(po_lens=lens, po_state=state3)
+
+    # BASELINE config 5 (bench.py:249-297): the differentiable 4K step
+    c5 = Config5(dev, m)
 
     def capture(cfg_, rc_, scene_, **kw):
         rec_ = Recorder(ops.KERNELS)
@@ -1034,6 +1409,11 @@ def main() -> int:
               f"bytes {tag}", flush=True)
         records.append(k6)
         del a6, a6c
+        torch.cuda.empty_cache()
+
+        # config 5: K2, K3 and K4 on the 4K differentiable step's own
+        # arguments, and the VJPs of K2 and K4 there
+        records += c5.kernel_records(ptxas, tag)
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
@@ -1097,6 +1477,7 @@ def main() -> int:
            dataclasses.replace(cfg_tl, bokeh_enable_image=True), rc_tl,
            emitter(0.0), bokeh_cdf=build_bokeh_cdf(ring_pixels(lo=0.55),
                                                    device=dev))
+    c5.parity()
     torch.cuda.empty_cache()
 
     def drive(label, path, cfg_, rc_, scene_, **kw):
@@ -1205,11 +1586,13 @@ def main() -> int:
               flush=True)
         torch.cuda.empty_cache()
 
+    path_launches["config5"] = c5.run(tag)
+
     path_of = {"tl_splat": "config1", "po_splat_lam": "config3_no_bokeh",
                "po_splat_ext": "config3", "po_backward": "flagship_mb"}
     for r in records:
-        r["launches"] = path_launches[path_of.get(r["name"], "flagship")][
-            r["name"]]
+        r["launches"] = path_launches[r.get("path") or path_of.get(
+            r["name"], "flagship")][r["name"]]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

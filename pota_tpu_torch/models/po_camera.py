@@ -3,7 +3,10 @@
 
 The reference's vignetting-retry loop becomes K = ``vignetting_retries + 1``
 candidate aperture samples per ray, all traced by the PO forward kernel
-(``ops.po_kernels.po_forward``), then a first-success select.
+(``ops.po_kernels.po_forward``), then a first-success select.  The
+differentiable route traces them as JAX's training call does
+(``use_pallas=False``): the implicit-function aperture solve, the sensor
+shift and ``pt_evaluate`` in torch, which K1 (values only) cannot replace.
 """
 from __future__ import annotations
 
@@ -13,7 +16,12 @@ from ..config import CameraConfig
 
 from ..optics import geometry as geo
 from ..optics import samplers
-from ..optics.polynomial import PolyLens, inner_pupil_ok, pt_evaluate
+from ..optics.polynomial import (
+    PolyLens,
+    inner_pupil_ok,
+    pt_evaluate,
+    pt_sample_aperture,
+)
 from ..utils import rng as prng
 
 
@@ -33,13 +41,17 @@ def po_sample_aperture_disk(cfg: CameraConfig, r1, r2, bokeh_cdf=None):
 
 def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
                 retry_key, po_state, newton_iterations: int = 3, ops=None,
-                bokeh_cdf=None):
+                bokeh_cdf=None, differentiable: bool = False):
     """Forward PO trace, batched over rays [N].  ``bokeh_cdf`` is the image
     bokeh's :class:`~pota_tpu_torch.render.bokeh_image.BokehImage`.
 
     Returns (origin [N, 3], dir [N, 3], weight [N], tries [N]) scaled to
     scene units, camera looking down -z.  ``ops`` selects the kernel set
     (default: the kernel wrappers, :data:`pota_tpu_torch.ops.KERNELS`).
+    ``differentiable`` takes JAX's pure path
+    (``pota_tpu/models/po_camera.py:194-205``) on the [N, K] candidates, so
+    origin and direction carry gradients to the lens coefficients; K1 is
+    not launched.
     """
     if ops is None:
         from ..ops import KERNELS as ops
@@ -59,6 +71,19 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
         r2k = torch.cat([r2[:, None], us[..., 1]], 1)
         aperture = (po_sample_aperture_disk(cfg, r1k, r2k, bokeh_cdf)
                     * aperture_radius)
+    if cfg.enable_dof and differentiable:
+        zero = torch.zeros((n, n_tries), dtype=x.dtype, device=x.device)
+        sensor5 = pt_sample_aperture(
+            lens, torch.stack([x[:, None] + zero, y[:, None] + zero, zero,
+                               zero, zero + cfg.lambda_um], -1),
+            aperture, iterations=newton_iterations)
+        # move to the polynomial's sensor plane (ref src/lentil.h:349-350)
+        dx, dy = sensor5[..., 2], sensor5[..., 3]
+        xk = sensor5[..., 0] + dx * sensor_shift
+        yk = sensor5[..., 1] + dy * sensor_shift
+        out4, trans = pt_evaluate(
+            lens, torch.stack([xk, yk, dx, dy, sensor5[..., 4]], -1))
+    elif cfg.enable_dof:
         rep = lambda a: a[:, None].expand(n, n_tries).reshape(-1)
         out4, trans, dx, dy = ops.po_forward(
             lens, rep(x), rep(y), aperture[..., 0].reshape(-1).contiguous(),

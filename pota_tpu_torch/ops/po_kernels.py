@@ -10,7 +10,8 @@ code, and are what the CPU tests hold against the JAX package.
   (``pota_tpu/ops/po_pallas.py::build_po_forward_kernel``), on the table
   :func:`fold_forward_tables` folds at the frame's wavelength;
 * :func:`expand` — K2, compact source table -> queue slots
-  (``po_pallas.py::build_expand_kernel``);
+  (``po_pallas.py::build_expand_kernel``), and :class:`ExpandFn`, K2 with
+  the linear transpose JAX defines for it, for the differentiable splat;
 * :func:`po_splat` — K3, the per-slot backward splat with in-kernel aperture
   sampling (``po_pallas.py::build_po_splat_kernel``, ``sample_aperture=True``),
   and K3b, its variants :func:`po_splat_lam` (a wavelength per slot,
@@ -26,6 +27,12 @@ code, and are what the CPU tests hold against the JAX package.
 On the card every PO kernel (K1, K3, K3b, K6) takes only fits whose terms
 lie on the degree-5 basis the folds use; :func:`check_basis` refuses
 another before a frame starts.  The plain versions take any fit.
+
+The kernels compute values only.  A wrapper handed a tensor (or a lens
+whose coefficients) that requires grad while grad mode is on raises
+``RuntimeError`` (:func:`_refuse_grad`): its output would be cut off from
+the graph.  The differentiable splat calls them under ``no_grad`` or inside
+an ``autograd.Function``.
 """
 from __future__ import annotations
 
@@ -108,6 +115,21 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _refuse_grad(name, *tensors, lens=None) -> None:
+    """``RuntimeError`` if grad mode is on and a tensor of ``tensors`` (or
+    a coefficient tensor of ``lens``) requires grad: a kernel writes into
+    fresh tensors, so its result would carry no gradient."""
+    if not torch.is_grad_enabled():
+        return
+    if lens is not None:
+        tensors += (lens.pt.coeffs, lens.ap.coeffs)
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel computes values "
+            "only; call it under torch.no_grad() or through its "
+            "autograd.Function")
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -161,6 +183,7 @@ def expand_plain(src, table_f, table_i):
 def expand(src, table_f, table_i):
     """K2 wrapper.  ``src`` int32 [S] indexes the columns of ``table_f`` f32
     [Rf, N] and ``table_i`` int32 [Ri, N]; returns ([Rf, S], [Ri, S])."""
+    _refuse_grad("expand", src, table_f, table_i)
     dev = src.device
     s = src.shape[0]
     n = table_f.shape[1]
@@ -178,6 +201,42 @@ def expand(src, table_f, table_i):
     _build.check(err, "expand")
     _build.LAUNCHES["expand"] += 1
     return ef, ei
+
+
+class ExpandFn(torch.autograd.Function):
+    """K2 with a gradient for ``table_f``: ``ExpandFn.apply(table_f, src,
+    table_i, slot_on, expand_impl)`` returns ``expand_impl(src, table_f,
+    table_i)`` (a kernel set's ``expand``: the kernel on the card, the
+    plain version on the CPU).
+
+    The backward is JAX's transpose (``_expand_differentiable``,
+    ``pota_tpu/render/splat.py:282-325``): the gradient of a table column
+    is the sum of ``d_ex_f`` over the slots that read it, the source's
+    contiguous slot range, over the live slots only (``slot_on`` [S] bool;
+    a slot past the queue end, which reads the last source, contributes
+    nothing).  It is summed by ``index_add_`` in float32, not by JAX's
+    float32 prefix difference, which loses per-source totals once the
+    queue passes 2^24 slots.  ``src`` and ``table_i`` are indices and get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, table_f, src, table_i, slot_on, expand_impl):
+        ctx.save_for_backward(src, slot_on)
+        ctx.n_src = table_f.shape[1]
+        ex_f, ex_i = expand_impl(src, table_f.detach(), table_i)
+        ctx.mark_non_differentiable(ex_i)
+        return ex_f, ex_i
+
+    @staticmethod
+    def backward(ctx, d_ex_f, _d_ex_i):
+        src, slot_on = ctx.saved_tensors
+        n = ctx.n_src
+        # dead slots go to a spare column n, dropped below
+        col = torch.where(slot_on, src.to(torch.int64), n)
+        d_table = torch.zeros((d_ex_f.shape[0], n + 1), dtype=d_ex_f.dtype,
+                              device=d_ex_f.device)
+        d_table.index_add_(1, col, d_ex_f)
+        return d_table[:, :n], None, None, None, None
 
 
 # ------------------------------------------------------------- K3: PO splat
@@ -472,15 +531,19 @@ def _folded_table(lens: PolyLens, kind: str, lams, device,
     at each wavelength of ``lams`` (um), one after another, on ``device``.
     Folded once per lens, kind, wavelengths and device (and again when a
     buffer of the fit changes), so a frame reads nothing back from the card
-    after the first; K3, K3b and K6 share the solve tables.
+    after the first; K3, K3b and K6 share the solve tables.  The tables
+    are folded without a graph, from the coefficients' values: an in-place
+    update of coefficients that require grad (a gradient step under
+    ``no_grad``) bumps their version, so the next frame folds again.
     ``on_fold``, if given, runs before a fold."""
     cache = _fold_cache(lens)
     key = (kind, tuple(float(lam) for lam in lams), str(device))
     if key not in cache:
         if on_fold is not None:
             on_fold()
-        cache[key] = torch.cat([_FOLDS[kind](lens, lam, device)
-                                for lam in key[1]])
+        with torch.no_grad():
+            cache[key] = torch.cat([_FOLDS[kind](lens, lam, device)
+                                    for lam in key[1]])
     return cache[key]
 
 
@@ -630,6 +693,7 @@ def po_forward(lens: PolyLens, x, y, ax, ay, lam_um: float,
     Rays are f32 [M] contiguous, on the lens's device; ``lam_um`` is the
     frame's wavelength (um), at which the kernel's table is folded
     (:func:`fold_forward_tables`)."""
+    _refuse_grad("po_forward", x, y, ax, ay, lens=lens)
     dev = x.device
     m = x.shape[0]
     for name, t in (("x", x), ("y", y), ("ax", ax), ("ay", ay)):
@@ -707,6 +771,7 @@ def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
     when the table is folded (the check reads the card).
     Returns (lin int32 [S], ok bool [S])."""
     slots = (pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky)
+    _refuse_grad("po_splat", *slots, params, spheres, lens=lens)
     dev = _check_po_splat(lens, slots, params, spheres)
 
     def check_lambda():
@@ -730,6 +795,7 @@ def _po_splat_k3b(name, plain, lens, slots, lams, lam_idx, params, spheres,
     """K3b: its plain version for CPU tensors, its kernel for CUDA tensors
     on one folded solve table a wavelength of ``lams`` (cached, so a frame
     reads nothing back from the card), ``lam_idx`` picking each slot's."""
+    _refuse_grad(name, *slots, lam_idx, params, spheres, lens=lens)
     dev = _check_po_splat(lens, slots, params, spheres,
                           external=name == "po_splat_ext")
     lams = _check_lams(lams, lam_idx, dev, slots[0].shape[0])
@@ -793,6 +859,7 @@ def po_backward(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
     ``[0, len(lams))``.  The plain version on the CPU, the CUDA kernel on
     the card, on one folded solve table a wavelength
     (:func:`fold_solve_tables`)."""
+    _refuse_grad("po_backward", px, py, pz, ax, ay, lens=lens)
     dev = px.device
     n = px.shape[0]
     for name, t in (("px", px), ("py", py), ("pz", pz), ("ax", ax),
@@ -890,6 +957,8 @@ def tl_splat(pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params, spheres,
     ``abb_spherical`` and ``circle_to_square`` are the camera's effective
     strengths (runtime scalars of the kernel).  Returns (lin int32 [S],
     ok bool [S])."""
+    _refuse_grad("tl_splat", pcx, pcy, pcz, pwx, pwy, pwz, sky, params,
+                 spheres)
     dev = pcx.device
     s = pcx.shape[0]
     for name, t in (("pcx", pcx), ("pcy", pcy), ("pcz", pcz), ("pwx", pwx),

@@ -11,13 +11,18 @@ The kernel (``csrc/segment_accum.cu``) cuts the sorted rows into tiles of
 :data:`TILE_THREADS` x :data:`THREAD_ROWS` rows; a segment that crosses a
 tile edge is finished from a carry buffer of the tiles' first and last
 segments, which the wrapper allocates.
+
+:class:`AccumFn` gives the sorted accumulation the linear gradient JAX
+defines for its payload (``_accumulate_sorted_diff``); the wrapper itself,
+like the port's other kernel wrappers, refuses a payload that requires grad
+while grad mode is on.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .po_kernels import _check, _stream
+from .po_kernels import _check, _refuse_grad, _stream
 
 # the kernel's tile (csrc/segment_accum.cu kAccThreads, kAccRows)
 TILE_THREADS = 256
@@ -66,6 +71,7 @@ def segment_accum(keys_sorted, perm, payload, sample_id, npix: int):
     ``perm`` int64 [W], ``payload`` f32 [W, K] and ``sample_id`` int32 [W]
     in writer order.  Returns (accum [npix, K], winner_depth [npix],
     winner_sample int32 [npix], has_winner bool [npix])."""
+    _refuse_grad("segment_accum", keys_sorted, perm, payload, sample_id)
     dev = keys_sorted.device
     w = keys_sorted.shape[0]
     k = payload.shape[1]
@@ -98,13 +104,45 @@ def segment_accum(keys_sorted, perm, payload, sample_id, npix: int):
     return accum, winner_depth, winner_sample, has_winner
 
 
+class AccumFn(torch.autograd.Function):
+    """The shared (pixel, depth) sort and K4 with a gradient for the
+    payload: ``AccumFn.apply(payload, pix, depth, sample_id, npix,
+    accum_impl)`` returns what :func:`accumulate_sorted` returns, through
+    ``accum_impl`` (a kernel set's ``segment_accum``).
+
+    The backward is JAX's (``_accumulate_sorted_diff``,
+    ``pota_tpu/render/splat.py:328-376``): the accumulation is a sum by
+    target pixel whatever the sort order, so a live writer's payload
+    gradient is the accumulator's gradient at its pixel, and a dead
+    writer's (``pix == npix``) is 0.  The winner outputs, pixels, depths
+    and sample ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, payload, pix, depth, sample_id, npix, accum_impl):
+        keys, perm = sort_writers(pix, depth)
+        out = accum_impl(keys, perm,
+                         payload.detach().to(torch.float32).contiguous(),
+                         sample_id.to(torch.int32).contiguous(), npix)
+        ctx.save_for_backward(pix)
+        ctx.npix = npix
+        ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, d_accum, *_):
+        (pix,) = ctx.saved_tensors
+        live = pix < ctx.npix
+        d_payload = d_accum[torch.clamp(pix, max=ctx.npix - 1)]
+        return (torch.where(live[:, None], d_payload, 0.0), None, None, None,
+                None, None)
+
+
 def accumulate_sorted(pix, depth, payload, sample_id, npix: int, ops=None):
     """Segment sum + closest winner over a writer stream (the counterpart of
     ``pota_tpu.ops.splat_accum.accumulate_sorted``).
 
     ``pix`` [W] target pixel per writer, dead writers carry ``npix``;
-    ``depth`` [W] >= 0; ``payload`` [W, K]; ``sample_id`` [W]."""
-    accum_fn = segment_accum if ops is None else ops.segment_accum
-    keys, perm = sort_writers(pix, depth)
-    return accum_fn(keys, perm, payload.to(torch.float32).contiguous(),
-                    sample_id.to(torch.int32).contiguous(), npix)
+    ``depth`` [W] >= 0; ``payload`` [W, K]; ``sample_id`` [W].  Through
+    :class:`AccumFn`, so a payload that requires grad gets its gradient."""
+    return AccumFn.apply(payload, pix, depth, sample_id, npix,
+                         segment_accum if ops is None else ops.segment_accum)

@@ -1,13 +1,16 @@
 """Sparse polynomial light-field transforms (port of
-:mod:`pota_tpu.optics.polynomial`, forward values).
+:mod:`pota_tpu.optics.polynomial`).
 
 A fitted lens is an ``nn.Module`` whose exponent, coefficient and input
 conditioning tensors are buffers, so ``lens.to(device)`` moves the whole
-fit.  The Newton solvers take their Jacobians by forward mode
-(``torch.func.jvp``), the counterpart of JAX's ``jax.linearize``; the
-``where`` guards have zero tangents on their clamped branches as in JAX.
-The implicit-function backward of the solvers is not ported yet: these are
-the plain versions the kernels are held against and the CPU path.
+fit; a gradient step sets ``requires_grad`` on the ``coeffs`` buffers.  The
+Newton solvers take their Jacobians by forward mode (``torch.func.jvp``),
+the counterpart of JAX's ``jax.linearize``; the ``where`` guards have zero
+tangents on their clamped branches as in JAX.  :func:`pt_sample_aperture`
+differentiates by the implicit function theorem, as JAX's
+``lax.custom_root`` does (:class:`_ApertureSolve`);
+:func:`lt_sample_aperture` gives forward values only (the decomposed
+splat's solve, which no differentiable route of the port takes).
 
 Inputs follow the reference chart: [x, y, dx, dy, lambda_um] in mm at the
 unshifted sensor plane.
@@ -58,11 +61,12 @@ def monomial_basis(exponents, x, max_degree: int):
     return mono
 
 
-def poly_eval(fn: PolyFunction, x5):
-    """Evaluate the sparse polynomial at ``x5`` [..., 5] -> [..., O]."""
+def poly_eval(fn: PolyFunction, x5, coeffs=None):
+    """Evaluate the sparse polynomial at ``x5`` [..., 5] -> [..., O], with
+    ``coeffs`` [O, T] in place of ``fn.coeffs`` when given."""
     x = (x5 - fn.in_shift) * fn.in_scale
     mono = monomial_basis(fn.exponents, x, fn.max_degree)
-    return mono @ fn.coeffs.T
+    return mono @ (fn.coeffs if coeffs is None else coeffs).T
 
 
 LENS_CONSTANTS = (
@@ -178,24 +182,81 @@ def _solve4_blocked(jac, r):
 # ----------------------------------------------------------- pt_sample_aperture
 
 
-def pt_sample_aperture(lens: PolyLens, sensor5, ap_target,
-                       iterations: int = 3):
-    """Solve the sensor directions (dx, dy) so the ray hits ``ap_target`` on
-    the iris: a fixed-iteration 2x2 Newton on the aperture polynomial.
-    Returns the updated sensor light field."""
+def _ap_residual(fn: PolyFunction, coeffs, sensor5, ap_target):
+    """The iris-hit residual of the sensor directions d [..., 2]: the
+    aperture polynomial (``coeffs`` in place of ``fn.coeffs``) at (x, y,
+    d, lambda) of ``sensor5``, less ``ap_target``."""
     x, y, lam = sensor5[..., 0], sensor5[..., 1], sensor5[..., 4]
-    d = torch.stack([(ap_target[..., 0] - x) / lens.aperture_z,
-                     (ap_target[..., 1] - y) / lens.aperture_z], -1)
 
     def residual(d):
         s = torch.stack([x, y, d[..., 0], d[..., 1], lam], -1)
-        return poly_eval(lens.ap, s) - ap_target
+        return poly_eval(fn, s, coeffs) - ap_target
+    return residual
 
-    for _ in range(iterations):
-        r, jac = _batched_jacobian(residual, d, 2)
-        d0, d1 = _solve2(jac[..., 0, 0], jac[..., 0, 1], jac[..., 1, 0],
-                         jac[..., 1, 1], r[..., 0], r[..., 1])
-        d = d - torch.stack([d0, d1], -1)
+
+class _ApertureSolve(torch.autograd.Function):
+    """The sensor directions d [..., 2] solving the iris-hit residual
+    (:func:`_ap_residual`) = 0, with implicit-function gradients (JAX's
+    ``lax.custom_root`` with ``_linear_solve_from_fn``,
+    ``pota_tpu/optics/polynomial.py:256-324``).
+
+    Forward: the fixed-iteration 2x2 Newton from the straight line to the
+    target, without a graph.  Backward: at the solution d*, solve the
+    transposed system ``J^T l = g`` (J = dr/dd, the same closed-form 2x2
+    solve and determinant floor) and return ``-(dr/dtheta)^T l`` for the
+    inputs theta = (sensor5, ap_target, coeffs), by one
+    ``torch.autograd.grad`` of the residual.  The coefficients come in as
+    an argument, not read from ``fn`` (a buffer), so that they get their
+    gradient; the start point gets none, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, sensor5, ap_target, coeffs, fn, aperture_z, iterations):
+        x, y = sensor5[..., 0], sensor5[..., 1]
+        residual = _ap_residual(fn, coeffs, sensor5, ap_target)
+        # init: straight line to the aperture point
+        d = torch.stack([(ap_target[..., 0] - x) / aperture_z,
+                         (ap_target[..., 1] - y) / aperture_z], -1)
+        for _ in range(iterations):
+            r, jac = _batched_jacobian(residual, d, 2)
+            d0, d1 = _solve2(jac[..., 0, 0], jac[..., 0, 1], jac[..., 1, 0],
+                             jac[..., 1, 1], r[..., 0], r[..., 1])
+            d = d - torch.stack([d0, d1], -1)
+        ctx.save_for_backward(sensor5, ap_target, coeffs, d)
+        ctx.fn = fn
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        sensor5, ap_target, coeffs, d = ctx.saved_tensors
+        _, jac = _batched_jacobian(
+            _ap_residual(ctx.fn, coeffs, sensor5, ap_target), d, 2)
+        # J^T l = g
+        l0, l1 = _solve2(jac[..., 0, 0], jac[..., 1, 0], jac[..., 0, 1],
+                         jac[..., 1, 1], g[..., 0], g[..., 1])
+        want = [i for i in range(3) if ctx.needs_input_grad[i]]
+        grads = [None, None, None]
+        if want:
+            with torch.enable_grad():
+                theta = [t.detach().requires_grad_(i in want)
+                         for i, t in enumerate((sensor5, ap_target, coeffs))]
+                r = _ap_residual(ctx.fn, theta[2], theta[0], theta[1])(d)
+                got = torch.autograd.grad(
+                    r, [theta[i] for i in want],
+                    grad_outputs=-torch.stack([l0, l1], -1))
+            for i, gi in zip(want, got):
+                grads[i] = gi
+        return (*grads, None, None, None)
+
+
+def pt_sample_aperture(lens: PolyLens, sensor5, ap_target,
+                       iterations: int = 3):
+    """Solve the sensor directions (dx, dy) so the ray hits ``ap_target`` on
+    the iris: a fixed-iteration 2x2 Newton on the aperture polynomial,
+    differentiable by the implicit function theorem with respect to
+    ``sensor5``, ``ap_target`` and ``lens.ap.coeffs``
+    (:class:`_ApertureSolve`).  Returns the updated sensor light field."""
+    d = _ApertureSolve.apply(sensor5, ap_target, lens.ap.coeffs, lens.ap,
+                             lens.aperture_z, iterations)
     return torch.cat([sensor5[..., :2], d, sensor5[..., 4:5]], -1)
 
 

@@ -23,20 +23,39 @@ from . import sampling
 
 
 def check_supported(cfg: CameraConfig, rc: RenderConfig,
-                    differentiable: bool = False, po_lens=None):
+                    differentiable: bool = False, po_lens=None, aovs=None,
+                    motion_blur: bool = False):
     """Raise ``TypeError`` unless ``cfg`` and ``rc`` are the port's config
     classes, and ``NotImplementedError`` for what the port does not run
     yet, so nothing silently takes another path.  Each message names the
-    ROADMAP item that will port it.  A PO frame whose lens lies on the card
-    raises ``ValueError`` for a fit outside the degree-5 basis of the
-    card's PO kernels (:func:`pota_tpu_torch.ops.po_kernels.check_basis`),
-    before any kernel runs; on the CPU such a fit renders."""
+    ROADMAP item that will port it.  ``differentiable`` runs on the PO
+    lens's fused splat routes (K3, K3b) with RGBA as the only gaussian AOV
+    (JAX's ``_gauss_names == ["RGBA"]``, ``pota_tpu/render/splat.py:663``),
+    without motion blur; ``aovs`` is the frame's AOV list (default
+    :data:`~pota_tpu_torch.render.aov.DEFAULT_AOVS`).  A PO frame whose
+    lens lies on the card raises ``ValueError`` for a fit outside the
+    degree-5 basis of the card's PO kernels
+    (:func:`pota_tpu_torch.ops.po_kernels.check_basis`), before any kernel
+    runs; on the CPU such a fit renders."""
     require_port_configs(cfg, rc)
     reasons = []
     if rc.enable_id_matte:
         reasons.append("the id-matte, ROADMAP Q1.10")
     if differentiable:
-        reasons.append("differentiable=True, ROADMAP Q1.8")
+        from .aov import DEFAULT_AOVS, GAUSSIAN
+
+        gauss = [a.name for a in (DEFAULT_AOVS if aovs is None else aovs)
+                 if a.filter == GAUSSIAN]
+        if motion_blur:
+            reasons.append("differentiable=True with motion blur (the "
+                           "decomposed differentiable route), ROADMAP Q1.8a")
+        if rc.enable_redistribution and gauss != ["RGBA"]:
+            reasons.append("differentiable=True with gaussian AOVs other "
+                           "than RGBA (the fused differentiable branch), "
+                           "ROADMAP Q1.8b")
+        if cfg.camera_type == CameraType.THIN_LENS:
+            reasons.append("differentiable=True on the thin-lens camera, "
+                           "ROADMAP Q1.8c")
     if reasons:
         raise NotImplementedError(
             "not ported to pota_tpu_torch yet: " + "; ".join(reasons))
@@ -76,8 +95,10 @@ def _transform_rays_mb(m_per_sample, origins, dirs):
 
 
 def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
-                      po_state=None, ops=None, bokeh_cdf=None):
-    """Camera-space rays for a sample stream, by camera model."""
+                      po_state=None, ops=None, bokeh_cdf=None,
+                      differentiable: bool = False):
+    """Camera-space rays for a sample stream, by camera model;
+    ``differentiable`` takes the PO camera's differentiable route."""
     if cfg.camera_type == CameraType.THIN_LENS:
         origin, direction, weight, _tries = thinlens.trace_fw_thinlens(
             cfg, samples["sx"], samples["sy"], samples["r1"], samples["r2"],
@@ -91,22 +112,53 @@ def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
         origin, direction, weight, _tries = trace_fw_po(
             cfg, po_lens, samples["sx"], samples["sy"], samples["r1"],
             samples["r2"], samples["key"], po_state, ops=ops,
-            bokeh_cdf=bokeh_cdf)
+            bokeh_cdf=bokeh_cdf, differentiable=differentiable)
     return origin, direction, weight * cfg.exposure
+
+
+def _trace_chunked(cfg: CameraConfig, samples: dict, n_chunks: int,
+                   **kw):
+    """:func:`trace_camera_rays` over ``n_chunks`` equal sample chunks in
+    turn, each under ``torch.utils.checkpoint`` (JAX's ``trace_chunks``,
+    ``pota_tpu/render/renderer.py:171-190``): a backward pass recomputes a
+    chunk's aperture solve and monomial tensors instead of keeping all of
+    them.  The samples are drawn before chunking and the retry draws are
+    counter-based, so a recompute repeats the forward bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    keys = ("sx", "sy", "r1", "r2", "key")
+
+    def trace(*cols):
+        return trace_camera_rays(cfg, dict(zip(keys, cols)), **kw)
+
+    parts = [checkpoint(trace, *cols, use_reentrant=False)
+             for cols in zip(*(samples[k].chunk(n_chunks) for k in keys))]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
                          cam_to_world, seed: int = 0, po_lens=None,
                          po_state=None, ops=None, bokeh_cdf=None,
-                         cam_to_world_end=None) -> dict:
+                         cam_to_world_end=None,
+                         differentiable: bool = False) -> dict:
     """Trace + shade the whole frame; returns the per-sample AOV stream.
     With ``cam_to_world_end`` each sample's rays leave the camera matrix
-    blended to its shutter ``time`` (motion blur)."""
+    blended to its shutter ``time`` (motion blur).  ``differentiable``
+    takes the differentiable forward trace, in ``cfg.trace_chunks``
+    checkpointed chunks when that divides the sample count
+    (:func:`_trace_chunked`)."""
     require_port_configs(cfg, rc)
     samples = sampling.frame_samples(rc, seed, device=scene.device)
-    origin_cs, dir_cs, weight = trace_camera_rays(
-        cfg, samples, po_lens=po_lens, po_state=po_state, ops=ops,
-        bokeh_cdf=bokeh_cdf)
+    trace_kw = dict(po_lens=po_lens, po_state=po_state, ops=ops,
+                    bokeh_cdf=bokeh_cdf, differentiable=differentiable)
+    n = samples["sx"].shape[0]
+    tc = cfg.trace_chunks
+    if differentiable and tc > 1 and n % tc == 0:
+        origin_cs, dir_cs, weight = _trace_chunked(cfg, samples, tc,
+                                                   **trace_kw)
+    else:
+        origin_cs, dir_cs, weight = trace_camera_rays(cfg, samples,
+                                                      **trace_kw)
     if cam_to_world_end is not None:
         m = interp_camera_matrix(cam_to_world, cam_to_world_end,
                                  samples["time"])
@@ -174,25 +226,37 @@ def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
     :data:`~pota_tpu_torch.render.aov.DEFAULT_AOVS`).  ``ops`` is the
     kernel set the path calls (default :data:`pota_tpu_torch.ops.KERNELS`;
     :data:`~pota_tpu_torch.ops.PLAIN` runs the plain versions, for parity
-    checks on the card)."""
+    checks on the card).
+
+    ``differentiable=True`` (JAX's ``render_frame(..., use_pallas=False,
+    differentiable=True)``) records the frame for autograd, so that
+    ``loss.backward()`` fills the ``grad`` of lens coefficients that
+    require it: the forward trace takes its differentiable route, the
+    splat geometry runs in its kernels without a gradient, and the value
+    chain carries the gradient through K2 and K4
+    (:func:`~pota_tpu_torch.render.splat.splat_frame`).  Without it the
+    frame runs under ``torch.no_grad()``."""
     from .splat import resolve_imager, splat_frame
 
-    check_supported(cfg, rc, differentiable=differentiable, po_lens=po_lens)
+    check_supported(cfg, rc, differentiable=differentiable, po_lens=po_lens,
+                    aovs=aovs, motion_blur=cam_to_world_end is not None)
     dev = scene.device
     cam_to_world = cam_to_world.to(dev, torch.float32)
     if cam_to_world_end is not None:
         cam_to_world_end = cam_to_world_end.to(dev, torch.float32)
-    with torch.no_grad():
+    with torch.enable_grad() if differentiable else torch.no_grad():
         stream = render_sample_stream(cfg, rc, scene, cam_to_world, seed,
                                       po_lens=po_lens, po_state=po_state,
                                       ops=ops, bokeh_cdf=bokeh_cdf,
-                                      cam_to_world_end=cam_to_world_end)
+                                      cam_to_world_end=cam_to_world_end,
+                                      differentiable=differentiable)
         if not rc.enable_redistribution:
             return resolve_gaussian(rc, stream), {}
         fb = splat_frame(cfg, rc, scene, stream, cam_to_world,
                          po_lens=po_lens, po_state=po_state, aovs=aovs,
                          bokeh_cdf=bokeh_cdf,
-                         cam_to_world_end=cam_to_world_end, ops=ops)
+                         cam_to_world_end=cam_to_world_end, ops=ops,
+                         differentiable=differentiable)
         return resolve_imager(rc, fb), fb
 
 

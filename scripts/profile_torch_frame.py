@@ -15,7 +15,13 @@ K5 ``tl_splat``); ``config3``
 BASELINE config 3 (bench.py:117-169: 512x512 @ 2 spp, abb_chromatic 0.6,
 image bokeh through chip_smoke.py's procedural ring, lightgrid n=4, K3b
 ``po_splat_ext``) and ``config3_no_bokeh`` the same without image bokeh
-(K3b ``po_splat_lam``).  For each cell it
+(K3b ``po_splat_lam``); ``config5`` BASELINE config 5 (bench.py:249-297),
+the differentiable step: chip_smoke.py's :class:`Config5` at 3840x2160 @ 1
+spp, ``render_frame(differentiable=True)``, the mean-RGB loss and
+``loss.backward()``, whose kernels are also charged to the step's forward
+and backward halves (the kernels launched inside ``loss.backward()``:
+the checkpointed trace's recompute, its VJPs and the implicit-function
+solve's, the shade's, K4's and K2's).  For each cell it
 prints five unprofiled frame wall times, then profiles one warm frame with
 ``torch.profiler`` (CPU and CUDA activities), reads the kernels from the
 exported trace, and splits them into stages at the port's own kernels
@@ -61,6 +67,7 @@ FUNCTIONS = (
     ("render.splat", "_occluded_through_camera"),
     ("render.splat", "accumulate_sorted"),
     ("render.splat", "resolve_aovs"),
+    ("render.renderer", "trace_camera_rays"),
 )
 
 
@@ -91,11 +98,13 @@ def annotate_functions():
     return restore
 
 
-def function_busy(events):
+def function_busy(events, exclude=()):
     """Device busy ms per annotated function: each kernel goes to the
-    innermost ``record_function`` range holding its launch call."""
+    innermost ``record_function`` range holding its launch call (ranges
+    named in ``exclude`` are not counted as functions)."""
     ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-              for e in events if e.get("cat") == "user_annotation"]
+              for e in events if e.get("cat") == "user_annotation"
+              and e["name"] not in exclude]
     launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
                  if e.get("cat") == "cuda_runtime"
                  and "correlation" in e.get("args", {})}
@@ -121,18 +130,20 @@ def own_kernel(name: str):
 
 def stages(kernels):
     """Split the time-ordered kernels [(name, start_us, dur_us)] at the
-    port's kernels and at the first sort kernel after the splat."""
-    out, cur, label = [], [], "before K1 (samples, retry uniforms, disks)"
-    after_splat = False
+    port's kernels and at the first sort kernel between the splat and K4."""
+    out, cur, label = [], [], "up to the first of the port's kernels"
+    after_splat = after_accum = False
     for k in kernels:
         own = own_kernel(k[0])
-        is_sort = after_splat and "radix" in k[0].lower()
+        is_sort = (after_splat and not after_accum
+                   and "radix" in k[0].lower())
         if own or (is_sort and not label.startswith("sort")):
             if cur:
                 out.append((label, cur))
             if own:
                 out.append((f"**{own}**", [k]))
                 after_splat |= own.startswith(("K3", "K5", "K6"))
+                after_accum |= own.startswith("K4")
                 cur, label = [], f"after {own.split()[0]}"
                 continue
             cur, label = [], "sort (cub radix) and after, up to K4"
@@ -148,7 +159,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", nargs="+", default=["flagship", "flagship_mb"],
                     choices=["flagship", "flagship_mb", "config1", "config3",
-                             "config3_no_bokeh"])
+                             "config3_no_bokeh", "config5"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -162,7 +173,7 @@ def main() -> int:
     import dataclasses
 
     import pota_tpu_torch as pt
-    from chip_smoke import ring_pixels
+    from chip_smoke import Config5, ring_pixels
     from pota_tpu_torch.optics.fit import load_poly_lens
     from pota_tpu_torch.optics.focus import setup_po_camera
     from pota_tpu_torch.render import scene as sc
@@ -209,12 +220,22 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
 
     for cell in args.cells:
-        cfg_, rc_, scene_, kw = cells[cell]
+        if cell == "config5":
+            c5 = Config5(dev, m)
 
-        def frame():
-            with torch.no_grad():
-                _, fb = renderer.render_frame(cfg_, rc_, scene_, m, **kw)
-                splat.resolve_aovs(rc_, fb)
+            def frame():
+                with torch.profiler.record_function("forward"):
+                    img, _ = c5.render()
+                    loss = img[..., :3].mean()
+                with torch.profiler.record_function("loss.backward"):
+                    loss.backward()
+        else:
+            cfg_, rc_, scene_, kw = cells[cell]
+
+            def frame():
+                with torch.no_grad():
+                    _, fb = renderer.render_frame(cfg_, rc_, scene_, m, **kw)
+                    splat.resolve_aovs(rc_, fb)
 
         frame()
         torch.cuda.synchronize()
@@ -237,6 +258,9 @@ def main() -> int:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+        if cell == "config5":
+            # ~100,000 kernels: too large to bring back from the card
+            os.remove(path)
         kernels = sorted((e["name"], float(e["ts"]), float(e["dur"]))
                          for e in events if e.get("cat") == "kernel")
         kernels.sort(key=lambda k: k[1])
@@ -264,6 +288,14 @@ def main() -> int:
         for name, (n, ms) in sorted(function_busy(events).items(),
                                     key=lambda kv: -kv[1][1]):
             print(f"| {name} | {ms:.2f} | {n} |", flush=True)
+        if cell == "config5":
+            print("| half of the step | device busy ms | kernels |",
+                  flush=True)
+            halves = function_busy(events, exclude=tuple(
+                f for _, f in FUNCTIONS))
+            for name, (n, ms) in sorted(halves.items(),
+                                        key=lambda kv: -kv[1][1]):
+                print(f"| {name} | {ms:.2f} | {n} |", flush=True)
         for e in events:
             if e.get("cat") == "kernel" and own_kernel(e["name"]):
                 a = e["args"]

@@ -320,17 +320,27 @@ def ring_cdfs():
 
 
 @pytest.mark.parametrize("kwargs, rc_kw, match", [
-    ({"differentiable": True}, {}, "differentiable"),
+    ({"differentiable": True, "cam_to_world_end": "trucked"}, {},
+     "differentiable"),
     ({"cam_to_world_end": torch.eye(4)}, {}, "motion blur"),
     ({}, {"enable_id_matte": True}, "id-matte"),
+    ({"differentiable": True, "aovs": "extra gaussian"}, {}, "Q1.8b"),
+    ({"differentiable": True, "camera": "thin lens"}, {}, "Q1.8c"),
 ])
 def test_unported_options_raise(jax_po, port_po, kwargs, rc_kw, match):
-    """The id-matte and the differentiable mode are refused; motion blur,
-    refused before the port had it, renders an 8x8 frame held against
-    JAX's splat of the same stream."""
+    """The id-matte is refused, and so is the differentiable mode with
+    motion blur (ROADMAP Q1.8a), with a gaussian AOV besides RGBA (Q1.8b)
+    and on the thin lens (Q1.8c); motion blur, refused before the port
+    had it, renders an 8x8 frame held against JAX's splat of the same
+    stream.  (``differentiable=True`` itself runs:
+    tests/test_torch_grad.py.)"""
+    from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
+
     cfg, lens, state = port_po
     rc = pt.RenderConfig(xres=8, yres=8, spp=1, **rc_kw)
-    if "cam_to_world_end" in kwargs:
+    kwargs = dict(kwargs)
+    if kwargs.get("cam_to_world_end") is not None and not kwargs.get(
+            "differentiable"):
         end = look_at([2.0, 0, 0], [2.0, 0, -1], device="cpu")
         pair = splat_pair(
             cfg, rc, gc.sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0,
@@ -339,6 +349,14 @@ def test_unported_options_raise(jax_po, port_po, kwargs, rc_kw, match):
             po=(jax_po[1:], (lens, state)))
         assert_splat_pair_close(pair)
         return
+    if kwargs.get("cam_to_world_end") == "trucked":
+        kwargs["cam_to_world_end"] = look_at([2.0, 0, 0], [2.0, 0, -1],
+                                             device="cpu")
+    if kwargs.get("aovs") == "extra gaussian":
+        kwargs["aovs"] = list(DEFAULT_AOVS) + [
+            AOVSpec("P_gauss", "VECTOR", GAUSSIAN, "P")]
+    if kwargs.pop("camera", None) == "thin lens":
+        cfg = dataclasses.replace(cfg, camera_type=pt.CameraType.THIN_LENS)
     with pytest.raises(NotImplementedError, match=match):
         render_frame(cfg, rc, _scene(),
                      look_at([0, 0, 0], [0, 0, -1], device="cpu"),
