@@ -62,6 +62,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                parity frame (phase 4, 256x144 @ 1 spp, ``trace_chunks``
                4) holds the image and the ``pt`` gradient through the
                kernels to the plain versions' (:data:`CONFIG5_GRAD_TOL`)
+  9. flagship_idmatte  BASELINE config 4's camera on ``teapot_scene()``
+               with thin glass of grey 0.5 on its spheres 0 and 1
+               (:func:`glass_teapot`, the PO state set up on that scene),
+               1920x1080 @ 1 spp, ``enable_id_matte=True``: K1-K4 launched
+               once each; the frame ms, the id-matte stage's ms (its
+               records, two sorts and scatters: ``crypto_topk`` of
+               ``id_matte_records``, CUDA events), ``resolve_crypto``'s
+               ms, the frame without the id-matte, the peak memory; the
+               ranked planes held to a float64 oracle of the same records
+               (:func:`crypto_oracle`, :func:`check_id_matte`) and every
+               coverage of the resolved layers <= 1 + 1e-5.  Its parity
+               frame (phase 4: 256x256 @ 1 spp) compares the id-matte
+               planes too
+ 10. config2   BASELINE config 2 (bench.py:86-114, ``cfg_fw`` of
+               bench.py:335-338): ``trace_camera_rays`` of a 1920x1080 @ 1
+               spp frame (flagship lens, fstop 2.8, focus 150, 4 candidates
+               a ray: K1 on M = 8,294,400), ``po_forward_rays_per_s_1080p``
+ 11. cli       ``python -m pota_tpu_torch.cli`` on the card (``cli.main``):
+               PO lens, 1024x1024 @ 1 spp, ``--aovs --id-matte --glare 0.5
+               --aperture-blades 6`` into a temporary EXR, read back: every
+               channel finite, ``crypto00..02`` present
 Each kernel record carries ``bound_ms``, the least time the card could take
 for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
@@ -113,7 +134,11 @@ PATH_KERNELS = {
                          "segment_accum"),
     "config3": ("po_forward", "expand", "po_splat_ext", "segment_accum"),
     "config5": ("expand", "po_splat", "segment_accum"),
+    "flagship_idmatte": ("po_forward", "expand", "po_splat", "segment_accum"),
+    "config2": ("po_forward",),
 }
+# the id-matte's ranked planes against their float64 oracle (relative)
+CRYPTO_TOL = 1e-5
 # config 5's plain K3 runs on the leading slots of its 33M-slot queue
 CONFIG5_PLAIN_SLOTS = 1 << 22
 # relative L2 of config 5's parity gradient of pt (kernels against the
@@ -515,6 +540,92 @@ def frac_pixels_off(got, want) -> float:
     scale = max(float(want.abs().max()), 1.0)
     return float(((got - want).abs().amax(-1) > PIXEL_TOL * scale)
                  .double().mean())
+
+
+def glass_teapot(device):
+    """The ``flagship_idmatte`` scene: ``teapot_scene()`` with thin glass of
+    grey 0.5 on its two nearest diffuse spheres (indices 0 and 1)."""
+    import torch
+
+    from pota_tpu_torch.render import scene as sc
+
+    scene = sc.teapot_scene(device=device)
+    trans = torch.zeros((scene.n_objects, 3), device=device)
+    trans[:2] = 0.5
+    return dataclasses.replace(scene, transmission=trans)
+
+
+def crypto_oracle(pix, ids, w, npix: int, k: int):
+    """``crypto_topk`` in float64 by other means: the (pixel, id) runs by a
+    ``torch.unique`` inverse, their coverages and the pixel totals by
+    float64 ``index_add_``, the ranks by two stable sorts (descending
+    coverage, then pixel; ties keep ascending id).  Returns (rank_id
+    [npix, k] int64, rank_w [npix, k] float64, total [npix] float64)."""
+    import torch
+
+    live = (w > 0) & (ids >= 0) & (pix >= 0) & (pix < npix)
+    p, w64 = pix[live].long(), w[live].double()
+    runs, inv = torch.unique((p << 32) | ids[live].long(),
+                             return_inverse=True)
+    run_w = torch.zeros(runs.shape[0], dtype=torch.float64,
+                        device=w.device).index_add_(0, inv, w64)
+    total = torch.zeros(npix, dtype=torch.float64,
+                        device=w.device).index_add_(0, p, w64)
+    order = torch.sort(-run_w, stable=True).indices
+    order = order[torch.sort(runs[order] >> 32, stable=True).indices]
+    rp, rid, rw = runs[order] >> 32, runs[order] & 0xFFFFFFFF, run_w[order]
+    pos = torch.arange(rp.shape[0], device=w.device)
+    first = torch.ones_like(rp, dtype=torch.bool)
+    first[1:] = rp[1:] != rp[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    keep = rank < k
+    rank_id = torch.full((npix, k), -1, dtype=torch.int64, device=w.device)
+    rank_w = torch.zeros((npix, k), dtype=torch.float64, device=w.device)
+    rank_id[rp[keep], rank[keep]] = rid[keep]
+    rank_w[rp[keep], rank[keep]] = rw[keep]
+    return rank_id, rank_w, total
+
+
+def check_id_matte(label, fb, records, layers, npix: int) -> dict:
+    """A frame's id-matte planes against :func:`crypto_oracle` of its
+    records: every kept coverage and every pixel total within
+    :data:`CRYPTO_TOL` relative, ``rank_id`` identical wherever the
+    oracle's neighbouring coverages differ by more than that, and every
+    coverage of the resolved layers at most 1 + 1e-5.  Fails the run on a
+    miss; returns the measured figures."""
+    import torch
+
+    o_id, o_w, o_tot = crypto_oracle(*records, npix, 6)
+    rid = fb["crypto_rank_id"].reshape(npix, -1).long()
+    rw = fb["crypto_rank_w"].reshape(npix, -1).double()
+    tot = fb["crypto_total"].reshape(-1).double()
+    kept = o_w > 0
+    w_err = float(((rw - o_w).abs()[kept] / o_w[kept]).max())
+    if bool((rw[~kept] != 0).any()) or not w_err <= CRYPTO_TOL:
+        fail(f"{label}: rank weights off the float64 oracle ({w_err:.3e})")
+    on = o_tot > 0
+    t_err = float(((tot - o_tot).abs()[on] / o_tot[on]).max())
+    if bool((tot[~on] != 0).any()) or not t_err <= CRYPTO_TOL:
+        fail(f"{label}: pixel totals off the float64 oracle ({t_err:.3e})")
+    apart = torch.ones_like(kept)
+    close = (((o_w[:, :-1] - o_w[:, 1:]).abs() <= CRYPTO_TOL * o_w[:, :-1])
+             & (o_w[:, :-1] > 0))
+    apart[:, 1:] &= ~close
+    apart[:, :-1] &= ~close
+    id_off = int((rid != o_id)[apart].sum())
+    if id_off:
+        fail(f"{label}: {id_off} rank ids differ from the oracle's order")
+    cov = max(float(layer[..., c].max()) for layer in layers for c in (1, 3))
+    if cov > 1.0 + 1e-5:
+        fail(f"{label}: a coverage of {cov} > 1")
+    out = dict(records=int(records[0].shape[0]),
+               live_records=int(((records[2] > 0) & (records[1] >= 0))
+                                .sum()),
+               ranked=int(kept.sum()), rank_w_max_rel_err=w_err,
+               total_max_rel_err=t_err, near_ties=int((~apart).sum()),
+               max_coverage=cov)
+    print(f"{label} id-matte against the float64 oracle: {out}", flush=True)
+    return out
 
 
 class Recorder:
@@ -1030,8 +1141,10 @@ def main() -> int:
     from pota_tpu_torch.render.bokeh_image import build_bokeh_cdf
     from pota_tpu_torch.render.renderer import (
         look_at, render_frame, render_sample_stream)
+    from pota_tpu_torch.render import splat as tsplat
+    from pota_tpu_torch.render.crypto import crypto_topk
     from pota_tpu_torch.render.splat import (
-        chroma_wavelengths, resolve_aovs, splat_frame)
+        chroma_wavelengths, resolve_aovs, resolve_crypto, splat_frame)
 
     phase("build")
     t0 = time.perf_counter()
@@ -1430,6 +1543,13 @@ def main() -> int:
                                    ops=ops.PLAIN, **kw)
         aov_k = resolve_aovs(rc_, fb_k, aovs)
         aov_p = resolve_aovs(rc_, fb_p, aovs)
+        if rc_.enable_id_matte:
+            # the id-matte: the pixel totals and the resolved layers
+            aov_k["crypto_total"] = fb_k["crypto_total"][..., None]
+            aov_p["crypto_total"] = fb_p["crypto_total"][..., None]
+            for r, (lk, lp) in enumerate(zip(resolve_crypto(fb_k),
+                                             resolve_crypto(fb_p))):
+                aov_k[f"crypto{r:02d}"], aov_p[f"crypto{r:02d}"] = lk, lp
         for k in aov_p:
             off = frac_pixels_off(aov_k[k], aov_p[k])
             print(f"  {k}: pixels off {off:.5f}", flush=True)
@@ -1477,6 +1597,12 @@ def main() -> int:
            dataclasses.replace(cfg_tl, bokeh_enable_image=True), rc_tl,
            emitter(0.0), bokeh_cdf=build_bokeh_cdf(ring_pixels(lo=0.55),
                                                    device=dev))
+    # flagship_idmatte's camera and scene
+    scene_g = glass_teapot(dev)
+    po_g = dict(po_lens=lens, po_state=setup_po_camera(lens, cfg,
+                                                       scene=scene_g))
+    parity("flagship_idmatte 256x256 @ 1 spp (thin glass, id-matte)", cfg,
+           dataclasses.replace(rc256, enable_id_matte=True), scene_g, **po_g)
     c5.parity()
     torch.cuda.empty_cache()
 
@@ -1585,6 +1711,125 @@ def main() -> int:
         print(f"{path}_aa_samples_per_s {n_aa / (ms * 1e-3)} {tag}",
               flush=True)
         torch.cuda.empty_cache()
+
+    # ---- flagship_idmatte: the id-matte of thin glass at the flagship's width
+    phase("flagship_idmatte 1920x1080 @ 1 spp: teapot with two glass "
+          "spheres, id-matte")
+    rc_id = dataclasses.replace(rc_full, enable_id_matte=True)
+    npix = rc_full.xres * rc_full.yres
+    captured = {}
+    records_fn = tsplat.id_matte_records
+
+    def capture_records(*a):
+        captured["args"] = a
+        return records_fn(*a)
+
+    tsplat.id_matte_records = capture_records
+    try:
+        path_launches["flagship_idmatte"], fb = drive(
+            "flagship_idmatte", "flagship_idmatte", cfg, rc_id, scene_g,
+            **po_g)
+    finally:
+        tsplat.id_matte_records = records_fn
+    once = {k: v for k, v in path_launches["flagship_idmatte"].items() if v}
+    if once != {k: 1 for k in PATH_KERNELS["flagship_idmatte"]}:
+        fail(f"flagship_idmatte: launches {once}, not one of each kernel")
+    id_args = captured.pop("args")
+    with torch.no_grad():
+        id_records = tsplat.id_matte_records(*id_args)
+        layers = resolve_crypto(fb)
+    check_id_matte("flagship_idmatte", fb, id_records, layers, npix)
+    del id_records, layers
+
+    def id_stage():
+        with torch.no_grad():
+            crypto_topk(*tsplat.id_matte_records(*id_args), npix, k=6)
+
+    stage_ms = median_ms(id_stage)
+    resolve_ms = median_ms(lambda: resolve_crypto(fb))
+    del fb, id_args
+    torch.cuda.empty_cache()
+
+    def e2e_g(rc_):
+        def run():
+            with torch.no_grad():
+                _, fb_ = render_frame(cfg, rc_, scene_g, m, seed=0, **po_g)
+                resolve_aovs(rc_, fb_)
+        return run
+
+    e2e_g(rc_id)()
+    frame_id_ms = host_ms(e2e_g(rc_id))
+    frame_off_ms = host_ms(e2e_g(rc_full))
+    frame_id_ms2 = host_ms(e2e_g(rc_id))
+    for name, val in (
+            ("flagship_idmatte_frame_ms", [frame_id_ms, frame_id_ms2]),
+            ("flagship_idmatte_off_frame_ms", frame_off_ms),
+            ("flagship_idmatte_stage_ms", stage_ms),
+            ("flagship_idmatte_resolve_crypto_ms", resolve_ms)):
+        print(f"{name} {val} {tag}", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- config2: the PO forward trace alone (bench.py:86-114)
+    phase("config2 1920x1080 @ 1 spp: trace_camera_rays (BASELINE config 2)")
+    from pota_tpu_torch.render import sampling
+    from pota_tpu_torch.render.renderer import trace_camera_rays
+
+    cfg_fw = pt.CameraConfig(
+        camera_type=pt.CameraType.POLYNOMIAL_OPTICS, lens_model=FLAGSHIP,
+        fstop=2.8, focus_distance=150.0, vignetting_retries=3)
+    state_fw = setup_po_camera(lens, cfg_fw)
+
+    def forward_rays():
+        with torch.no_grad():
+            smp = sampling.frame_samples(rc_full, 0, device=dev)
+            smp["key"] = (smp["key"] + 1) & 0xFFFFFFFF
+            o, d, w = trace_camera_rays(cfg_fw, smp, po_lens=lens,
+                                        po_state=state_fw)
+            return o.sum() + d.sum() + w.sum()
+
+    forward_rays()
+    ops.reset_launches()
+    total = forward_rays()
+    torch.cuda.synchronize()
+    path_launches["config2"] = dict(ops.LAUNCHES)
+    print(f"launches in the config2 run: {path_launches['config2']}",
+          flush=True)
+    if {k: v for k, v in path_launches["config2"].items() if v} != {
+            "po_forward": 1}:
+        fail("config2: K1 not launched once, or another kernel launched")
+    if not bool(torch.isfinite(total)):
+        fail("config2: the traced rays are not finite")
+    fw_ms = median_ms(forward_rays, reps=10)
+    n_rays = rc_full.xres * rc_full.yres * rc_full.spp
+    print(f"config2_frame_ms {fw_ms} {tag}", flush=True)
+    print(f"po_forward_rays_per_s_1080p {n_rays / (fw_ms * 1e-3)} {tag}",
+          flush=True)
+
+    # ---- the command line on the card
+    phase("cli: python -m pota_tpu_torch.cli on the card")
+    import tempfile
+
+    from pota_tpu_torch import cli
+    from pota_tpu_torch.io.exr import read_exr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/cli.exr"
+        argv = ["--camera", "po", "--res", "1024", "--spp", "1", "--aovs",
+                "--id-matte", "--glare", "0.5", "--aperture-blades", "6",
+                "--out", out]
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            fail("cli: non-zero exit")
+        print(f"cli_s {time.perf_counter() - t0} {tag}", flush=True)
+        planes = read_exr(out)
+    want = {f"crypto{r:02d}.{c}" for r in range(3) for c in "RGBA"}
+    if not want <= set(planes):
+        fail(f"cli: missing channels {sorted(want - set(planes))}")
+    bad = [k for k, v in planes.items() if not np.isfinite(v).all()]
+    if bad:
+        fail(f"cli: channels not finite {bad}")
+    print(f"cli wrote {len(planes)} channels {sorted(planes)}", flush=True)
+    torch.cuda.empty_cache()
 
     path_launches["config5"] = c5.run(tag)
 

@@ -39,8 +39,6 @@ def check_supported(cfg: CameraConfig, rc: RenderConfig,
     runs; on the CPU such a fit renders."""
     require_port_configs(cfg, rc)
     reasons = []
-    if rc.enable_id_matte:
-        reasons.append("the id-matte, ROADMAP Q1.10")
     if differentiable:
         from .aov import DEFAULT_AOVS, GAUSSIAN
 
@@ -166,7 +164,7 @@ def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
     else:
         origin_ws, dir_ws = _transform_rays(cam_to_world, origin_cs, dir_cs)
     shaded = scene.shade(origin_ws, dir_ws)
-    return {
+    stream = {
         **samples,
         "rgba": shaded["rgba"] * weight[:, None],
         "z": shaded["z"],
@@ -176,6 +174,17 @@ def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
         "hit": shaded["hit"],
         "obj_id": shaded["obj_id"],
     }
+    # optional AOVs the scene may emit ride the stream, transmission in the
+    # units of rgba (ref src/lentil_filter.cpp:152)
+    if "transmission" in shaded:
+        stream["transmission"] = shaded["transmission"] * weight[:, None]
+    if "volume" in shaded:
+        stream["volume"] = shaded["volume"]
+    # the id-matte's opacity-weighted coverage layers
+    if "crypto_ids" in shaded:
+        stream["crypto_ids"] = shaded["crypto_ids"]
+        stream["crypto_weights"] = shaded["crypto_weights"]
+    return stream
 
 
 def resolve_gaussian(rc: RenderConfig, stream: dict) -> torch.Tensor:
@@ -210,6 +219,19 @@ def resolve_gaussian(rc: RenderConfig, stream: dict) -> torch.Tensor:
             num = num + n
             den = den + d
     return num / torch.clamp(den, min=1e-12)[..., None]
+
+
+def render_frame_simple(cfg: CameraConfig, rc: RenderConfig, scene,
+                        cam_to_world, seed: int = 0, po_lens=None,
+                        po_state=None, bokeh_cdf=None):
+    """Forward-only render (no redistribution): the sample stream resolved
+    by the gaussian filter, [H, W, 4]."""
+    check_supported(cfg, rc, po_lens=po_lens)
+    with torch.no_grad():
+        stream = render_sample_stream(
+            cfg, rc, scene, cam_to_world.to(scene.device, torch.float32),
+            seed, po_lens=po_lens, po_state=po_state, bokeh_cdf=bokeh_cdf)
+        return resolve_gaussian(rc, stream)
 
 
 def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
@@ -255,6 +277,8 @@ def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
         fb = splat_frame(cfg, rc, scene, stream, cam_to_world,
                          po_lens=po_lens, po_state=po_state, aovs=aovs,
                          bokeh_cdf=bokeh_cdf,
+                         n_crypto_ids=(scene.n_objects if rc.enable_id_matte
+                                       else 0),
                          cam_to_world_end=cam_to_world_end, ops=ops,
                          differentiable=differentiable)
         return resolve_imager(rc, fb), fb

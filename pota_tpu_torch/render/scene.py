@@ -1,9 +1,5 @@
 """Analytic sphere scene: the forward pass's shading source and the backward
-splat's occlusion oracle (port of :mod:`pota_tpu.render.scene`).
-
-Thin-glass transmission is not ported yet: a scene with ``transmission``
-raises in :meth:`SphereScene.shade`.
-"""
+splat's occlusion oracle (port of :mod:`pota_tpu.render.scene`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -64,10 +60,9 @@ class SphereScene:
     def shade(self, origins, dirs):
         """Shade primary rays: emission + lambert direct light + sky.
         Returns rgba [N, 4], z [N] (distance along the ray, 1e30 on a miss),
-        P [N, 3], hit [N] and obj_id [N]."""
-        if self.transmission is not None:
-            raise NotImplementedError(
-                "thin-glass transmission is not ported to pota_tpu_torch yet")
+        P [N, 3], hit [N] and obj_id [N]; with ``transmission`` also the
+        transmitted radiance [N, 3] and the id-matte's coverage layers
+        ``crypto_ids`` / ``crypto_weights`` [N, 2]."""
         t, idx, hit = self.intersect(origins, dirs)
         p = origins + dirs * t[:, None]
         n = (p - self.centers[idx]) / self.radii[idx][:, None]
@@ -78,13 +73,40 @@ class SphereScene:
             shadow_hit, 0.0, ndotl)[:, None]
         rgb = torch.where(hit[:, None], self.emission[idx] + direct,
                           self.sky_color[None, :])
+        obj_id = torch.where(hit, idx, -1).to(torch.int32)
+        out = {}
+        if self.transmission is not None:
+            # thin glass: continue the ray from the exit point and tint what
+            # lies behind (one bounce; the reference takes Arnold's
+            # transmission AOV, src/lentil_filter.cpp:152-159)
+            t_exit = t + 2.0 * torch.abs(
+                torch.sum((self.centers[idx] - p) * dirs, -1))
+            _, idx2, hit2 = self.intersect(
+                origins + dirs * (t_exit + 1e-3)[:, None], dirs)
+            behind = torch.where(hit2[:, None], self.emission[idx2],
+                                 self.sky_color[None, :])
+            tint = self.transmission[idx]
+            transmitted = torch.where(hit[:, None], tint * behind, 0.0)
+            rgb = rgb + transmitted
+            out["transmission"] = transmitted
+            # opacity-weighted coverage layers (src/lentil.h:780-811): the
+            # front surface takes its opacity, the leftover goes to the hit
+            # behind, or to the front surface when nothing is behind
+            grey = (tint[:, 0] + tint[:, 1] + tint[:, 2]) / 3.0
+            opacity_front = torch.clamp(1.0 - grey, 0.0, 1.0)
+            out["crypto_ids"] = torch.stack(
+                [obj_id, torch.where(hit2, idx2, idx).to(torch.int32)], -1)
+            out["crypto_weights"] = torch.stack(
+                [torch.where(hit, opacity_front, 0.0),
+                 torch.where(hit, 1.0 - opacity_front, 0.0)], -1)
         alpha = torch.where(hit, 1.0, 0.0)
         return {
             "rgba": torch.cat([rgb, alpha[:, None]], -1),
             "z": torch.where(hit, t, INF),
             "P": torch.where(hit[:, None], p, 0.0),
             "hit": hit,
-            "obj_id": torch.where(hit, idx, -1).to(torch.int32),
+            "obj_id": obj_id,
+            **out,
         }
 
     def _occluded_dir(self, origins, direction):

@@ -406,9 +406,9 @@ def _occluded_through_camera(scene, p_ws_q, lens_cs, sky_q, cam_to_world,
 
 def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
                 cam_to_world, po_lens=None, po_state=None, aovs=None,
-                bokeh_cdf=None, cam_to_world_end=None,
-                with_diagnostics: bool = False, ops=None,
-                differentiable: bool = False):
+                bokeh_cdf=None, n_crypto_ids: int = 0,
+                cam_to_world_end=None, with_diagnostics: bool = False,
+                ops=None, differentiable: bool = False):
     """Full filter stage: gates + backward splats + buffer accumulation.
 
     Returns the framebuffer dict consumed by :func:`resolve_imager` /
@@ -419,8 +419,11 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
     ``cam_to_world_end`` the camera matrix at the end of the shutter.
     ``ops`` picks the kernel set (default :data:`pota_tpu_torch.ops.KERNELS`).
     Every gaussian AOV rides the one sorted accumulation (RGBA with the
-    filter weight as a fifth column, the others four each).  The id-matte
-    is not ported: this function takes none of its arguments.
+    filter weight as a fifth column, the others four each).  A non-zero
+    ``n_crypto_ids`` adds the id-matte's ranked coverage planes
+    ``crypto_rank_id`` / ``crypto_rank_w`` [H, W, 6] and ``crypto_total``
+    [H, W] (:func:`~pota_tpu_torch.render.crypto.crypto_topk`, no gradient
+    on any route), read by :func:`resolve_crypto`.
 
     ``differentiable`` (JAX's ``splat.py:750-790, 1134-1140``): the gates,
     budgets, queue, seeds and weights carry no gradient (integers, booleans
@@ -679,6 +682,17 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
             px_vals = px_vals * (px_vals[:, :1] != 0).to(dtype)
         buffers[spec.name] = px_vals.reshape(yres_r, xres_r, 4)
 
+    if n_crypto_ids:
+        from .crypto import crypto_topk
+
+        with torch.no_grad():
+            rank_id, rank_w, total = crypto_topk(
+                *id_matte_records(stream, lin_splat, lin_source, oid, w_slot,
+                                  w_src), npix, k=6)
+        buffers["crypto_rank_id"] = rank_id.reshape(yres_r, xres_r, -1)
+        buffers["crypto_rank_w"] = rank_w.reshape(yres_r, xres_r, -1)
+        buffers["crypto_total"] = total.reshape(yres_r, xres_r)
+
     buffers["filter_weight"] = weight.reshape(yres_r, xres_r)
     if has_closest:
         buffers["zmin"] = torch.where(
@@ -687,6 +701,46 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
         buffers["_n_valid_splats"] = valid.sum()
         buffers["_n_issued_slots"] = slot_on.sum()
     return buffers
+
+
+def id_matte_records(stream, lin_splat, lin_source, oid, w_slot, w_src):
+    """The id-matte's coverage records (ref add_to_buffer_cryptomatte,
+    src/lentil.h:814-819; JAX's ``splat.py:1286-1322``): every coverage
+    layer of a sample rides the splat's weight chain, one record per
+    (writer, layer), a queue slot's at its splat pixel with its source's id
+    and ``w_slot`` times the layer weight, a source's at its own pixel with
+    ``w_src``.  The layers are the stream's ``crypto_ids`` /
+    ``crypto_weights`` [N, D] (thin glass), else ``obj_id`` with weight 1.
+    Returns (pixel int64, id, weight) [(S + N) * D]."""
+    if "crypto_ids" in stream:
+        ids_d, wts_d = stream["crypto_ids"], stream["crypto_weights"]
+    else:
+        ids_d = stream["obj_id"][:, None]
+        wts_d = torch.ones_like(ids_d, dtype=w_slot.dtype)
+    pix = torch.cat([lin_splat.to(torch.int64), lin_source.to(torch.int64)])
+    ids, wts = [], []
+    for d in range(ids_d.shape[1]):
+        oid_d, lw = ids_d[:, d], wts_d[:, d]
+        ids += [oid_d[oid], oid_d]
+        wts += [w_slot * lw[oid], w_src * lw]
+    return (pix.repeat(ids_d.shape[1]), torch.cat(ids), torch.cat(wts))
+
+
+def resolve_crypto(fb: dict, ranks: int = 3, id_hashes=None) -> list:
+    """The id-matte's cryptomatte layers: ``ranks`` RGBA planes [H, W, 4],
+    each holding two (id, normalised coverage) pairs (the reference
+    imager's crypto resolve, src/lentil_imager.cpp:121-160).  ``id_hashes``
+    (:func:`~pota_tpu_torch.render.crypto.id_hash_table`) gives spec float
+    name-hash ids; without it the scene object index rides as a float."""
+    from .crypto import pack_layers
+
+    rank_id = fb["crypto_rank_id"]
+    h, w, k = rank_id.shape
+    layers = pack_layers(rank_id.reshape(-1, k),
+                         fb["crypto_rank_w"].reshape(-1, k),
+                         fb["crypto_total"].reshape(-1), ranks=ranks,
+                         id_hashes=id_hashes)
+    return [layer.reshape(h, w, 4) for layer in layers]
 
 
 def resolve_imager(rc: RenderConfig, fb: dict) -> torch.Tensor:

@@ -4,7 +4,8 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 scripts/profile_torch_frame.py [--cells flagship flagship_mb
-                                            config1 config3 config3_no_bokeh]
+                                            config1 config3 config3_no_bokeh
+                                            config5 flagship_idmatte]
 
 ``flagship`` is BASELINE config 4 (bench.py:172-246: 1920x1080 @ 1 spp,
 lens angenieux__double_gauss__1953__49mm, fstop 2.8, focus 20, lightgrid
@@ -15,7 +16,10 @@ K5 ``tl_splat``); ``config3``
 BASELINE config 3 (bench.py:117-169: 512x512 @ 2 spp, abb_chromatic 0.6,
 image bokeh through chip_smoke.py's procedural ring, lightgrid n=4, K3b
 ``po_splat_ext``) and ``config3_no_bokeh`` the same without image bokeh
-(K3b ``po_splat_lam``); ``config5`` BASELINE config 5 (bench.py:249-297),
+(K3b ``po_splat_lam``); ``flagship_idmatte`` the flagship's camera on
+chip_smoke.py's glass teapot (:func:`glass_teapot`) with the id-matte on,
+its frame ending in ``resolve_crypto``; ``config5`` BASELINE config 5
+(bench.py:249-297),
 the differentiable step: chip_smoke.py's :class:`Config5` at 3840x2160 @ 1
 spp, ``render_frame(differentiable=True)``, the mean-RGB loss and
 ``loss.backward()``, whose kernels are also charged to the step's forward
@@ -68,6 +72,9 @@ FUNCTIONS = (
     ("render.splat", "accumulate_sorted"),
     ("render.splat", "resolve_aovs"),
     ("render.renderer", "trace_camera_rays"),
+    ("render.splat", "id_matte_records"),
+    ("render.crypto", "crypto_topk"),
+    ("render.splat", "resolve_crypto"),
 )
 
 
@@ -159,7 +166,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", nargs="+", default=["flagship", "flagship_mb"],
                     choices=["flagship", "flagship_mb", "config1", "config3",
-                             "config3_no_bokeh", "config5"])
+                             "config3_no_bokeh", "config5",
+                             "flagship_idmatte"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -173,7 +181,7 @@ def main() -> int:
     import dataclasses
 
     import pota_tpu_torch as pt
-    from chip_smoke import Config5, ring_pixels
+    from chip_smoke import Config5, glass_teapot, ring_pixels
     from pota_tpu_torch.optics.fit import load_poly_lens
     from pota_tpu_torch.optics.focus import setup_po_camera
     from pota_tpu_torch.render import scene as sc
@@ -216,6 +224,11 @@ def main() -> int:
                                                  bokeh_enable_image=False),
                              rc3, scene3, po3),
     }
+    scene_g = glass_teapot(dev)
+    cells["flagship_idmatte"] = (
+        cfg, dataclasses.replace(rc, enable_id_matte=True), scene_g,
+        dict(po_lens=lens, po_state=setup_po_camera(lens, cfg,
+                                                    scene=scene_g)))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -236,6 +249,8 @@ def main() -> int:
                 with torch.no_grad():
                     _, fb = renderer.render_frame(cfg_, rc_, scene_, m, **kw)
                     splat.resolve_aovs(rc_, fb)
+                    if rc_.enable_id_matte:
+                        splat.resolve_crypto(fb)
 
         frame()
         torch.cuda.synchronize()

@@ -23,7 +23,13 @@ Tolerances, each set from the value measured on these inputs:
   and the energies within 2.3e-10, so the planes are also held to 1e-6 of
   scale.  The frames splat 1,344 to 9,156 slots each; ``chroma_rescaled``
   asks for 16,128 slots, is granted 9,156 of a 9,216-slot queue, and 84 of
-  its sources hold a slot count that is not a multiple of 3.
+  its sources hold a slot count that is not a multiple of 3.  Each frame
+  also carries the id-matte: ``crypto_total`` to 1e-6 of scale,
+  ``crypto_rank_w`` to 1e-4 (JAX's coverages are float32 prefix
+  differences over the whole record stream, 2.8e-5 of scale from a float64
+  sum on "chroma", where the port's float64 sums round to 2.8e-8) and
+  ``crypto_rank_id`` identical away from near-ties
+  (``test_torch_slice.assert_crypto_close``).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -42,7 +48,12 @@ import golden_configs as gc
 from tests.test_po_pallas import synthetic_lens  # noqa: F401 (fixture)
 from tests.test_torch_kernels import _splat_inputs
 from tests.test_torch_optics import scaled_err, to_torch_lens
-from tests.test_torch_slice import frac_pixels_off, to_port
+from tests.test_torch_slice import (
+    CRYPTO_PLANES,
+    assert_crypto_close,
+    frac_pixels_off,
+    to_port,
+)
 
 from pota_tpu_torch import ops
 from pota_tpu_torch.models import po_camera as tpc
@@ -276,9 +287,11 @@ def _frame_pair(lens, case):
                                         jscene.n_objects)
         jfb = jsplat.splat_frame(cfg, RC, jscene, js, gc.M, po_lens=lens,
                                  po_state=JPOState(**STATE), bokeh_cdf=jcdf,
+                                 n_crypto_ids=jscene.n_objects,
                                  use_pallas=True, fused_splat=True)
         assert jsplat._LAST_PATH == "expanded"
     want = {k: np.asarray(v) for k, v in jsplat.resolve_aovs(RC, jfb).items()}
+    want.update({k: np.asarray(jfb[k]) for k in CRYPTO_PLANES})
 
     tjs = {k: torch.as_tensor(np.array(v)) for k, v in js.items()}
     for k in ("px", "py", "sid", "key"):
@@ -298,11 +311,13 @@ def _frame_pair(lens, case):
                      sc.lightgrid_scene(**GRID, device="cpu"), tjs,
                      look_at([0, 0, 0], [0, 0, -1], device="cpu"),
                      po_lens=to_torch_lens(lens), po_state=POState(**STATE),
-                     bokeh_cdf=tcdf, with_diagnostics=True,
+                     bokeh_cdf=tcdf, n_crypto_ids=GRID["n"] ** 2,
+                     with_diagnostics=True,
                      ops=ops.KERNELS._replace(
                          po_splat_lam=recorder("po_splat_lam"),
                          po_splat_ext=recorder("po_splat_ext")))
     got = {k: v.numpy() for k, v in resolve_aovs(RC, fb).items()}
+    got.update({k: fb[k].numpy() for k in CRYPTO_PLANES})
     energy = (float(fb["RGBA"].double().sum()),
               float(np.asarray(jfb["RGBA"], np.float64).sum()))
     return got, want, energy, fb, calls
@@ -317,7 +332,11 @@ def frames(synthetic_lens):
 def test_frame_matches_jax_expanded_on_same_stream(frames, case):
     got, want, (e_got, e_want), fb, _ = frames[case]
     assert int(fb["_n_valid_splats"]) > 1000
-    for plane in want:
+    # JAX's run sums are float32 prefix differences over the frame's 32,256
+    # records (total weight 2,304): 2.8e-5 of scale from a float64 sum of
+    # the same records on "chroma", the port 2.8e-8
+    assert_crypto_close(got, want, w_tol=1e-4)
+    for plane in set(want) - set(CRYPTO_PLANES):
         assert np.isfinite(got[plane]).all(), plane
         assert frac_pixels_off(got[plane], want[plane]) <= MAX_PIXELS_OFF, \
             plane

@@ -599,3 +599,65 @@ def test_render_differentiable_on_the_card(dev):
     assert bool(torch.isfinite(grads[0]).all())
     assert float(grads[0].norm()) > 0
     assert float((grads[0] - grads[1]).norm() / grads[1].norm()) < 5e-2
+
+
+@pytest.mark.parametrize("w_total, npix", [(200_000, 4096), (3_000_001, 65536)])
+def test_crypto_topk_on_the_card_matches_float64(dev, w_total, npix):
+    """The id-matte's two-sort rank extraction on the card against
+    chip_smoke.py's float64 oracle of the same records (a ``torch.unique``
+    inverse and float64 ``index_add_``): kept coverages and pixel totals
+    within 1e-6 relative, ids identical away from near-ties."""
+    from chip_smoke import crypto_oracle
+    from pota_tpu_torch.render.crypto import crypto_topk
+
+    rng = np.random.default_rng(w_total)
+    pix = rng.integers(-3, npix + 3, w_total)
+    ids = rng.integers(-1, 9, w_total)
+    w = rng.uniform(0.0, 1.0, w_total).astype(np.float32)
+    w[rng.uniform(size=w_total) < 0.1] = 0.0
+    args = [_t(a, dev) for a in (pix, ids, w)]
+    rid, rw, tot = crypto_topk(*args, npix, k=6)
+    o_id, o_w, o_tot = crypto_oracle(*args, npix, 6)
+    kept = o_w > 0
+    assert int(kept.sum()) > npix
+    assert float(((rw.double() - o_w).abs()[kept] / o_w[kept]).max()) < 1e-6
+    assert not bool((rw[~kept] != 0).any())
+    on = o_tot > 0
+    assert float(((tot.double() - o_tot).abs()[on] / o_tot[on]).max()) < 1e-6
+    apart = torch.ones_like(kept)
+    close = (((o_w[:, :-1] - o_w[:, 1:]).abs() <= 1e-6 * o_w[:, :-1])
+             & (o_w[:, :-1] > 0))
+    apart[:, 1:] &= ~close
+    apart[:, :-1] &= ~close
+    assert torch.equal(rid.long()[apart], o_id[apart])
+
+
+def test_render_id_matte_on_the_card(dev):
+    """A PO frame of chip_smoke.py's glass teapot with the id-matte on the
+    card: K1-K4 launched once each; the id-matte planes through the kernels
+    against those through the plain versions (pixel totals to 1e-3 of
+    scale on >= 98% of pixels, as the frames' planes)."""
+    from chip_smoke import glass_teapot
+    from pota_tpu_torch.render.splat import resolve_crypto
+
+    scene = glass_teapot(dev)
+    rc = pt.RenderConfig(xres=96, yres=64, spp=1, enable_id_matte=True)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    fbs = []
+    for kernel_set in (ops.KERNELS, ops.PLAIN):
+        ops.reset_launches()
+        _, fb = render_frame(CFG, rc, scene, m, po_lens=lens, po_state=STATE,
+                             ops=kernel_set)
+        if kernel_set is ops.KERNELS:
+            assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+                "po_forward": 1, "expand": 1, "po_splat": 1,
+                "segment_accum": 1}
+        fbs.append(fb)
+    tot_k, tot_p = fbs[0]["crypto_total"], fbs[1]["crypto_total"]
+    assert float(tot_p.max()) > 0
+    off = (tot_k - tot_p).abs() > 1e-3 * float(tot_p.abs().max())
+    assert float(off.double().mean()) <= 0.02
+    layers = resolve_crypto(fbs[0])
+    assert all(bool(torch.isfinite(layer).all()) for layer in layers)
+    assert float(layers[0][..., 1].max()) <= 1.0 + 1e-5

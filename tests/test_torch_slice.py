@@ -83,6 +83,9 @@ def jax_stream_to_torch(js):
     return tjs
 
 
+CRYPTO_PLANES = ("crypto_rank_id", "crypto_rank_w", "crypto_total")
+
+
 def splat_pair(cfg, rc, jscene, tscene, m_end=None, po=None, cdf=None,
                aovs=None, ops=None):
     """JAX's splat_frame (on the CPU: its decomposed branch) and the port's
@@ -90,8 +93,11 @@ def splat_pair(cfg, rc, jscene, tscene, m_end=None, po=None, cdf=None,
     ((jax lens, jax state), (port lens, port state)), ``cdf`` (jax, port)
     bokeh tables, ``m_end`` the end-of-shutter matrix as numpy, ``aovs``
     the port's AOV specs, ``ops`` the port's kernel set (default its
-    kernels).  Returns (port resolved planes, JAX resolved
-    planes, (port raw RGBA energy, JAX's), the port's framebuffer)."""
+    kernels).  With ``rc.enable_id_matte`` both splats take the scene's
+    object count as ``n_crypto_ids`` (as ``render_frame`` does), and both
+    planes dicts carry the raw id-matte planes (:data:`CRYPTO_PLANES`).
+    Returns (port resolved planes, JAX resolved planes, (port raw RGBA
+    energy, JAX's), the port's framebuffer)."""
     from pota_tpu.render import aov as jaov
     from pota_tpu.render import splat as jsplat
     from pota_tpu.render.renderer import render_sample_stream as jstream
@@ -104,22 +110,26 @@ def splat_pair(cfg, rc, jscene, tscene, m_end=None, po=None, cdf=None,
     jaovs = None if aovs is None else [
         jaov.AOVSpec(a.name, a.type, a.filter, a.source, a.redistribute)
         for a in aovs]
+    n_ids = tscene.n_objects if rc.enable_id_matte else 0
     js = jstream(jcfg, jrc, jscene, gc.M, 0, po_lens=jl, po_state=js_,
                  bokeh_cdf=jcdf, cam_to_world_end=jend)
     jfb = jsplat.splat_frame(jcfg, jrc, jscene, js, gc.M, po_lens=jl,
                              po_state=js_, bokeh_cdf=jcdf, aovs=jaovs,
-                             cam_to_world_end=jend)
+                             n_crypto_ids=n_ids, cam_to_world_end=jend)
     want = {k: np.asarray(v)
             for k, v in jsplat.resolve_aovs(jrc, jfb, jaovs).items()}
     with torch.no_grad():
         fb = splat_frame(
             cfg, rc, tscene, jax_stream_to_torch(js),
             look_at([0, 0, 0], [0, 0, -1], device="cpu"), po_lens=tl,
-            po_state=ts_, bokeh_cdf=tcdf, aovs=aovs,
+            po_state=ts_, bokeh_cdf=tcdf, aovs=aovs, n_crypto_ids=n_ids,
             cam_to_world_end=(None if m_end is None
                               else torch.as_tensor(jend)),
             with_diagnostics=True, ops=ops)
     got = {k: v.numpy() for k, v in resolve_aovs(rc, fb, aovs).items()}
+    if n_ids:
+        got.update({k: fb[k].numpy() for k in CRYPTO_PLANES})
+        want.update({k: np.asarray(jfb[k]) for k in CRYPTO_PLANES})
     energy = (float(fb["RGBA"].double().sum()),
               float(np.asarray(jfb["RGBA"], np.float64).sum()))
     return got, want, energy, fb
@@ -132,12 +142,38 @@ def assert_splat_pair_close(pair, tol=SAME_STREAM_TOL, energy_tol=ENERGY_TOL):
     got, want, (e_got, e_want), fb = pair
     assert int(fb["_n_valid_splats"]) > 0
     assert set(got) == set(want)
-    for plane in want:
+    for plane in set(want) - set(CRYPTO_PLANES):
         assert np.isfinite(got[plane]).all(), plane
         assert scaled_err(got[plane], want[plane]) < tol, plane
+    if "crypto_total" in want:
+        assert_crypto_close(got, want)
     assert abs(e_got - e_want) <= energy_tol * max(abs(e_want), 1e-12)
     npix = fb["filter_weight"].numel()
     assert abs(float(fb["filter_weight"].sum()) - npix) <= 1e-5 * npix
+
+
+def assert_crypto_close(got, want, total_tol=1e-6, w_tol=1e-5,
+                        tie=1e-5):
+    """The id-matte planes of two splats of one stream: ``crypto_total``
+    within ``total_tol`` of its scale, ``crypto_rank_w`` within ``w_tol``,
+    and ``crypto_rank_id`` identical except at near-ties: ranks whose
+    weight in ``want`` lies within ``tie`` (relative), or within twice
+    ``w_tol`` of scale, of a neighbouring rank's.  Some pixel holds an
+    id."""
+    tot_g, tot_w = got["crypto_total"], want["crypto_total"]
+    assert float(tot_w.max()) > 0 and (want["crypto_rank_id"] >= 0).any()
+    assert scaled_err(tot_g, tot_w) < total_tol
+    rw_g, rw_w = got["crypto_rank_w"], want["crypto_rank_w"]
+    assert scaled_err(rw_g, rw_w) < w_tol
+    step = np.abs(rw_w[..., 1:] - rw_w[..., :-1])
+    close = ((step <= np.maximum(tie * rw_w[..., :-1],
+                                 2.0 * w_tol * float(rw_w.max())))
+             & (rw_w[..., :-1] > 0))
+    near = np.zeros(rw_w.shape, bool)
+    near[..., 1:] |= close
+    near[..., :-1] |= close
+    np.testing.assert_array_equal(got["crypto_rank_id"][~near],
+                                  want["crypto_rank_id"][~near])
 
 
 def frac_pixels_off(got, want, tol=PIXEL_TOL):
@@ -306,6 +342,25 @@ def test_unported_configs_raise(port_po, change, match):
     assert_splat_pair_close(pair)
 
 
+GLASS_TINT = 0.5
+
+
+def glass_teapots(tint=GLASS_TINT):
+    """The teapot scene with thin glass of grey ``tint`` on its two nearest
+    diffuse spheres (indices 0 and 1): JAX's and the port's (CPU)."""
+    import jax.numpy as jnp
+
+    from pota_tpu.render import scene as jsc
+
+    jscene = jsc.teapot_scene()
+    trans = np.zeros((jscene.n_objects, 3), np.float32)
+    trans[:2] = tint
+    jscene = dataclasses.replace(jscene, transmission=jnp.asarray(trans))
+    tscene = dataclasses.replace(sc.teapot_scene(device="cpu"),
+                                 transmission=torch.as_tensor(trans))
+    return jscene, tscene
+
+
 def ring_cdfs():
     """The golden configs' procedural ring aperture
     (``golden_configs.py::_bokeh_ring_cdf``): JAX's tables and the port's
@@ -323,22 +378,31 @@ def ring_cdfs():
     ({"differentiable": True, "cam_to_world_end": "trucked"}, {},
      "differentiable"),
     ({"cam_to_world_end": torch.eye(4)}, {}, "motion blur"),
-    ({}, {"enable_id_matte": True}, "id-matte"),
+    ({}, {"enable_id_matte": True}, None),
     ({"differentiable": True, "aovs": "extra gaussian"}, {}, "Q1.8b"),
     ({"differentiable": True, "camera": "thin lens"}, {}, "Q1.8c"),
 ])
 def test_unported_options_raise(jax_po, port_po, kwargs, rc_kw, match):
-    """The id-matte is refused, and so is the differentiable mode with
-    motion blur (ROADMAP Q1.8a), with a gaussian AOV besides RGBA (Q1.8b)
-    and on the thin lens (Q1.8c); motion blur, refused before the port
-    had it, renders an 8x8 frame held against JAX's splat of the same
-    stream.  (``differentiable=True`` itself runs:
+    """The differentiable mode is refused with motion blur (ROADMAP
+    Q1.8a), with a gaussian AOV besides RGBA (Q1.8b) and on the thin lens
+    (Q1.8c).  Motion blur and the id-matte, refused before the port had
+    them, render an 8x8 frame held against JAX's splat of the same stream
+    (the id-matte on K3, of a teapot with two glass spheres, its crypto
+    planes compared).  (``differentiable=True`` itself runs:
     tests/test_torch_grad.py.)"""
+    from pota_tpu_torch.render import splat as tsplat
     from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
 
     cfg, lens, state = port_po
     rc = pt.RenderConfig(xres=8, yres=8, spp=1, **rc_kw)
     kwargs = dict(kwargs)
+    if rc.enable_id_matte:
+        jscene, tscene = glass_teapots()
+        pair = splat_pair(cfg, rc, jscene, tscene,
+                          po=(jax_po[1:], (lens, state)))
+        assert tsplat.LAST_ROUTE == "k3"
+        assert_splat_pair_close(pair)
+        return
     if kwargs.get("cam_to_world_end") is not None and not kwargs.get(
             "differentiable"):
         end = look_at([2.0, 0, 0], [2.0, 0, -1], device="cpu")

@@ -350,7 +350,7 @@ REFUSALS = {
     "tl_image_bokeh": ({"bokeh_enable_image": True}, {}, {}, None),
     "tl_blades": ({"aperture_blades": 6}, {}, {}, None),
     "motion_blur": ({}, {}, {"m_end": "pan"}, None),
-    "id_matte": ({}, {"enable_id_matte": True}, {}, "id-matte"),
+    "id_matte": ({"abb_coma": 0.5}, {"enable_id_matte": True}, {}, None),
     "gaussian_aovs": ({}, {}, {"aovs": "extra"}, None),
     "differentiable": ({}, {}, {"differentiable": True}, "differentiable"),
 }
@@ -358,11 +358,12 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_check_supported_refuses(case):
-    """The id-matte and the differentiable mode are refused, naming the
-    ROADMAP item that ports them.  Every other case renders an 8x8 teapot
-    frame of its setting whose splat of JAX's sample stream equals JAX's
-    to 1e-6 of scale (the aberrated settings and motion blur through the
-    decomposed route, the extra gaussian AOV through K5)."""
+    """The differentiable mode is refused, naming the ROADMAP item that
+    ports it.  Every other case renders an 8x8 teapot frame of its setting
+    whose splat of JAX's sample stream equals JAX's to 1e-6 of scale (the
+    aberrated settings, motion blur and the id-matte (with coma) through
+    the decomposed route, the extra gaussian AOV through K5; the id-matte
+    with its crypto planes compared)."""
     from pota_tpu.render import scene as jsc
 
     from pota_tpu_torch.render import splat as tsplat
@@ -376,7 +377,7 @@ def test_check_supported_refuses(case):
         with pytest.raises(NotImplementedError, match=match):
             check_supported(cfg, rc, **kw)
         # the ROADMAP item that ports it is named
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Q1\.(8|10)"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Q1\.8"):
             check_supported(cfg, rc, **kw)
         return
     check_supported(cfg, rc)
