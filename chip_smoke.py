@@ -83,6 +83,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                PO lens, 1024x1024 @ 1 spp, ``--aovs --id-matte --glare 0.5
                --aperture-blades 6`` into a temporary EXR, read back: every
                channel finite, ``crypto00..02`` present
+ 12. fit_catalog  refits the 45 catalog lenses on the card with JAX's
+               defaults (degree 5, 200,000 samples, 160 terms, seed 0; one
+               lens per base design first, the rest while the fits stay
+               under :data:`FIT_BUDGET_S`), holds each to
+               tests/test_fit_fidelity.py's thresholds on 20,000 fresh
+               held-out rays (seed 987) against the port's own tracer,
+               prints seconds, valid fraction, terms, the terms shared
+               with the committed fit and the design's singular values;
+               folds the fresh flagship fit and renders the 1080p flagship
+               frame with it (K1-K4 once each); runs the command line with
+               ``--lens double_gauss`` (no committed fit: fitted, cached
+               under ``pota_tpu_torch/build/lens_fits/``) and checks that
+               ``data/lenses/`` did not change
+ 13. derivs    ``trace_camera_rays_with_derivs`` at 1920x1080 @ 1 spp with
+               config 2's PO camera (K1 once) and config 1's thin lens:
+               finite differentials on live rays, held on 65,536 seeded
+               live rays to float64 central differences of the deriv-ray
+               path (:func:`deriv_check`); ms and peak memory
+ 14. replay    the flagship's 1080p stream saved (``save_capture``), read
+               back onto the card and replayed with the scene (K2, K3, K4
+               once each, K1 never; against the live frame) and without
+               one (the decomposed route: K2, K6, K4, K3 never); write,
+               read and replay ms
 Each kernel record carries ``bound_ms``, the least time the card could take
 for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
@@ -136,7 +159,28 @@ PATH_KERNELS = {
     "config5": ("expand", "po_splat", "segment_accum"),
     "flagship_idmatte": ("po_forward", "expand", "po_splat", "segment_accum"),
     "config2": ("po_forward",),
+    "flagship_fresh_fit": ("po_forward", "expand", "po_splat",
+                           "segment_accum"),
+    "derivs_po": ("po_forward",),
+    "derivs_thin": (),
+    "replay": ("expand", "po_splat", "segment_accum"),
+    "replay_null": ("expand", "po_backward", "segment_accum"),
 }
+# tests/test_fit_fidelity.py's gate: rms (position mm, slope, iris mm)
+# ceilings of a fit on fresh held-out rays, by the lens's family
+FIT_THRESH = (0.12, 0.005, 0.04)
+FIT_THRESH_BY_FAMILY = {"fisheye": (0.15, 0.004, 0.02),
+                        "retrofocus_wideangle": (0.10, 0.006, 0.04)}
+FIT_HELDOUT_SEED, FIT_HELDOUT_RAYS = 987, 20_000
+# past this many seconds of fitting, only one lens per base design is fitted
+FIT_BUDGET_S = 120.0
+# ray differentials against float64 central differences of the deriv-ray
+# path (tests/test_derivs.py:57), on a seeded subset of live rays
+DERIV_RTOL, DERIV_ATOL = 2e-2, 2e-4
+DERIV_CHECK_RAYS = 65_536
+DERIV_STEP = 1e-3                  # of a pixel, as tests/test_derivs.py
+# a replayed capture against the live frame: relative energy
+REPLAY_ENERGY_TOL = 2e-3
 # the id-matte's ranked planes against their float64 oracle (relative)
 CRYPTO_TOL = 1e-5
 # config 5's plain K3 runs on the leading slots of its 33M-slot queue
@@ -1115,6 +1159,355 @@ class Config5:
         return launches
 
 
+def fit_fidelity(poly, lens, n: int = FIT_HELDOUT_RAYS):
+    """rms (position mm, slope, iris mm) of a fit against the port's own
+    tracer on fresh held-out rays (tests/test_fit_fidelity.py's measure)."""
+    import torch
+    from pota_tpu_torch.optics import fit as tfit
+    from pota_tpu_torch.optics.polynomial import poly_eval
+    from pota_tpu_torch.optics.raytrace import trace_to_chart
+
+    samples, _, _ = tfit.sample_fit_domain(lens, n, seed=FIT_HELDOUT_SEED)
+    with torch.no_grad():
+        s = torch.as_tensor(samples, device=lens.device)
+        out, _, ap_xy, v = trace_to_chart(lens, s)
+        pt = poly_eval(poly.pt, s)[v]
+        ap = poly_eval(poly.ap, s)[v]
+    if int(v.sum()) < 10:
+        fail(f"fit_catalog {lens.name}: too few valid held-out rays")
+    rms = lambda a: float(torch.sqrt((a.double() ** 2).mean()))
+    return (rms(pt[:, :2] - out[v, :2]), rms(pt[:, 2:4] - out[v, 2:4]),
+            rms(ap - ap_xy[v]))
+
+
+def term_set(poly) -> set:
+    return {tuple(e) for e in poly.pt.exponents.tolist()}
+
+
+def fit_catalog(dev, tag) -> dict:
+    """Refit the catalog on the card with JAX's defaults, one lens per base
+    design first; each fit held to the fidelity gate.  Returns the fits."""
+    import torch
+    from pota_tpu_torch.lens import database as db
+    from pota_tpu_torch.optics import fit as tfit
+
+    names = db.lens_names()
+    first = {}       # one lens per base design, the flagship for its own
+    for name in [FLAGSHIP] + names:
+        first.setdefault(db.CATALOG[name][0], name)
+    order = list(first.values()) + [n for n in names
+                                    if n not in first.values()]
+    fits, secs, cut, by_design = {}, [], [], {}
+    t_all = time.perf_counter()
+    for name in order:
+        if (name not in first.values()
+                and time.perf_counter() - t_all > FIT_BUDGET_S):
+            cut.append(name)
+            continue
+        lens = db.get_lens_system(name, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poly, diag = tfit.fit_lens(lens, return_diagnostics=True, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        rms = fit_fidelity(poly, lens)
+        limit = FIT_THRESH_BY_FAMILY.get(name.split("__")[1], FIT_THRESH)
+        committed = tfit.load_poly_lens(name, device=dev)
+        shared = (len(term_set(poly) & term_set(committed))
+                  if committed is not None else None)
+        print(f"fit {name}: {secs[-1]:.3f} s, valid_frac "
+              f"{diag['valid_frac']:.4f}, terms {diag['n_terms']}, shared "
+              f"with the committed fit {shared}, held-out rms pos "
+              f"{rms[0]:.5f} dir {rms[1]:.6f} ap {rms[2]:.5f} (limits "
+              f"{limit}), design singular values {diag['min_singular']:.3e}"
+              f"..{diag['max_singular']:.3e} rank {diag['rank']}",
+              flush=True)
+        if any(r > t for r, t in zip(rms, limit)):
+            fail(f"fit_catalog {name}: held-out rms {rms} over {limit}")
+        fam = by_design.setdefault(db.CATALOG[name][0], dict(
+            lenses=0, min_rank=diag["rank"], min_singular=diag["min_singular"],
+            min_shared=shared))
+        fam["lenses"] += 1
+        fam["min_rank"] = min(fam["min_rank"], diag["rank"])
+        fam["min_singular"] = min(fam["min_singular"], diag["min_singular"])
+        if shared is not None:
+            fam["min_shared"] = min(fam["min_shared"] or shared, shared)
+        fits[name] = poly
+    total = time.perf_counter() - t_all
+    print(f"fit_catalog_total_s {total} ({len(fits)} fits) {tag}", flush=True)
+    print(f"fit_catalog_s_per_fit {statistics.median(secs)} (median; first "
+          f"{secs[0]}) {tag}", flush=True)
+    print(f"fit_catalog by base design (lenses, the least rank of the valid "
+          f"rays' design, its least singular value, the fewest terms shared "
+          f"with a committed fit): {json.dumps(by_design)}", flush=True)
+    if cut:
+        print(f"fit_catalog: the fits passed {FIT_BUDGET_S} s, so the rest "
+              f"of the catalog was cut to one lens per base design; left "
+              f"out {len(cut)}: {cut}", flush=True)
+    return fits
+
+
+def deriv_check(trace64, samples, live, xres: int, yres: int, derivs,
+                label: str, seed: int = 5) -> None:
+    """Hold ray differentials on DERIV_CHECK_RAYS seeded live rays to
+    central differences of ``trace64(sx, sy)`` (the deriv-ray path in
+    float64), DERIV_STEP of a pixel each way."""
+    import torch
+
+    idx = torch.nonzero(live)[:, 0]
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(idx.numel(), min(DERIV_CHECK_RAYS, idx.numel()),
+                      replace=False)
+    idx = idx[torch.as_tensor(np.sort(pick), device=idx.device)]
+    s = {k: samples[k][idx].double() for k in ("sx", "sy", "r1", "r2")}
+    hx, hy = 2.0 / xres * DERIV_STEP, 2.0 / yres * DERIV_STEP
+    with torch.no_grad():
+        ox1, dx1 = trace64(s, s["sx"] + hx, s["sy"])
+        ox0, dx0 = trace64(s, s["sx"] - hx, s["sy"])
+        oy1, dy1 = trace64(s, s["sx"], s["sy"] + hy)
+        oy0, dy0 = trace64(s, s["sx"], s["sy"] - hy)
+    fd = {"dOdx": (ox1 - ox0) / (2 * DERIV_STEP),
+          "dDdx": (dx1 - dx0) / (2 * DERIV_STEP),
+          "dOdy": (oy1 - oy0) / (2 * DERIV_STEP),
+          "dDdy": (dy1 - dy0) / (2 * DERIV_STEP)}
+    for k, want in fd.items():
+        got = derivs[k][idx].double()
+        err = (got - want).abs()
+        bad = err > DERIV_ATOL + DERIV_RTOL * want.abs()
+        rel = float((got - want).norm() / want.norm().clamp(min=1e-30))
+        print(f"{label} {k}: max |jvp - fd| {float(err.max()):.3e} on "
+              f"values up to {float(want.abs().max()):.3e}, relative L2 "
+              f"{rel:.3e}, {int(bad.sum())} of {idx.numel()} rays outside "
+              f"rtol {DERIV_RTOL} atol {DERIV_ATOL}", flush=True)
+        if bool(bad.any()):
+            fail(f"{label} {k}: differentials disagree with float64 central "
+                 f"differences")
+
+
+def fit_phase(dev, tag, cfg, rc, scene, m, po, drive) -> dict:
+    """Phase 12: the catalog refitted on the card, the flagship frame with
+    the fresh fit, and the command line fitting a lens with no committed
+    fit.  Returns the launches of the fresh fit's frame."""
+    import os
+    import tempfile
+
+    import torch
+    from pota_tpu_torch import cli
+    from pota_tpu_torch.io.exr import read_exr
+    from pota_tpu_torch.ops import po_kernels as pk
+    from pota_tpu_torch.optics import fit as tfit
+    from pota_tpu_torch.optics.focus import setup_po_camera
+    from pota_tpu_torch.render.renderer import render_frame
+    from pota_tpu_torch.render.splat import resolve_imager
+
+    phase("fit_catalog: refit the catalog on the card (degree 5, 200,000 "
+          "samples, 160 terms, seed 0)")
+
+    def lens_files():
+        return sorted((f, os.path.getmtime(os.path.join(tfit.LENS_DIR, f)))
+                      for f in os.listdir(tfit.LENS_DIR))
+
+    data_before = lens_files()
+    fits = fit_catalog(dev, tag)
+    fresh = fits[FLAGSHIP]
+    del fits
+    pk.check_basis(fresh)
+    po_fresh = dict(po_lens=fresh, po_state=setup_po_camera(fresh, cfg))
+    print(f"setup_po_camera (fresh flagship fit) {po_fresh['po_state']}",
+          flush=True)
+    launches, fb = drive("flagship with the card's fresh fit",
+                         "flagship_fresh_fit", cfg, rc, scene, **po_fresh)
+    if {k: v for k, v in launches.items() if v} != {
+            k: 1 for k in PATH_KERNELS["flagship_fresh_fit"]}:
+        fail(f"flagship_fresh_fit: launches {launches}, not one of each of "
+             f"K1-K4")
+    with torch.no_grad():
+        e_fresh = float(resolve_imager(rc, fb)[..., :3].double().sum())
+        del fb
+        img, _ = render_frame(cfg, rc, scene, m, seed=0, **po)
+        e_committed = float(img[..., :3].double().sum())
+        del img
+    print(f"flagship_fresh_fit energy {e_fresh} against the committed "
+          f"fit's {e_committed} (relative {e_fresh / e_committed - 1.0:+.4e})"
+          f" {tag}", flush=True)
+    del po_fresh, fresh
+    torch.cuda.empty_cache()
+
+    # the command line with a lens that has no committed fit
+    cached = os.path.join(tfit.FIT_CACHE_DIR, "double_gauss__deg5.npz")
+    if os.path.exists(cached):
+        os.remove(cached)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/dg.exr"
+        t0 = time.perf_counter()
+        if cli.main(["--camera", "po", "--lens", "double_gauss", "--scene",
+                     "lightgrid", "--res", "512", "--spp", "1",
+                     "--out", out]) != 0:
+            fail("cli --lens double_gauss: non-zero exit")
+        print(f"cli_fit_s {time.perf_counter() - t0} {tag}", flush=True)
+        planes = read_exr(out)
+    if not all(np.isfinite(v).all() for v in planes.values()):
+        fail("cli --lens double_gauss: channels not finite")
+    if not os.path.exists(cached):
+        fail(f"cli --lens double_gauss: no fit cached at {cached}")
+    if lens_files() != data_before:
+        fail("fit_catalog: data/lenses/ changed")
+    print(f"cli --lens double_gauss fitted into {cached}; data/lenses/ "
+          f"unchanged ({len(data_before)} files)", flush=True)
+    torch.cuda.empty_cache()
+    return {"flagship_fresh_fit": launches}
+
+
+def derivs_phase(dev, tag, rc, lens, cfg_po, state_po, cfg_thin) -> dict:
+    """Phase 13: ray differentials of a full frame, PO (K1 once) and thin
+    lens (no kernel), held to float64 central differences.  Returns the
+    launches of each run."""
+    import copy
+
+    import torch
+    from pota_tpu_torch import ops
+    from pota_tpu_torch.models.po_camera import trace_fw_po
+    from pota_tpu_torch.optics import thinlens
+    from pota_tpu_torch.render import sampling
+    from pota_tpu_torch.render.renderer import trace_camera_rays_with_derivs
+
+    phase(f"derivs {rc.xres}x{rc.yres} @ {rc.spp} spp: "
+          f"trace_camera_rays_with_derivs, PO (config 2's camera) and thin "
+          f"lens (config 1's camera)")
+    lens64 = copy.deepcopy(lens).double()
+    out = {}
+    for path, cfg_d, kw, trace64 in (
+            ("derivs_po", cfg_po, dict(po_lens=lens, po_state=state_po),
+             lambda s, sx, sy: trace_fw_po(
+                 cfg_po, lens64, sx, sy, s["r1"], s["r2"], None, state_po,
+                 deriv_ray=True)[:2]),
+            ("derivs_thin", cfg_thin, {},
+             lambda s, sx, sy: thinlens.trace_fw_thinlens(
+                 cfg_thin, sx, sy, s["r1"], s["r2"], deriv_ray=True)[:2])):
+        smp = sampling.frame_samples(rc, 0, device=dev)
+
+        def run():
+            return trace_camera_rays_with_derivs(cfg_d, rc, smp, **kw)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        _, _, w, der = run()
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"launches in the {path} run: {launches}", flush=True)
+        if {k: v for k, v in launches.items() if v} != {
+                k: 1 for k in PATH_KERNELS[path]}:
+            fail(f"{path}: launches {launches}, want {PATH_KERNELS[path]} "
+                 f"once each")
+        live = w > 0
+        print(f"{path} live rays {int(live.sum())} of {live.numel()}",
+              flush=True)
+        for k, v in der.items():
+            if not bool(torch.isfinite(v[live]).all()):
+                fail(f"{path}: {k} not finite on live rays")
+        deriv_check(trace64, smp, live, rc.xres, rc.yres, der, path)
+        del der, w, live
+        ms = host_ms(run)
+        print(f"{path}_ms {ms} {tag}", flush=True)
+        print(f"{path}_peak_device_gb {peak} {tag}", flush=True)
+        out[path] = launches
+        del smp
+        torch.cuda.empty_cache()
+    return out
+
+
+def replay_phase(dev, tag, cfg, rc, scene, m, po) -> dict:
+    """Phase 14: a frame's stream captured to a file, read back onto the
+    card and replayed with the scene (against the live frame) and without
+    one (the decomposed route).  Returns the launches of both replays."""
+    import os
+    import tempfile
+
+    import torch
+    from pota_tpu_torch import ops
+    from pota_tpu_torch.render import replay, splat as tsplat
+    from pota_tpu_torch.render.renderer import (
+        render_frame, render_sample_stream)
+
+    phase(f"replay {rc.xres}x{rc.yres} @ {rc.spp} spp: the flagship's "
+          f"stream saved, read back and re-splatted")
+    with torch.no_grad():
+        img_live, fb_live = render_frame(cfg, rc, scene, m, seed=0, **po)
+        stream = render_sample_stream(cfg, rc, scene, m, 0, **po)
+    n_rows = stream["rgba"].shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = f"{tmp}/flagship.pstream"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay.save_capture(cap, stream)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(cap)
+        if size != 24 + n_rows * len(replay.FIELDS) * 4:
+            fail(f"replay: capture of {size} bytes for {n_rows} rows")
+        del stream
+        t0 = time.perf_counter()
+        loaded = replay.load_capture(cap, device=dev)
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+    print(f"replay capture {n_rows} x {len(replay.FIELDS)} float32, {size} "
+          f"bytes; replay_write_ms {write_ms} replay_read_ms {read_ms} {tag}",
+          flush=True)
+    out = {}
+
+    def replay_run(label, path, scene_):
+        with torch.no_grad():
+            ops.reset_launches()
+            img_, fb_ = replay.replay_splat(cfg, rc, loaded, m, scene=scene_,
+                                            **po)
+            torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        print(f"launches in the {label} run: {launches} (route "
+              f"{tsplat.LAST_ROUTE})", flush=True)
+        if {k: v for k, v in launches.items() if v} != {
+                k: 1 for k in PATH_KERNELS[path]}:
+            fail(f"{label}: launches {launches}, want {PATH_KERNELS[path]} "
+                 f"once each")
+        if not bool(torch.isfinite(img_).all()):
+            fail(f"{label}: image not finite")
+        out[path] = launches
+        return img_, fb_
+
+    img_r, fb_r = replay_run("replay with the scene", "replay", scene)
+    e_live = float(img_live[..., :3].double().sum())
+    e_r = float(img_r[..., :3].double().sum())
+    off = frac_pixels_off(img_r, img_live)
+    same = all(torch.equal(fb_r[k], fb_live[k]) for k in fb_live)
+    print(f"replay energy {e_r} against the live frame's {e_live} "
+          f"(relative {e_r / e_live - 1.0:+.3e}), pixels off {off}, "
+          f"framebuffer planes bit-identical: {same}, image bit-identical: "
+          f"{torch.equal(img_r, img_live)}", flush=True)
+    if abs(e_r - e_live) > REPLAY_ENERGY_TOL * abs(e_live):
+        fail("replay: energy off the live frame's")
+    if off > MAX_PIXELS_OFF:
+        fail(f"replay: {off} of pixels off the live frame")
+    del fb_r, fb_live, img_r, img_live
+    ms = host_ms(lambda: replay.replay_splat(cfg, rc, loaded, m, scene=scene,
+                                             **po))
+    print(f"replay_splat_ms {ms} {tag}", flush=True)
+
+    img_n, fb_n = replay_run("replay without a scene", "replay_null", None)
+    if tsplat.LAST_ROUTE != "decomposed_po":
+        fail(f"replay without a scene took the {tsplat.LAST_ROUTE} route")
+    e_n = float(img_n[..., :3].double().sum())
+    if not e_n > 0.0:
+        fail("replay without a scene: no energy")
+    del img_n, fb_n
+    ms = host_ms(lambda: replay.replay_splat(cfg, rc, loaded, m, **po))
+    print(f"replay_null energy {e_n}; replay_null_splat_ms {ms} {tag}",
+          flush=True)
+    del loaded
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1832,6 +2225,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     path_launches["config5"] = c5.run(tag)
+    torch.cuda.empty_cache()
+    path_launches.update(fit_phase(dev, tag, cfg, rc_full, scene, m, po,
+                                   drive))
+    path_launches.update(derivs_phase(dev, tag, rc_full, lens, cfg_fw,
+                                      state_fw, cfg1))
+    path_launches.update(replay_phase(dev, tag, cfg, rc_full, scene, m, po))
 
     path_of = {"tl_splat": "config1", "po_splat_lam": "config3_no_bokeh",
                "po_splat_ext": "config3", "po_backward": "flagship_mb"}

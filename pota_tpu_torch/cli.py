@@ -5,7 +5,10 @@ Renders the built-in scenes with any camera and lens configuration and
 writes an EXR (beauty, with ``--aovs`` the AOV planes, with ``--id-matte``
 the cryptomatte layers ``crypto00..02``) or a quick-look PPM.  It renders
 on the card (``cuda:0``) and raises without one; ``--cpu`` renders on the
-CPU through the kernels' plain versions.
+CPU through the kernels' plain versions.  A PO lens without a committed
+fit in ``data/lenses/`` is fitted from its prescription on the same device
+and cached under ``pota_tpu_torch/build/lens_fits/``
+(:func:`pota_tpu_torch.optics.fit.get_or_fit_lens`).
 
 Usage examples:
     python -m pota_tpu_torch.cli --scene teapot --camera thinlens \\
@@ -13,6 +16,8 @@ Usage examples:
     python -m pota_tpu_torch.cli --scene lightgrid --camera po \\
         --lens angenieux__double_gauss__1953__49mm --fstop 2.8 \\
         --res 256 --spp 8 --aovs --id-matte --out po.exr
+    python -m pota_tpu_torch.cli --scene lightgrid --camera po \\
+        --lens double_gauss --out dg.exr      # fits the base design first
 """
 from __future__ import annotations
 
@@ -21,9 +26,6 @@ import contextlib
 import os
 import sys
 import time
-
-SUFFIX = "__deg5.npz"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pota-tpu-torch", description=__doc__,
@@ -69,21 +71,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the render to DIR")
     p.add_argument("--list-lenses", action="store_true",
-                   help="list the committed degree-5 lens fits and exit")
+                   help="list the lens catalog and exit")
     return p
-
-
-def lens_names() -> list:
-    """Sorted names of the committed degree-5 fits in ``data/lenses/``."""
-    from .optics.fit import LENS_DIR
-
-    return sorted(f[:-len(SUFFIX)] for f in os.listdir(LENS_DIR)
-                  if f.endswith(SUFFIX))
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.list_lenses:
+        from .lens.database import lens_names
+
         for n in lens_names():
             print(n)
         return 0
@@ -132,16 +128,12 @@ def main(argv=None) -> int:
 
     po_lens = po_state = None
     if cfg.camera_type == CameraType.POLYNOMIAL_OPTICS:
-        from .optics.fit import load_poly_lens
+        from .optics.fit import get_or_fit_lens
         from .optics.focus import setup_po_camera
 
-        print(f"[pota] loading lens {cfg.lens_model} ...", file=sys.stderr)
-        po_lens = load_poly_lens(cfg.lens_model, device=dev)
-        if po_lens is None:
-            raise ValueError(
-                f"no committed degree-5 fit of {cfg.lens_model!r} in "
-                f"data/lenses/ (--list-lenses names them); fitting a lens is "
-                f"not ported to pota_tpu_torch yet, ROADMAP Queue 1 item 6")
+        print(f"[pota] loading/fitting lens {cfg.lens_model} ...",
+              file=sys.stderr)
+        po_lens = get_or_fit_lens(cfg.lens_model, device=dev)
         po_state = setup_po_camera(po_lens, cfg)
         print(f"[pota] camera setup: {po_state}", file=sys.stderr)
 

@@ -41,7 +41,8 @@ def po_sample_aperture_disk(cfg: CameraConfig, r1, r2, bokeh_cdf=None):
 
 def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
                 retry_key, po_state, newton_iterations: int = 3, ops=None,
-                bokeh_cdf=None, differentiable: bool = False):
+                bokeh_cdf=None, differentiable: bool = False,
+                deriv_ray: bool = False):
     """Forward PO trace, batched over rays [N].  ``bokeh_cdf`` is the image
     bokeh's :class:`~pota_tpu_torch.render.bokeh_image.BokehImage`.
 
@@ -51,24 +52,32 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     ``differentiable`` takes JAX's pure path
     (``pota_tpu/models/po_camera.py:194-205``) on the [N, K] candidates, so
     origin and direction carry gradients to the lens coefficients; K1 is
-    not launched.
+    not launched.  ``deriv_ray`` traces one candidate on (r1, r2), draws
+    no retry uniforms (``retry_key`` may be None) and takes the
+    differentiable path, so ``torch.func.jvp`` can differentiate it
+    (JAX's ``pota_tpu/models/po_camera.py:140-151``): the ray
+    differentials' path.
     """
     if ops is None:
         from ..ops import KERNELS as ops
     aperture_radius = po_state.aperture_radius
     sensor_shift = po_state.sensor_shift
-    n_tries = cfg.vignetting_retries + 1
+    n_tries = 1 if deriv_ray else cfg.vignetting_retries + 1
+    differentiable = differentiable or deriv_ray
     n = sx.shape[0]
     hsw = cfg.sensor_width * 0.5
     x = sx * hsw
     y = sy * hsw
 
     if cfg.enable_dof:
-        tries_idx = torch.arange(1, n_tries, dtype=torch.int64,
-                                 device=x.device)
-        us = prng.uniforms(retry_key[:, None], tries_idx[None, :], 2)
-        r1k = torch.cat([r1[:, None], us[..., 0]], 1)
-        r2k = torch.cat([r2[:, None], us[..., 1]], 1)
+        if n_tries > 1:
+            tries_idx = torch.arange(1, n_tries, dtype=torch.int64,
+                                     device=x.device)
+            us = prng.uniforms(retry_key[:, None], tries_idx[None, :], 2)
+            r1k = torch.cat([r1[:, None], us[..., 0]], 1)
+            r2k = torch.cat([r2[:, None], us[..., 1]], 1)
+        else:
+            r1k, r2k = r1[:, None], r2[:, None]
         aperture = (po_sample_aperture_disk(cfg, r1k, r2k, bokeh_cdf)
                     * aperture_radius)
     if cfg.enable_dof and differentiable:

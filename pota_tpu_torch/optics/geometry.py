@@ -1,6 +1,7 @@
-"""Pupil chart transforms (port of the parts of
-:mod:`pota_tpu.optics.geometry` the PO render uses).  Lens-space mm; inputs
-are batched ``(..., 2)`` / ``(..., 3)``."""
+"""Pupil chart transforms (port of :mod:`pota_tpu.optics.geometry`): rays
+crossing a pupil are stored as ``[x, y, dx, dy]`` on a plane, sphere or
+cylinder chart (ref ``src/lens.h:75-221``).  Lens-space mm; inputs are
+batched ``(..., 2)`` / ``(..., 3)``."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +21,37 @@ def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def plane_to_cs(pos2, dir2, plane_z):
+    """Two-plane chart -> 3D ray; ``dir2`` is the slope (dz = 1 before
+    normalizing)."""
+    z = torch.as_tensor(plane_z, dtype=pos2.dtype, device=pos2.device)
+    outpos = torch.stack(
+        [pos2[..., 0], pos2[..., 1], torch.broadcast_to(z, pos2[..., 0].shape)],
+        -1)
+    outdir = torch.stack(
+        [dir2[..., 0], dir2[..., 1], torch.ones_like(dir2[..., 0])], -1)
+    return outpos, _normalize(outdir)
+
+
+def cs_to_plane(pos3, dir3, plane_z):
+    """3D ray -> two-plane chart at ``z = plane_z`` (ref src/lens.h:87-97)."""
+    t = (plane_z - pos3[..., 2]) / dir3[..., 2]
+    out_x = pos3[..., 0] + t * dir3[..., 0]
+    out_y = pos3[..., 1] + t * dir3[..., 1]
+    abs_dz = torch.abs(dir3[..., 2])
+    return (torch.stack([out_x, out_y], -1),
+            torch.stack([dir3[..., 0] / abs_dz, dir3[..., 1] / abs_dz], -1))
+
+
+def _sphere_tangent_frame(normal):
+    """Tangent and bitangent of a pupil-sphere normal (ref
+    src/lens.h:113-116)."""
+    ex = _normalize(torch.stack(
+        [normal[..., 2], torch.zeros_like(normal[..., 2]), -normal[..., 0]],
+        -1))
+    return ex, _cross(normal, ex)
+
+
 def sphere_to_cs(pos2, dir2, center, sphere_rad):
     """Sphere chart -> 3D ray (ref src/lens.h:99-125)."""
     r2 = pos2[..., 0] ** 2 + pos2[..., 1] ** 2
@@ -29,10 +61,7 @@ def sphere_to_cs(pos2, dir2, center, sphere_rad):
     d2 = dir2[..., 0] ** 2 + dir2[..., 1] ** 2
     tz = safe_sqrt(1.0 - d2)
     temp = torch.stack([dir2[..., 0], dir2[..., 1], tz], -1)
-    ex = _normalize(torch.stack(
-        [normal[..., 2], torch.zeros_like(normal[..., 2]), -normal[..., 0]],
-        -1))
-    ey = _cross(normal, ex)
+    ex, ey = _sphere_tangent_frame(normal)
     outdir = (temp[..., 0:1] * ex + temp[..., 1:2] * ey
               + temp[..., 2:3] * normal)
     outpos = torch.stack(
@@ -62,6 +91,37 @@ def cylinder_to_cs(pos2, dir2, center, radius, cyl_y: bool):
     return outpos, outdir
 
 
+def cs_to_sphere(pos3, dir3, center, sphere_rad):
+    """3D ray -> sphere chart (ref src/lens.h:127-153); ``pos3`` lies on the
+    sphere."""
+    normal = torch.stack(
+        [pos3[..., 0] / sphere_rad, pos3[..., 1] / sphere_rad,
+         torch.abs((pos3[..., 2] - center) / sphere_rad)], -1)
+    temp = _normalize(dir3)
+    ex, ey = _sphere_tangent_frame(normal)
+    return (torch.stack([pos3[..., 0], pos3[..., 1]], -1),
+            torch.stack([torch.sum(temp * ex, -1),
+                         torch.sum(temp * ey, -1)], -1))
+
+
+def cs_to_cylinder(pos3, dir3, center, radius, cyl_y: bool):
+    """3D ray -> cylinder chart (ref src/lens.h:156-185).  The tangent ``ex``
+    is normalized (the reference leaves it unnormalized, src/lens.h:171), as
+    in JAX, so the chart round-trips with :func:`cylinder_to_cs`."""
+    zeros = torch.zeros_like(pos3[..., 0])
+    nz = torch.abs((pos3[..., 2] - center) / radius)
+    if cyl_y:
+        normal = torch.stack([pos3[..., 0] / radius, zeros, nz], -1)
+    else:
+        normal = torch.stack([zeros, pos3[..., 1] / radius, nz], -1)
+    temp = _normalize(dir3)
+    ex = _normalize(torch.stack([normal[..., 2], zeros, -normal[..., 0]], -1))
+    ey = _normalize(_cross(normal, ex))
+    return (torch.stack([pos3[..., 0], pos3[..., 1]], -1),
+            torch.stack([torch.sum(temp * ex, -1),
+                         torch.sum(temp * ey, -1)], -1))
+
+
 CHARTS = ("sphere", "cyl-x", "cyl-y")
 
 
@@ -73,6 +133,17 @@ def chart_to_cs(pos2, dir2, center, radius, chart: str = "sphere"):
         return cylinder_to_cs(pos2, dir2, center, radius, cyl_y=False)
     if chart == "cyl-y":
         return cylinder_to_cs(pos2, dir2, center, radius, cyl_y=True)
+    raise ValueError(f"unknown pupil chart {chart!r}")
+
+
+def cs_to_chart(pos3, dir3, center, radius, chart: str = "sphere"):
+    """3D ray -> pupil chart (the inverse of :func:`chart_to_cs`)."""
+    if chart == "sphere":
+        return cs_to_sphere(pos3, dir3, center, radius)
+    if chart == "cyl-x":
+        return cs_to_cylinder(pos3, dir3, center, radius, cyl_y=False)
+    if chart == "cyl-y":
+        return cs_to_cylinder(pos3, dir3, center, radius, cyl_y=True)
     raise ValueError(f"unknown pupil chart {chart!r}")
 
 

@@ -205,12 +205,17 @@ class _ApertureSolve(torch.autograd.Function):
     transposed system ``J^T l = g`` (J = dr/dd, the same closed-form 2x2
     solve and determinant floor) and return ``-(dr/dtheta)^T l`` for the
     inputs theta = (sensor5, ap_target, coeffs), by one
-    ``torch.autograd.grad`` of the residual.  The coefficients come in as
-    an argument, not read from ``fn`` (a buffer), so that they get their
+    ``torch.autograd.grad`` of the residual.  Forward mode (``jvp``, for
+    ``torch.func.jvp``): at d*, ``dd = -J^-1 (dr/dtheta . t)``, the
+    residual's tangent by one ``torch.func.jvp`` and the same 2x2 solve, as
+    JAX's ``jax.jvp`` through ``lax.custom_root`` gives it.  (The Newton's
+    own Jacobians are forward-mode, so ``torch.autograd.forward_ad`` dual
+    tensors, which torch does not nest, are refused.)  The coefficients come in as an
+    argument, not read from ``fn`` (a buffer), so that they get their
     gradient; the start point gets none, as in JAX."""
 
     @staticmethod
-    def forward(ctx, sensor5, ap_target, coeffs, fn, aperture_z, iterations):
+    def forward(sensor5, ap_target, coeffs, fn, aperture_z, iterations):
         x, y = sensor5[..., 0], sensor5[..., 1]
         residual = _ap_residual(fn, coeffs, sensor5, ap_target)
         # init: straight line to the aperture point
@@ -221,9 +226,14 @@ class _ApertureSolve(torch.autograd.Function):
             d0, d1 = _solve2(jac[..., 0, 0], jac[..., 0, 1], jac[..., 1, 0],
                              jac[..., 1, 1], r[..., 0], r[..., 1])
             d = d - torch.stack([d0, d1], -1)
-        ctx.save_for_backward(sensor5, ap_target, coeffs, d)
-        ctx.fn = fn
         return d
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        sensor5, ap_target, coeffs, fn, _, _ = inputs
+        ctx.save_for_backward(sensor5, ap_target, coeffs, output)
+        ctx.save_for_forward(sensor5, ap_target, coeffs, output)
+        ctx.fn = fn
 
     @staticmethod
     def backward(ctx, g):
@@ -246,6 +256,24 @@ class _ApertureSolve(torch.autograd.Function):
             for i, gi in zip(want, got):
                 grads[i] = gi
         return (*grads, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, t_sensor5, t_ap_target, t_coeffs, *_):
+        sensor5, ap_target, coeffs, d = ctx.saved_tensors
+        fn = ctx.fn
+        _, jac = _batched_jacobian(
+            _ap_residual(fn, coeffs, sensor5, ap_target), d, 2)
+        theta = (sensor5, ap_target, coeffs)
+        tangents = tuple(torch.zeros_like(v) if t is None else t
+                         for v, t in zip(theta, (t_sensor5, t_ap_target,
+                                                 t_coeffs)))
+        # the residual's tangent at d* with d held: dr/dtheta . t
+        _, rt = torch.func.jvp(
+            lambda s5, a, c: _ap_residual(fn, c, s5, a)(d), theta, tangents)
+        # J dd = -rt
+        d0, d1 = _solve2(jac[..., 0, 0], jac[..., 0, 1], jac[..., 1, 0],
+                         jac[..., 1, 1], -rt[..., 0], -rt[..., 1])
+        return torch.stack([d0, d1], -1)
 
 
 def pt_sample_aperture(lens: PolyLens, sensor5, ap_target,

@@ -8,6 +8,8 @@ raises ``TypeError``.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -112,6 +114,67 @@ def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
             samples["r2"], samples["key"], po_state, ops=ops,
             bokeh_cdf=bokeh_cdf, differentiable=differentiable)
     return origin, direction, weight * cfg.exposure
+
+
+def trace_camera_rays_with_derivs(cfg: CameraConfig, rc: RenderConfig,
+                                  samples: dict, po_lens=None,
+                                  po_state=None, bokeh_cdf=None, ops=None):
+    """Primary rays and their ray differentials (the reference's
+    camera_create_ray, ``src/lentil_camera.cpp:96-119``; JAX's
+    ``pota_tpu/render/renderer.py:80-137``).
+
+    The primary rays come from :func:`trace_camera_rays` (K1 for the PO
+    lens).  The differentials are one ``torch.func.jvp`` per screen axis
+    over the deriv-ray path: one aperture candidate on the primary's
+    (r1, r2), no retries (``trace_fw_thinlens(deriv_ray=True)``, or the PO
+    camera's differentiable path through ``trace_fw_po(deriv_ray=True)``).
+    The reference finite-differences two extra rays; the jvp is exact.
+    The tangent is one pixel's screen step, (2/xres, 0) and (0, 2/yres),
+    so the outputs are dO/dpixel and dD/dpixel.
+
+    Returns (origin, direction, weight, {"dOdx", "dOdy", "dDdx",
+    "dDdy"}), each derivative [N, 3]."""
+    origin, direction, weight = trace_camera_rays(
+        cfg, samples, po_lens=po_lens, po_state=po_state, ops=ops,
+        bokeh_cdf=bokeh_cdf)
+    r1, r2 = samples["r1"], samples["r2"]
+
+    def deriv_trace(sx, sy):
+        if cfg.camera_type == CameraType.THIN_LENS:
+            o, d, _, _ = thinlens.trace_fw_thinlens(
+                cfg, sx, sy, r1, r2, deriv_ray=True, bokeh_cdf=bokeh_cdf)
+        else:
+            from ..models.po_camera import trace_fw_po
+
+            o, d, _, _ = trace_fw_po(cfg, po_lens, sx, sy, r1, r2, None,
+                                     po_state, ops=ops, bokeh_cdf=bokeh_cdf,
+                                     deriv_ray=True)
+        return o, d
+
+    sx, sy = samples["sx"], samples["sy"]
+    zeros = torch.zeros_like(sx)
+    _, (dOdx, dDdx) = torch.func.jvp(
+        deriv_trace, (sx, sy), (torch.full_like(sx, 2.0 / rc.xres), zeros))
+    _, (dOdy, dDdy) = torch.func.jvp(
+        deriv_trace, (sx, sy), (zeros, torch.full_like(sy, 2.0 / rc.yres)))
+    return origin, direction, weight, {
+        "dOdx": dOdx, "dOdy": dOdy, "dDdx": dDdx, "dDdy": dDdy}
+
+
+def camera_reverse_ray(cfg: CameraConfig, p_cam, po_lens=None):
+    """Camera-space point -> screen coords by the pinhole field of view
+    (the reference's camera_reverse_ray, ``src/lentil_camera.cpp:164-172``:
+    ``Ps = Po.xy / max(|Po.z * tan_fov|, 1e-3)``).  The PO camera takes the
+    fitted lens's field of view (ref ``src/lentil.h:1658``), the thin lens
+    its sensor's (ref ``src/lentil.h:1666``)."""
+    if cfg.camera_type == CameraType.POLYNOMIAL_OPTICS:
+        if po_lens is None:
+            raise ValueError("the polynomial camera needs po_lens")
+        tan_fov = math.tan(po_lens.fov / 2.0)
+    else:
+        tan_fov = cfg.thinlens_tan_fov
+    coeff = 1.0 / torch.clamp(torch.abs(p_cam[..., 2] * tan_fov), min=1e-3)
+    return torch.stack([p_cam[..., 0] * coeff, p_cam[..., 1] * coeff], -1)
 
 
 def _trace_chunked(cfg: CameraConfig, samples: dict, n_chunks: int,

@@ -661,3 +661,106 @@ def test_render_id_matte_on_the_card(dev):
     layers = resolve_crypto(fbs[0])
     assert all(bool(torch.isfinite(layer).all()) for layer in layers)
     assert float(layers[0][..., 1].max()) <= 1.0 + 1e-5
+
+
+# ------------------------------------------- fitting, differentials, replay
+
+
+def test_fit_on_the_card_matches_the_cpu(dev):
+    """The flagship fitted on the card (float32 trace, float64 QR + SVD
+    solve) against the same fit on the CPU: the tracers' valid rays agree
+    on >= 99.9%, the held-out rms within 10%, most terms shared (a float32
+    trace difference can move a term across the cut), and predictions on
+    fresh rays within the fidelity gate's position limit's 1%."""
+    from pota_tpu_torch.lens.database import get_lens_system
+    from pota_tpu_torch.optics import fit as tfit
+    from pota_tpu_torch.optics.polynomial import poly_eval
+    from pota_tpu_torch.optics.raytrace import trace_to_chart
+
+    fits = {}
+    for d in (dev, torch.device("cpu")):
+        lens = get_lens_system(FLAGSHIP, device=d)
+        fits[d.type] = tfit.fit_lens(lens, n_samples=20_000,
+                                     return_diagnostics=True, device=d)
+    (pc, dc), (pp, dp) = fits["cuda"], fits["cpu"]
+    assert pc.pt.coeffs.device.type == "cuda"
+    for k, v in dp.items():
+        if k.startswith("rms"):
+            assert abs(dc[k] - v) <= 0.1 * v, (k, dc[k], v)
+    te = lambda p: {tuple(e) for e in p.pt.exponents.tolist()}
+    assert len(te(pc) & te(pp)) >= 150
+    lens = get_lens_system(FLAGSHIP, device="cpu")
+    s, _, _ = tfit.sample_fit_domain(lens, 5000, seed=987)
+    s = torch.as_tensor(s)
+    _, _, _, v = trace_to_chart(lens, s)
+    _, _, _, vc = trace_to_chart(lens.to(dev), s.to(dev))
+    assert float((vc.cpu() == v).double().mean()) >= 0.999
+    got = poly_eval(pc.pt, s.to(dev)).cpu()[v]
+    want = poly_eval(pp.pt, s)[v]
+    assert float((got[:, :2] - want[:, :2]).abs().max()) < 1.2e-3
+
+
+def test_derivs_on_the_card(dev):
+    """Ray differentials of a 96x64 PO frame on the card: K1 once for the
+    primary rays, the differentials finite and within float32 rounding of
+    the CPU's on the same samples."""
+    from pota_tpu_torch.optics.focus import setup_po_camera
+    from pota_tpu_torch.render.renderer import trace_camera_rays_with_derivs
+    from pota_tpu_torch.render.sampling import frame_samples
+
+    cfg = dataclasses.replace(CFG, focus_distance=150.0)
+    rc = pt.RenderConfig(xres=96, yres=64, spp=1)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        lens = load_poly_lens(FLAGSHIP, device=d)
+        state = setup_po_camera(lens, cfg)
+        ops.reset_launches()
+        out[d.type] = trace_camera_rays_with_derivs(
+            cfg, rc, frame_samples(rc, 0, device=d), po_lens=lens,
+            po_state=state)
+        if d.type == "cuda":
+            assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+                "po_forward": 1}
+    live = (out["cuda"][2].cpu() > 0) & (out["cpu"][2] > 0)
+    assert int(live.sum()) > 0.9 * live.numel()
+    for k, want in out["cpu"][3].items():
+        got = out["cuda"][3][k].cpu()
+        assert bool(torch.isfinite(got[live]).all()), k
+        assert float((got - want)[live].abs().max()) < 1e-5, k
+
+
+@pytest.mark.parametrize("with_scene", [True, False],
+                         ids=["scene", "null_scene"])
+def test_replay_on_the_card(dev, tmp_path, with_scene):
+    """A 96x64 flagship stream saved, read back onto the card and replayed:
+    with the scene K2, K3 and K4 once each (K1 never) and the live frame's
+    bits; without one the decomposed route (K2, K6, K4)."""
+    from pota_tpu_torch.render import replay, splat
+    from pota_tpu_torch.render.renderer import render_sample_stream
+
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    scene = sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0, radius=1.0,
+                               intensity=40.0, device=dev)
+    rc = pt.RenderConfig(xres=96, yres=64, spp=1)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    po = dict(po_lens=lens, po_state=STATE)
+    live, _ = render_frame(CFG, rc, scene, m, **po)
+    with torch.no_grad():
+        stream = render_sample_stream(CFG, rc, scene, m, 0, **po)
+    p = str(tmp_path / "s.pstream")
+    replay.save_capture(p, stream)
+    loaded = replay.load_capture(p, device=dev)
+    assert loaded["rgba"].device.type == "cuda"
+    ops.reset_launches()
+    img, _ = replay.replay_splat(CFG, rc, loaded, m,
+                                 scene=scene if with_scene else None, **po)
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    assert bool(torch.isfinite(img).all())
+    if with_scene:
+        assert launched == {"expand": 1, "po_splat": 1, "segment_accum": 1}
+        assert torch.equal(img, live)
+    else:
+        assert launched == {"expand": 1, "po_backward": 1,
+                            "segment_accum": 1}
+        assert splat.LAST_ROUTE == "decomposed_po"
+        assert float(img[..., :3].sum()) > 0

@@ -17,6 +17,8 @@ Tolerances (measured values in brackets):
   ``test_torch_slice.frac_pixels_off``) [no pixel off in any; largest
   difference 1.6e-5, 6.0e-5 and 1.0e-5 of scale].
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -176,8 +178,26 @@ def test_list_lenses_matches_jax(capsys):
     assert len(names) == 45
 
 
-def test_unfitted_lens_names_the_fitting_item(tmp_path):
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
+def test_unfitted_lens_names_the_fitting_item(tmp_path, monkeypatch):
+    """A lens without a committed fit takes the fitting path (JAX's
+    ``cli.py:131-135``): a base design is fitted (here at 20,000 samples),
+    cached outside ``data/lenses/`` and rendered; an unknown name raises
+    the catalog's KeyError."""
+    from pota_tpu_torch.optics import fit as tfit
+
+    before = sorted(os.listdir(tfit.LENS_DIR))
+    monkeypatch.setattr(tfit, "FIT_CACHE_DIR", str(tmp_path / "fits"))
+    fit = tfit.fit_lens
+    monkeypatch.setattr(tfit, "fit_lens",
+                        lambda *a, **kw: fit(*a, n_samples=20_000, **kw))
+    out = str(tmp_path / "dg.exr")
+    assert cli.main(["--cpu", "--camera", "po", "--lens", "double_gauss",
+                     "--scene", "lightgrid", "--res", "8", "--spp", "1",
+                     "--out", out]) == 0
+    assert (tmp_path / "fits" / "double_gauss__deg5.npz").exists()
+    assert all(np.isfinite(v).all() for v in texr.read_exr(out).values())
+    assert sorted(os.listdir(tfit.LENS_DIR)) == before
+    with pytest.raises(KeyError, match="unknown lens"):
         cli.main(["--cpu", "--camera", "po", "--lens", "no_such_lens",
                   "--res", "8", "--spp", "1",
                   "--out", str(tmp_path / "x.exr")])
