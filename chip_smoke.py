@@ -57,8 +57,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                gradient's norm; then three gradient-descent steps of JAX's
                ``train_step_sharded`` L2 loss (one device) from seeded
                1e-3 perturbed coefficients toward the frame of the fit's
-               own, each of which must fold K3's table again.  There is no
-               1080p fallback: an out-of-memory error fails the run.  Its
+               own, each :data:`DESCENT_STEP` of the coefficients' norm,
+               printing the first-order prediction beside the measured
+               change of the loss and of the loss with the budgets and K3's
+               decisions held (no decrease is asserted:
+               tests/test_torch_descent.py), the first frame after each
+               step folding K3's table again.  There is no 1080p
+               fallback: an out-of-memory error fails the run.  Its
                parity frame (phase 4, 256x144 @ 1 spp, ``trace_chunks``
                4) holds the image and the ``pt`` gradient through the
                kernels to the plain versions' (:data:`CONFIG5_GRAD_TOL`)
@@ -106,6 +111,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                once each, K1 never; against the live frame) and without
                one (the decomposed route: K2, K6, K4, K3 never); write,
                read and replay ms
+ 15. sharded   (right after config5) a world-size-1 NCCL group
+               (:func:`sharded_phase`): ``render_frame_sharded`` of the
+               1080p flagship (K1-K4 once each, K5 and K6 never) and of
+               config 1 (K2, K5, K4 once each), every plane and the image
+               bit-identical to ``render_frame``'s, frame ms of both; the
+               flagship's merge traffic at 4 and 8 ranks
+               (``merge_traffic_bytes``, reduce-scatter against halo);
+               config 5's 4K step through ``train_step_sharded`` from the
+               descent's c1 against c1's single-process step
+               (:data:`SHARDED_STEP_TOL`), its seconds and peak memory
 Each kernel record carries ``bound_ms``, the least time the card could take
 for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
@@ -165,6 +180,9 @@ PATH_KERNELS = {
     "derivs_thin": (),
     "replay": ("expand", "po_splat", "segment_accum"),
     "replay_null": ("expand", "po_backward", "segment_accum"),
+    "sharded_flagship": ("po_forward", "expand", "po_splat", "segment_accum"),
+    "sharded_config1": ("expand", "tl_splat", "segment_accum"),
+    "sharded_config5": ("expand", "po_splat", "segment_accum"),
 }
 # tests/test_fit_fidelity.py's gate: rms (position mm, slope, iris mm)
 # ceilings of a fit on fresh held-out rays, by the lens's family
@@ -190,6 +208,12 @@ CONFIG5_PLAIN_SLOTS = 1 << 22
 # K3 and its plain version disagree on a few slots); the images are held
 # by the parity frames' pixel limit
 CONFIG5_GRAD_TOL = 1e-3
+# config 5's descent step, of the coefficients' norm: the range where the
+# loss with K3's decisions held follows the gradient on the CPU
+# (tests/test_torch_descent.py: 1e-9 and 3e-9)
+DESCENT_STEP = 1e-9
+# the world-size-1 sharded 4K step against the single-process step
+SHARDED_STEP_TOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -1121,9 +1145,66 @@ class Config5:
         print(f"config5_loss {loss}", flush=True)
         print(f"config5_grad_norm pt {gnorm[0]} ap {gnorm[1]}", flush=True)
 
-        # three descent steps of the L2 loss toward the fit's own frame,
-        # from seeded 1e-3 perturbed coefficients; each must fold K3's
-        # table again
+        self.descent()
+        return launches
+
+    def recording(self):
+        """A kernel set that keeps K3's outputs and K2's slot -> source map
+        in ``self.k3_out`` and ``self.src``."""
+        from pota_tpu_torch import ops
+
+        def po_splat(*a):
+            self.k3_out = ops.KERNELS.po_splat(*a)
+            return self.k3_out
+
+        def expand(*a):
+            self.src = a[0]
+            return ops.KERNELS.expand(*a)
+
+        return ops.KERNELS._replace(po_splat=po_splat, expand=expand)
+
+    def l2(self, target, held=None) -> float:
+        """The L2 loss toward ``target``, forward only, through
+        :meth:`recording`; with ``held`` = (gates, K3 outputs) of an
+        earlier frame, its budgets and K3's decisions are those."""
+        import torch
+
+        from pota_tpu_torch import ops
+        from pota_tpu_torch.render import splat
+
+        rec = self.recording()
+        gates = splat.compute_gates_and_budget
+        if held is not None:
+            def held_k3(*a):
+                ops.KERNELS.po_splat(*a)
+                return held[1]
+
+            splat.compute_gates_and_budget = lambda *a, **k: held[0]
+            rec = rec._replace(po_splat=held_k3)
+        try:
+            img, _ = self.render(ops=rec)
+        finally:
+            splat.compute_gates_and_budget = gates
+        with torch.no_grad():
+            return float(((img.detach() - target) ** 2).double().mean())
+
+    def descent(self) -> None:
+        """Three descent steps of JAX's ``train_step_sharded`` L2 loss
+        toward the fit's own frame, from seeded 1e-3 perturbed coefficients
+        (c1; kept with the target and c1's step for the sharded phase),
+        each :data:`DESCENT_STEP` of the coefficients' norm along -g: the
+        first-order prediction g . (step taken) beside the measured change
+        of the loss, and of the loss with the budgets and K3's decisions
+        held at the step's start; whether the splat queue moved, else the
+        K3 slots whose ``lin`` or ``ok`` moved.  The first frame after each
+        step must fold K3's table again.  Nothing asserts a decrease:
+        tests/test_torch_descent.py shows that the L2 loss jumps at every
+        step the float32 coefficients can take (PERF.md section 6)."""
+        import torch
+
+        from pota_tpu_torch.ops import po_kernels as pk
+        from pota_tpu_torch.render import splat
+
         folds = [0]
         folded_table = pk._folded_table
 
@@ -1136,27 +1217,218 @@ class Config5:
 
         pk._folded_table = counted_fold
         try:
-            _, target, _ = self.step()
+            _, self.target, _ = self.step()
             g = torch.Generator(device=self.dev).manual_seed(5)
             with torch.no_grad():
                 for c in self.coeffs:
                     c.mul_(1.0 + 1e-3 * torch.randn(c.shape, generator=g,
                                                     device=self.dev))
+            self.c1 = [c.detach().clone() for c in self.coeffs]
+            gates_fn = splat.compute_gates_and_budget
+
+            def recording_gates(*a, **k):
+                self.gates = gates_fn(*a, **k)
+                return self.gates
+
             for i in range(3):
+                splat.compute_gates_and_budget = recording_gates
+                try:
+                    loss_i, _, _ = self.step(target=self.target,
+                                             ops=self.recording())
+                finally:
+                    splat.compute_gates_and_budget = gates_fn
+                held = (self.gates, self.k3_out)
+                src_i = self.src
+                if i == 0:
+                    self.l2_ref = (loss_i, *(c.grad.clone()
+                                             for c in self.coeffs))
+                with torch.no_grad():
+                    gn = torch.sqrt(sum((c.grad.double() ** 2).sum()
+                                        for c in self.coeffs))
+                    cn = torch.sqrt(sum((c.double() ** 2).sum()
+                                        for c in self.coeffs))
+                    old = [c.clone() for c in self.coeffs]
+                    for c in self.coeffs:
+                        c.sub_((c.grad.double() * (DESCENT_STEP * cn / gn))
+                               .float())
+                    pred = float(sum((c.grad.double() * (c.double()
+                                                         - o.double())).sum()
+                                     for c, o in zip(self.coeffs, old)))
                 before = folds[0]
-                loss_i, _, _ = self.step(target=target)
-                print(f"config5 descent step {i}: L2 loss {loss_i} (K3 "
-                      f"solve tables folded {folds[0] - before})", flush=True)
-                if folds[0] == before or not np.isfinite(loss_i):
+                loss_held = self.l2(self.target, held=held)
+                loss_next = self.l2(self.target)
+                if folds[0] == before or not np.isfinite(loss_next):
                     fail(f"config 5 descent step {i} did not fold K3's "
                          "table again")
-                with torch.no_grad():
-                    for c in self.coeffs:
-                        # a step of 1e-4 of the coefficients' norm
-                        c.sub_(c.grad * (1e-4 * c.norm() / c.grad.norm()))
+                moved = "the splat queue moved"
+                if torch.equal(self.src, src_i):
+                    flips = ((self.k3_out[0] != held[1][0])
+                             | (self.k3_out[1] != held[1][1]))
+                    moved = (f"K3 slots moved {int(flips.sum())} of "
+                             f"{src_i.shape[0]}")
+                print(f"config5 descent step {i}: L2 loss {loss_i}; step "
+                      f"{DESCENT_STEP:g} of |c|: predicted change {pred:.4e}, "
+                      f"measured {loss_next - loss_i:.4e}, with the budgets "
+                      f"and K3's decisions held {loss_held - loss_i:.4e} "
+                      f"(ratio {(loss_held - loss_i) / pred:.3f}); {moved} "
+                      f"(K3 solve tables folded {folds[0] - before})",
+                      flush=True)
+                del held, src_i
         finally:
             pk._folded_table = folded_table
+            self.k3_out = self.src = self.gates = None
+
+    def sharded_step(self, mesh, tag) -> dict:
+        """``train_step_sharded`` at world size 1 on the 4K step, from c1
+        toward the fit's own frame (:meth:`descent`): one warm-up and one
+        timed step (launches counted), its peak memory, the loss and the
+        ``pt`` / ``ap`` gradients against c1's single-process step.
+        Returns the timed step's launches."""
+        import torch
+
+        from pota_tpu_torch import ops
+        from pota_tpu_torch.parallel import sharded as sh
+
+        def run():
+            with torch.no_grad():
+                for c, c1 in zip(self.coeffs, self.c1):
+                    c.copy_(c1)
+            out = sh.train_step_sharded(self.cfg, self.rc, self.scene, self.m,
+                                        mesh, self.target, self.lens,
+                                        self.state)
+            torch.cuda.synchronize()
+            return out
+
+        run()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = run()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"launches in the sharded config 5 step: {launches}",
+              flush=True)
+        if {k: v for k, v in launches.items() if v} != {
+                k: 1 for k in PATH_KERNELS["sharded_config5"]}:
+            fail("sharded config 5 step: K2, K3 and K4 must launch once "
+                 "each, and nothing else")
+        ref_loss, *ref = self.l2_ref
+        errs = [abs(float(loss) - ref_loss) / abs(ref_loss)] + [
+            float((g - r).norm() / r.norm()) for g, r in zip(grads, ref)]
+        same = [float(loss) == ref_loss] + [bool(torch.equal(g, r))
+                                            for g, r in zip(grads, ref)]
+        print(f"sharded_config5_step_s {wall} {tag}", flush=True)
+        print(f"sharded_config5_peak_gib {peak} {tag}", flush=True)
+        print(f"sharded config 5 step against the single-process step: loss "
+              f"{float(loss)} / {ref_loss}, relative errors loss {errs[0]:.3e}"
+              f" pt {errs[1]:.3e} ap {errs[2]:.3e}; bit-identical {same}",
+              flush=True)
+        if max(errs) > SHARDED_STEP_TOL or not all(
+                bool(torch.isfinite(g).all()) for g in grads):
+            fail("sharded config 5 step disagrees with the single-process "
+                 "step")
         return launches
+
+
+def sharded_phase(dev, tag, m, frames, c5) -> dict:
+    """The ``sharded`` phase: a world-size-1 NCCL group (an in-process
+    ``HashStore``), ``render_frame_sharded`` on each of ``frames`` (label,
+    path, cfg, rc, scene, render kwargs) against ``render_frame``: the
+    launches (the path's kernels once each), every plane and the image
+    bit-identical, ``sum(filter_weight)``, the frame ms of both (median of
+    5); the analytic merge traffic of the flagship at 4 and 8 ranks; then
+    config 5's 4K step through ``train_step_sharded``
+    (:meth:`Config5.sharded_step`).  The group is destroyed at the end.
+    Returns the launches of each path."""
+    import torch
+    import torch.distributed as dist
+
+    from pota_tpu_torch import ops
+    from pota_tpu_torch.parallel import sharded as sh
+    from pota_tpu_torch.render.renderer import render_frame
+
+    phase("sharded: render_frame_sharded and train_step_sharded on a "
+          "world-size-1 NCCL group")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = sh.make_mesh(1, backend="nccl")
+        if mesh.device != dev:
+            fail(f"sharded: rank 0 took {mesh.device}, not {dev}")
+        for label, path, cfg_, rc_, scene_, kw in frames:
+            with torch.no_grad():
+                ref_img, ref_fb = render_frame(cfg_, rc_, scene_, m, seed=0,
+                                               **kw)
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                img, fb = sh.render_frame_sharded(cfg_, rc_, scene_, m, mesh,
+                                                  seed=0, **kw)
+                torch.cuda.synchronize()
+                out[path] = dict(ops.LAUNCHES)
+            print(f"launches in the {label} run: {out[path]}", flush=True)
+            if {k: v for k, v in out[path].items() if v} != {
+                    k: 1 for k in PATH_KERNELS[path]}:
+                fail(f"{label}: not each of {PATH_KERNELS[path]} once")
+            differ = [k for k in ref_fb if not torch.equal(fb[k], ref_fb[k])]
+            if set(fb) != set(ref_fb) or differ or not torch.equal(img,
+                                                                    ref_img):
+                fail(f"{label}: planes {differ} (or the image) differ from "
+                     "render_frame's")
+            npix = rc_.xres * rc_.yres
+            w_sum = float(fb["filter_weight"].double().sum())
+            if abs(w_sum - npix) > ENERGY_TOL * npix:
+                fail(f"{label}: sum(filter_weight) {w_sum} != {npix}")
+            # float32 channels of the row planes (an [H, W] plane is one)
+            n_channels = sum(v.shape[-1] if v.dim() == 3 else 1
+                             for v in fb.values())
+            del img, fb, ref_img, ref_fb
+
+            def sharded():
+                with torch.no_grad():
+                    sh.render_frame_sharded(cfg_, rc_, scene_, m, mesh,
+                                            seed=0, **kw)
+
+            def single():
+                with torch.no_grad():
+                    render_frame(cfg_, rc_, scene_, m, seed=0, **kw)
+
+            times = {}
+            for name, fn in (("sharded", sharded), ("single", single),
+                             ("sharded2", sharded)):
+                fn()
+                times[name] = host_ms(fn, reps=5)
+            print(f"{label}: every plane and the image bit-identical to "
+                  f"render_frame's; sum(filter_weight) {w_sum:.4f} vs {npix};"
+                  f" {n_channels} channels", flush=True)
+            print(f"{path}_frame_ms {times['sharded']} / {times['sharded2']} "
+                  f"(render_frame {times['single']}) {tag}", flush=True)
+            if path == "sharded_flagship":
+                cfg_f, rc_f, scene_f, state_f = (cfg_, rc_, scene_,
+                                                 kw["po_state"])
+                channels_f = n_channels
+            torch.cuda.empty_cache()
+        halo = sh.splat_halo_rows(cfg_f, rc_f, scene_f, po_state=state_f)
+        for n in (4, 8):
+            tile_h = rc_f.yres_region // n
+            engaged = (rc_f.yres_region % n == 0
+                       and 2 * halo < (n - 1) * tile_h
+                       and -(-halo // tile_h) <= n - 1)
+            rs, hl = (sh.merge_traffic_bytes(rc_f, n, channels_f, rows)
+                      for rows in (None, halo))
+            print(f"sharded_flagship merge traffic at {n} ranks ("
+                  f"{channels_f} channels, halo {halo} rows, tile {tile_h} "
+                  f"rows, the halo exchange "
+                  f"{'engaged' if engaged else 'not engaged'}): "
+                  f"reduce-scatter {rs} bytes a rank, halo {hl} bytes a "
+                  "rank", flush=True)
+        out["sharded_config5"] = c5.sharded_step(mesh, tag)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
 
 
 def fit_fidelity(poly, lens, n: int = FIT_HELDOUT_RAYS):
@@ -2226,6 +2498,11 @@ def main() -> int:
 
     path_launches["config5"] = c5.run(tag)
     torch.cuda.empty_cache()
+    path_launches.update(sharded_phase(dev, tag, m, (
+        ("sharded flagship 1920x1080 @ 1 spp", "sharded_flagship", cfg,
+         rc_full, scene, po),
+        ("sharded config 1 256x256 @ 16 spp", "sharded_config1", cfg1, rc1,
+         scene1, {})), c5))
     path_launches.update(fit_phase(dev, tag, cfg, rc_full, scene, m, po,
                                    drive))
     path_launches.update(derivs_phase(dev, tag, rc_full, lens, cfg_fw,

@@ -22,6 +22,8 @@ from .polynomial import (
 log = logging.getLogger("pota_tpu_torch.camera_po")
 
 _BIG = 1e9
+# the target distance (mm) of the infinity estimates
+_INFINITY_MM = 999999999.0
 # sensor-shift hard limit (ref camera_set_focus clamp, src/lentil.h:1500-1516)
 SENSOR_SHIFT_LIMIT_MM = 45.0
 
@@ -56,6 +58,52 @@ def _axial_probe_distance(lens: PolyLens, shifts, lam: float):
           & (out4[:, 0] ** 2 + out4[:, 1] ** 2 <= lens.outer_pupil_radius ** 2)
           & inner_pupil_ok(lens, shifted))
     return hit[:, 2], ok
+
+
+def _focus_sweep(lens: PolyLens, lam: float):
+    """The axial probe over every logarithmic candidate shift, on the host:
+    (shifts, crossing distance float64, ok)."""
+    shifts = logarithmic_shift_candidates()
+    dist, ok = _axial_probe_distance(
+        lens, torch.tensor(shifts, dtype=torch.float32, device=lens.device),
+        lam)
+    return shifts, dist.double().cpu().numpy(), ok.cpu().numpy()
+
+
+def _best_shift(sweep, target_mm: float):
+    """Index of the swept shift whose probe ray crosses closest below
+    ``target_mm`` (ref src/lentil.h:1445-1460), or None when none does."""
+    _, dist, ok = sweep
+    delta = target_mm - dist
+    candidates = np.where(ok & (delta > 0.0), delta, np.inf)
+    best = int(np.argmin(candidates))
+    return best if np.isfinite(candidates[best]) else None
+
+
+def logarithmic_focus_search(lens: PolyLens, focus_distance_mm: float,
+                             lam: float = 0.55) -> float:
+    """Best sensor shift (mm) focusing at ``focus_distance_mm``, as a
+    float32 candidate like JAX's (0 when no probe ray crosses below the
+    target).  :func:`setup_po_camera` picks the same candidate from its own
+    sweep and keeps it in float64, as JAX's setup does."""
+    sweep = _focus_sweep(lens, lam)
+    best = _best_shift(sweep, focus_distance_mm)
+    return 0.0 if best is None else float(np.float32(sweep[0][best]))
+
+
+def focus_check(lens: PolyLens, sensor_shift: float, lam: float = 0.55):
+    """Scene distance at which the shifted sensor focuses, and whether the
+    probe ray passes (ref trace_ray_focus_check, src/lentil.h:1316-1357)."""
+    dist, ok = _axial_probe_distance(
+        lens, torch.tensor([sensor_shift], dtype=torch.float32,
+                           device=lens.device), lam)
+    return float(dist[0]), bool(ok[0])
+
+
+def focus_infinity_shift(lens: PolyLens, lam: float = 0.55) -> float:
+    """Infinity-focus sensor shift by the logarithmic search (the
+    reference's second infinity estimate, src/lentil.h:1621-1624)."""
+    return logarithmic_focus_search(lens, _INFINITY_MM, lam)
 
 
 def camera_set_focus_infinity(lens: PolyLens, lam: float = 0.55) -> float:
@@ -142,18 +190,14 @@ def setup_po_camera(lens: PolyLens, cfg, scene=None) -> POState:
         aperture_radius = min(lens.aperture_radius_at_fstop, calibrated_r)
         if aperture_radius <= 0.0:
             aperture_radius = lens.aperture_radius_at_fstop
-    shifts_np = logarithmic_shift_candidates()
-    dist_t, ok_t = _axial_probe_distance(
-        lens, torch.tensor(shifts_np, dtype=torch.float32, device=lens.device),
-        lam)
-    dist_np = dist_t.double().cpu().numpy()
-    ok_np = ok_t.cpu().numpy()
+    # one probe sweep serves the focus search, the infinity estimate and
+    # the sanity check (JAX's setup does the same)
+    sweep = _focus_sweep(lens, lam)
+    shifts_np, dist_np, ok_np = sweep
 
     def pick(target):
-        delta = target - dist_np
-        cand = np.where(ok_np & (delta > 0.0), delta, np.inf)
-        i = int(np.argmin(cand))
-        return 0.0 if not np.isfinite(cand[i]) else float(shifts_np[i])
+        best = _best_shift(sweep, target)
+        return 0.0 if best is None else float(shifts_np[best])
 
     sensor_shift = pick(focus_distance) + cfg.extra_sensor_shift
     if abs(sensor_shift) > SENSOR_SHIFT_LIMIT_MM:
@@ -163,7 +207,7 @@ def setup_po_camera(lens: PolyLens, cfg, scene=None) -> POState:
                                      SENSOR_SHIFT_LIMIT_MM))
     log.info("%s: sensor_shift %.4f mm (infinity: log-search %.4f mm, "
              "parallel light-trace %.4f mm)", lens.name, sensor_shift,
-             pick(999999999.0), camera_set_focus_infinity(lens, lam))
+             pick(_INFINITY_MM), camera_set_focus_infinity(lens, lam))
     # setup-time focus sanity check against the nearest swept candidate
     j = int(np.argmin(np.abs(shifts_np - sensor_shift)))
     if not bool(ok_np[j]):

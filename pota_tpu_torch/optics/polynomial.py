@@ -125,6 +125,11 @@ def pt_evaluate(lens: PolyLens, sensor5):
     return out[..., :4], torch.clamp(out[..., 4], min=0.0)
 
 
+def aperture_xy(lens: PolyLens, sensor5):
+    """Sensor light field -> hit position on the iris plane [..., 2]."""
+    return poly_eval(lens.ap, sensor5)
+
+
 # ------------------------------------------------------------ Newton machinery
 
 

@@ -201,15 +201,18 @@ def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
                          cam_to_world, seed: int = 0, po_lens=None,
                          po_state=None, ops=None, bokeh_cdf=None,
                          cam_to_world_end=None,
-                         differentiable: bool = False) -> dict:
-    """Trace + shade the whole frame; returns the per-sample AOV stream.
+                         differentiable: bool = False,
+                         samples: dict | None = None) -> dict:
+    """Trace + shade the whole frame (or ``samples``, a part of its sample
+    stream); returns the per-sample AOV stream.
     With ``cam_to_world_end`` each sample's rays leave the camera matrix
     blended to its shutter ``time`` (motion blur).  ``differentiable``
     takes the differentiable forward trace, in ``cfg.trace_chunks``
     checkpointed chunks when that divides the sample count
     (:func:`_trace_chunked`)."""
     require_port_configs(cfg, rc)
-    samples = sampling.frame_samples(rc, seed, device=scene.device)
+    if samples is None:
+        samples = sampling.frame_samples(rc, seed, device=scene.device)
     trace_kw = dict(po_lens=po_lens, po_state=po_state, ops=ops,
                     bokeh_cdf=bokeh_cdf, differentiable=differentiable)
     n = samples["sx"].shape[0]

@@ -19,6 +19,11 @@ def screen_coords(rc: RenderConfig, px, py, jx, jy):
     return screen_x, screen_y / aspect
 
 
+def pixel_to_linear(rc: RenderConfig, px, py):
+    """Absolute pixel indices -> the full frame's linear pixel index."""
+    return py * rc.xres + px
+
+
 def frame_samples(rc: RenderConfig, seed: int, device=None) -> dict:
     """The frame's sample coordinates, flattened to N = H_region * W_region
     * spp, on ``device`` (default: the card).  Integer fields (px, py, sid,
@@ -31,7 +36,7 @@ def frame_samples(rc: RenderConfig, seed: int, device=None) -> dict:
     sid = ar(spp).view(1, 1, spp).expand(h, w, spp)
 
     # seed by absolute pixel so a region render reproduces the full frame's
-    linear = py * rc.xres + px
+    linear = pixel_to_linear(rc, px, py)
     key = prng.tea(linear, int(seed) & prng.MASK32)
     u = prng.uniforms(key, sid, 5)
     jx, jy, r1, r2, tu = (u[..., i] for i in range(5))

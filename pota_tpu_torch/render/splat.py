@@ -123,16 +123,12 @@ def compute_gates_and_budget(cfg: CameraConfig, rc: RenderConfig, stream,
     return redistribute, budget, coc, sky
 
 
-def splat_queue_compact(budget, redistribute, queue_size: int,
-                        rays_per_count: int = 1):
-    """Slot -> compact source mapping of the splat queue.
-
-    Every redistributed source claims ``budget * rays_per_count`` contiguous
-    slots; when the total exceeds ``queue_size`` all budgets are rescaled
-    (never below one budget unit).  ``src`` numbers only the slot-owning
-    sources.  Returns (src int64 [S], slot_on bool [S], slots int64 [N])."""
-    n = budget.shape[0]
-    dev = budget.device
+def _queue_slots(budget, redistribute, queue_size: int,
+                 rays_per_count: int):
+    """Granted slots per source [N] int64 (``budget * rays_per_count`` for
+    a redistributed source, every budget rescaled when the total exceeds
+    ``queue_size``, never below one budget unit), their range starts and
+    the live-slot mask [S]."""
     slots = torch.where(redistribute, budget.to(torch.int64) * rays_per_count,
                         0)
     total = torch.sum(slots.to(torch.float32))
@@ -142,11 +138,47 @@ def splat_queue_compact(budget, redistribute, queue_size: int,
     slots = torch.where(slots > 0, torch.clamp(scaled, min=rays_per_count), 0)
     offsets = torch.cumsum(slots, 0)
     starts = offsets - slots
-    marks = torch.zeros((queue_size,), dtype=torch.int64, device=dev)
-    claim = (slots > 0) & (starts < queue_size)
+    slot_on = torch.arange(queue_size, device=budget.device) < offsets[-1]
+    return slots, starts, slot_on
+
+
+def _slot_sources(starts, marked, queue_size: int, n: int):
+    """Slot -> source: one mark at each ``marked`` source's start slot
+    inside the queue, then a prefix sum."""
+    marks = torch.zeros((queue_size,), dtype=torch.int64, device=starts.device)
+    claim = marked & (starts < queue_size)
     marks.index_add_(0, starts[claim], torch.ones_like(starts[claim]))
-    src = torch.clamp(torch.cumsum(marks, 0) - 1, 0, n - 1)
-    slot_on = torch.arange(queue_size, device=dev) < offsets[-1]
+    return torch.clamp(torch.cumsum(marks, 0) - 1, 0, n - 1)
+
+
+def splat_queue(budget, redistribute, rays_per_count: int, queue_size: int):
+    """Slot -> source mapping of the splat queue, with source ids in sample
+    order (JAX's ``splat_queue``; the port's splat takes
+    :func:`splat_queue_compact`, whose slot layout is the same).  Returns
+    (src int64 [S], lane int64 [S] the slot's index within its source,
+    slot_on bool [S], slots int64 [N] granted)."""
+    slots, starts, slot_on = _queue_slots(budget, redistribute, queue_size,
+                                          rays_per_count)
+    # every source marks its start, so a zero-slot source advances the
+    # count without claiming a slot
+    src = _slot_sources(starts, torch.ones_like(redistribute), queue_size,
+                        budget.shape[0])
+    q = torch.arange(queue_size, device=budget.device)
+    lane = torch.where(slot_on, q - starts[src], 0)
+    return src, lane, slot_on, slots
+
+
+def splat_queue_compact(budget, redistribute, queue_size: int,
+                        rays_per_count: int = 1):
+    """Slot -> compact source mapping of the splat queue.
+
+    Every redistributed source claims ``budget * rays_per_count`` contiguous
+    slots; when the total exceeds ``queue_size`` all budgets are rescaled
+    (never below one budget unit).  ``src`` numbers only the slot-owning
+    sources.  Returns (src int64 [S], slot_on bool [S], slots int64 [N])."""
+    slots, starts, slot_on = _queue_slots(budget, redistribute, queue_size,
+                                          rays_per_count)
+    src = _slot_sources(starts, slots > 0, queue_size, budget.shape[0])
     return src, slot_on, slots
 
 

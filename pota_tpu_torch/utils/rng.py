@@ -62,3 +62,9 @@ def uniforms(key0, key1, n: int) -> torch.Tensor:
         state, u = lcg_step(state)
         outs.append(u)
     return torch.stack(outs, -1)
+
+
+def hash_uniform(key0, key1) -> torch.Tensor:
+    """One uniform in [0, 1) per (key, counter) pair: TEA and one LCG
+    step."""
+    return uniforms(key0, key1, 1)[..., 0]

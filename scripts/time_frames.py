@@ -15,7 +15,8 @@ up, then ``--runs`` times, each on the host clock around a synchronised
 frame: ``render_frame`` + ``resolve_aovs`` under ``no_grad`` (with the
 id-matte also ``resolve_crypto``); ``config5`` a differentiable 4K step,
 ``render_frame(differentiable=True)`` + ``loss.backward()``
-(``chip_smoke.Config5.step``).  Prints one JSON line.
+(``chip_smoke.Config5.step``).  Each cell also reports its peak allocated
+device memory over its runs.  Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -115,6 +116,7 @@ def main() -> int:
                     splat.resolve_aovs(rc_, fb)
                     if rc_.enable_id_matte:
                         splat.resolve_crypto(fb)
+        torch.cuda.reset_peak_memory_stats()
         frame()
         torch.cuda.synchronize()
         walls = []
@@ -123,7 +125,8 @@ def main() -> int:
             frame()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        out[cell] = dict(median_ms=statistics.median(walls), ms=walls)
+        out[cell] = dict(median_ms=statistics.median(walls), ms=walls,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         print(f"{cell}: {out[cell]}", flush=True)
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

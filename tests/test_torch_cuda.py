@@ -764,3 +764,35 @@ def test_replay_on_the_card(dev, tmp_path, with_scene):
                             "segment_accum": 1}
         assert splat.LAST_ROUTE == "decomposed_po"
         assert float(img[..., :3].sum()) > 0
+
+
+def test_render_frame_sharded_world_one_on_the_card(dev, tmp_path):
+    """``render_frame_sharded`` on a world-size-1 NCCL group at 64x64: K1-K4
+    once each, the image and every plane bit-identical to
+    ``render_frame``'s."""
+    import torch.distributed as dist
+
+    from pota_tpu_torch.parallel import sharded as sh
+
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    scene = sc.lightgrid_scene(n=3, spacing=18.0, z=-150.0, radius=1.0,
+                               intensity=40.0, device=dev)
+    rc = pt.RenderConfig(xres=64, yres=64, spp=1)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    po = dict(po_lens=lens, po_state=STATE)
+    want_img, want = render_frame(CFG, rc, scene, m, **po)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = sh.make_mesh(1)
+        assert mesh.backend == "nccl" and mesh.device == dev
+        ops.reset_launches()
+        img, fb = sh.render_frame_sharded(CFG, rc, scene, m, mesh, **po)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+            "po_forward": 1, "expand": 1, "po_splat": 1, "segment_accum": 1}
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(img, want_img) and set(fb) == set(want)
+    for k, v in want.items():
+        assert torch.equal(fb[k], v), k

@@ -35,7 +35,10 @@ Tolerances (measured values in brackets):
   silhouettes), which moves the splat decisions of a few sources; a few
   grazing hits, whose hit-point derivative grows as 1/sqrt(disc), carry
   much of the gradient, so those few moves shift it by ~1.7%.  At
-  identical forward values the two agree to 1e-4 (above);
+  identical forward values the two agree to 1e-4 (above); with the pixels
+  of the one source (of 2,304) whose splats differ taken out of the loss,
+  to 1e-3 [3.5e-5 pt, 5.4e-5 ap on both routes;
+  :func:`test_step_gradient_gap_is_the_sources_whose_splats_differ`];
 * the differentiable image against JAX's: <= 2% of pixels off by 2e-3 of
   scale, as ``test_torch_slice.py`` [0.22%, 0.26%];
 * ``trace_chunks=4`` against one chunk: the image identical, gradients
@@ -178,7 +181,8 @@ def jax_step(request):
     l2_ct = 2.0 * (img1 - img0) / img0.size
     g_l2 = [np.asarray(g) for g in vjp_s1(*vjp_p1(l2_ct))]
     return dict(cfg=jcfg, rc=jrc, c0=c0, c1=c1, img0=np.asarray(img0),
-                g_mean=g_mean, g_pieces=g_pieces, g_l2=g_l2,
+                vjp0=vjp0, mean_ct=np.asarray(mean_ct), g_mean=g_mean,
+                g_pieces=g_pieces, g_l2=g_l2,
                 l2=float(jnp.mean((img1 - img0) ** 2)),
                 vals0=[np.asarray(v) for v in vals0],
                 vals1=[np.asarray(v) for v in vals1])
@@ -196,11 +200,13 @@ def _port_lens(coeffs, device="cpu"):
     return lens
 
 
-def _port_step(js, coeffs, target=None, trace_chunks=1, stream_vals=None):
+def _port_step(js, coeffs, target=None, trace_chunks=1, stream_vals=None,
+               pixel_mask=None):
     """The port's step on ``js``'s route with lens coefficients ``coeffs``:
     the mean loss (or, with ``target``, the L2 loss against it) and its
     gradients with respect to (pt, ap).  ``stream_vals`` replaces the
-    forward stream's values by JAX's (the port's graph kept).  Returns
+    forward stream's values by JAX's (the port's graph kept);
+    ``pixel_mask`` [H, W] zeroes pixels out of the mean loss.  Returns
     (image, loss, (d pt, d ap))."""
     cfg = dataclasses.replace(to_port(js["cfg"]), trace_chunks=trace_chunks)
     rc = to_port(js["rc"])
@@ -220,7 +226,10 @@ def _port_step(js, coeffs, target=None, trace_chunks=1, stream_vals=None):
         fb = splat_frame(cfg, rc, scene, stream, m, po_lens=lens,
                          po_state=state, differentiable=True)
         img = resolve_imager(rc, fb)
-    if target is None:
+    if pixel_mask is not None:
+        loss = (img[..., :3] * torch.as_tensor(pixel_mask)[..., None]).sum() \
+            / img[..., :3].numel()
+    elif target is None:
         loss = img[..., :3].mean()
     else:
         loss = ((img - torch.as_tensor(target)) ** 2).mean()
@@ -477,6 +486,66 @@ def test_step_gradient_at_jax_forward_values(jax_step):
     for g, want in zip(grads, jax_step["g_l2"]):
         assert np.isfinite(g).all() and np.linalg.norm(g) > 0
         assert rel_l2(g, want) < 5e-3
+
+
+def _writers_by_sample(js, stream_vals, monkeypatch):
+    """The port's step at the fit's coefficients on its own forward stream
+    (or JAX's values): each sample's live writers, as (pixels, weights)
+    sorted, read from the accumulator's arguments."""
+    from pota_tpu_torch.render import splat as tsplat
+
+    seen = {}
+    accumulate = tsplat.accumulate_sorted
+
+    def recording(pix, depth, payload, sample, npix, ops=None):
+        seen["w"] = (pix, sample, payload[:, 4].detach(), npix)
+        return accumulate(pix, depth, payload, sample, npix, ops=ops)
+
+    monkeypatch.setattr(tsplat, "accumulate_sorted", recording)
+    _port_step(js, js["c0"], stream_vals=stream_vals)
+    monkeypatch.undo()
+    pix, sample, w, npix = seen["w"]
+    live = pix < npix
+    pix, sample, w = (t[live].numpy() for t in (pix, sample, w))
+    order = np.lexsort((w, pix, sample))
+    pix, sample, w = pix[order], sample[order], w[order]
+    cuts = np.flatnonzero(np.diff(sample)) + 1
+    return {int(sample[a]): (pix[a:b], w[a:b])
+            for a, b in zip(np.r_[0, cuts], np.r_[cuts, len(sample)])}
+
+
+def test_step_gradient_gap_is_the_sources_whose_splats_differ(jax_step,
+                                                              monkeypatch):
+    """Queue 3 item 2.  The sources whose splat decisions (writer pixels
+    or weights) differ between the port's float32 forward stream and JAX's
+    (the port's splat on JAX's stream reproduces JAX's splat) are few; with
+    every pixel they write in either package taken out of the mean loss,
+    the whole step's gradient agrees with JAX's to 1e-3, as it does at
+    JAX's own forward values.  Measured, mono / chromatic: 1 source of
+    2,304 on both, 5 / 6 pixels; the gap 1.70e-2 / 1.67e-2 -> 3.5e-5 (pt),
+    2.18e-2 / 2.20e-2 -> 5.4e-5 (ap)."""
+    own = _writers_by_sample(jax_step, None, monkeypatch)
+    theirs = _writers_by_sample(jax_step, jax_step["vals0"], monkeypatch)
+    differ = [k for k in set(own) | set(theirs)
+              if k not in own or k not in theirs
+              or not all(np.array_equal(a, b)
+                         for a, b in zip(own[k], theirs[k]))]
+    mask = np.ones(RES * RES, np.float32)
+    for k in differ:
+        for side in (own, theirs):
+            if k in side:
+                mask[side[k][0]] = 0.0
+    mask = mask.reshape(RES, RES)
+    print(f"sources whose splats differ: {len(differ)} of {RES * RES}; "
+          f"pixels out of the loss: {int((mask == 0).sum())}")
+    assert 0 < len(differ) <= 0.01 * RES * RES
+    _, _, grads = _port_step(jax_step, jax_step["c0"], pixel_mask=mask)
+    ct = jax_step["mean_ct"] * mask[..., None]
+    want = [np.asarray(g) for g in jax_step["vjp0"](ct)]
+    errs = [rel_l2(g, w) for g, w in zip(grads, want)]
+    print(f"gradient rel L2 with those pixels out: pt {errs[0]:.3e} "
+          f"ap {errs[1]:.3e}")
+    assert max(errs) < 1e-3, errs
 
 
 # ------------------------------------------------ (e) checkpointed chunks
