@@ -121,6 +121,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                config 5's 4K step through ``train_step_sharded`` from the
                descent's c1 against c1's single-process step
                (:data:`SHARDED_STEP_TOL`), its seconds and peak memory
+ 16. grad routes  the three differentiable routes ``check_supported``
+               once refused (:func:`grad_routes_phase`), each a counted
+               step (its kernels once each), energy, finite planes and
+               gradients, a warm-up and three timed steps, peak memory
+               and a parity frame (image and every gradient through the
+               kernels against the plain versions): ``grad_mb_1080p``
+               (camera motion blur: K2, K6, K4), ``grad_aovs_1080p`` (a
+               gaussian transmission plane beside RGBA: K2, K3, K4, K4 over
+               nine payload columns), ``grad_config1`` (BASELINE config
+               1's thin lens: K2, K5, K4) and ``grad_config1_coma`` (coma
+               0.5: K2, K4); K6, K4 and K5 again on those steps' arguments
+               (records with ``path``)
 Each kernel record carries ``bound_ms``, the least time the card could take
 for the same work: the larger of the bytes the kernel must move (each input
 read once, each output written once) over 3.35 TB/s and its f32 operations
@@ -183,6 +195,10 @@ PATH_KERNELS = {
     "sharded_flagship": ("po_forward", "expand", "po_splat", "segment_accum"),
     "sharded_config1": ("expand", "tl_splat", "segment_accum"),
     "sharded_config5": ("expand", "po_splat", "segment_accum"),
+    "grad_mb_1080p": ("expand", "po_backward", "segment_accum"),
+    "grad_aovs_1080p": ("expand", "po_splat", "segment_accum"),
+    "grad_config1": ("expand", "tl_splat", "segment_accum"),
+    "grad_config1_coma": ("expand", "segment_accum"),
 }
 # tests/test_fit_fidelity.py's gate: rms (position mm, slope, iris mm)
 # ceilings of a fit on fresh held-out rays, by the lens's family
@@ -1431,6 +1447,309 @@ def sharded_phase(dev, tag, m, frames, c5) -> dict:
     return out
 
 
+class GradPath:
+    """One differentiable route ``check_supported`` once refused, driven on
+    the card: ``render_frame(differentiable=True)`` of ``cfg`` / ``rc`` on
+    ``scene`` (``kw``: the lens, the camera at the shutter's end, the
+    AOVs), the loss ``loss(rc, img, fb)`` and ``backward()`` into
+    ``leaves``; ``parity_rc`` is its parity frame."""
+
+    def __init__(self, path, label, cfg, rc, parity_rc, scene, m, leaves,
+                 loss, **kw):
+        self.path, self.label, self.cfg, self.rc = path, label, cfg, rc
+        self.parity_rc, self.scene, self.m = parity_rc, scene, m
+        self.leaves, self.loss, self.kw = leaves, loss, kw
+
+    def forward(self, rc=None, ops=None):
+        """The differentiable frame and its loss: (loss, image, fb)."""
+        from pota_tpu_torch.render.renderer import render_frame
+
+        rc = rc or self.rc
+        for t in self.leaves:
+            t.grad = None
+        img, fb = render_frame(self.cfg, rc, self.scene, self.m, seed=0,
+                               differentiable=True, ops=ops, **self.kw)
+        return self.loss(rc, img, fb), img, fb
+
+    def step(self, rc=None, ops=None):
+        """One step, synchronised: (loss, image, framebuffer)."""
+        import torch
+
+        loss, img, fb = self.forward(rc, ops)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), img.detach(), fb
+
+    def capture(self) -> dict:
+        """The arguments of each kernel's first launch in one step."""
+        from pota_tpu_torch import ops
+
+        rec = Recorder(ops.KERNELS)
+        self.step(ops=rec)
+        return rec.args
+
+    def run(self, tag) -> dict:
+        """One step with the launch counters set to 0 just before it and
+        read just after (the path's kernels once each, nothing else), its
+        peak memory, energy, finite planes and gradient norms; a warm-up
+        and three timed steps.  Returns the launches."""
+        import torch
+
+        from pota_tpu_torch import ops
+        from pota_tpu_torch.render.splat import resolve_aovs
+
+        rc = self.rc
+        phase(f"{self.path}: {self.label}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        loss, _, fb = self.step()
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"launches in the {self.path} step: {launches}", flush=True)
+        if {k: v for k, v in launches.items() if v} != {
+                k: 1 for k in PATH_KERNELS[self.path]}:
+            fail(f"{self.path}: {PATH_KERNELS[self.path]} must launch once "
+                 "each, and nothing else")
+        with torch.no_grad():
+            npix = rc.xres * rc.yres
+            w_sum = float(fb["filter_weight"].double().sum())
+            for k, v in resolve_aovs(rc, fb, self.kw.get("aovs")).items():
+                if not bool(torch.isfinite(v).all()):
+                    fail(f"{self.path}: plane {k} is not finite")
+        del fb
+        gnorm = [float(t.grad.norm()) for t in self.leaves]
+        print(f"{self.path} sum(filter_weight) {w_sum:.4f} vs {npix}",
+              flush=True)
+        if abs(w_sum - npix) > ENERGY_TOL * npix:
+            fail(f"{self.path}: energy conservation")
+        if not all(np.isfinite(g) and g > 0 for g in gnorm):
+            fail(f"{self.path}: gradient norms {gnorm}")
+        self.step()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            self.step()
+            walls.append(time.perf_counter() - t0)
+        print(f"{self.path}_step_s {statistics.median(walls)} (steps "
+              f"{' / '.join(f'{w:.4f}' for w in walls)}) {tag}", flush=True)
+        print(f"{self.path}_peak_gib {peak} {tag}", flush=True)
+        print(f"{self.path}_loss {loss}; gradient norms {gnorm}", flush=True)
+        return launches
+
+    def parity(self) -> None:
+        """The parity frame through the kernels and through the plain
+        versions: the image by the parity frames' pixel limit, every
+        leaf's gradient by :data:`CONFIG5_GRAD_TOL`."""
+        import torch
+
+        from pota_tpu_torch import ops
+
+        rc = self.parity_rc
+        phase(f"parity {self.path} {rc.xres}x{rc.yres} @ {rc.spp} spp, "
+              "differentiable: kernels vs plain versions")
+        res = {}
+        for label, kset in (("kernels", None), ("plain", ops.PLAIN)):
+            _, img, fb = self.step(rc, ops=kset)
+            res[label] = (img, float(fb["RGBA"].detach().double().sum()),
+                          [t.grad.clone() for t in self.leaves])
+        off = frac_pixels_off(res["kernels"][0], res["plain"][0])
+        g_err = [float((g - r).norm() / r.norm())
+                 for g, r in zip(res["kernels"][2], res["plain"][2])]
+        print(f"  RGBA: pixels off {off:.5f}; energy kernels "
+              f"{res['kernels'][1]:.6f} plain {res['plain'][1]:.6f}; "
+              f"gradient rel L2 {' '.join(f'{e:.3e}' for e in g_err)}",
+              flush=True)
+        if (off > MAX_PIXELS_OFF or max(g_err) > CONFIG5_GRAD_TOL
+                or abs(res["kernels"][1] - res["plain"][1])
+                > 2e-3 * abs(res["plain"][1])
+                or not bool(torch.isfinite(res["kernels"][0]).all())
+                or not all(bool(torch.isfinite(g).all())
+                           for g in res["kernels"][2])):
+            fail(f"{self.path} parity: image, energy or gradient")
+
+
+def k6_record(a6, path, ptxas) -> dict:
+    """K6 (one table) against its plain version on the captured arguments
+    ``a6`` of ``path``, and its record."""
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    items6 = (1, 2, 3, 4, 5, 7)        # lams (6) is a tuple of floats
+    s6 = int(a6[1].shape[0])
+    got = pk.po_backward(*a6)
+    ref = plain_chunked(pk.po_backward_plain, a6, items6)
+    keep_g, keep_p = got[4] > 0, ref[4] > 0
+    agree = float((keep_g == keep_p).double().mean())
+    both = keep_g & keep_p
+    err = max(float((g[both] - r[both]).abs().max())
+              for g, r in zip(got[:2], ref[:2]))
+    far = share_far(got, ref, both)
+    print(f"K6 po_backward ({path}) S={s6} trans>0 agree={agree:.6f} "
+          f"max_abs_err(sx, sy) on items both keep {err:.3e} mm; share of "
+          f"items > 1e-3 mm apart {far:.6f}", flush=True)
+    if agree < MASK_AGREE or far > 1.0 - MASK_AGREE:
+        fail(f"K6 po_backward ({path}) disagrees with its plain version")
+    del got, ref, keep_g, keep_p, both
+    return dict(
+        name="po_backward", path=path, route="cuda",
+        source="pota_tpu_torch/csrc/po_backward.cu",
+        replaces=f"{TPU_KERNELS}:419", max_abs_err=err,
+        ms=median_ms(lambda: pk.po_backward(*a6)),
+        plain_ms=median_ms(lambda: plain_chunked(
+            pk.po_backward_plain, a6, items6), 3),
+        **bound(44.0 * s6, s6 * basis_solve_flops(a6[8])),
+        library_ms=None, n=s6, mask_agree=agree, share_far=far,
+        **ptxas["po_backward"])
+
+
+def grad_paths(dev, m, m_end, res=(1920, 1080), res1=(256, 256, 16),
+               parity_res=(256, 144), parity_res1=(64, 64, 4)) -> dict:
+    """The differentiable routes' paths (:class:`GradPath` by name):
+    ``grad_mb_1080p`` (config 5's camera, ``trace_chunks`` 8, the teapot,
+    the camera trucked as ``flagship_mb``'s, 1920x1080 @ 1 spp; K2, K6,
+    K4), ``grad_aovs_1080p`` (the same camera on ``flagship_idmatte``'s
+    glass teapot with a gaussian transmission plane beside RGBA, which the
+    output string ``transmission RGB gaussian_filter`` parses to: K4 sums
+    nine payload columns; K2, K3, K4), ``grad_config1`` (BASELINE config
+    1, gradients of the scene's albedo, emission and centers and of
+    ``cam_to_world``; K2, K5, K4) and ``grad_config1_coma`` (config 1
+    with ``abb_coma`` 0.5, the decomposed thin lens: K2 and K4 only).
+    ``res`` / ``res1`` are the PO and thin-lens frames, ``parity_res`` /
+    ``parity_res1`` their parity frames (width, height[, spp])."""
+    import pota_tpu_torch as pt
+    from pota_tpu_torch.optics.fit import load_poly_lens
+    from pota_tpu_torch.optics.focus import setup_po_camera
+    from pota_tpu_torch.render import scene as sc
+    from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
+    from pota_tpu_torch.render.splat import resolve_aovs
+
+    def mean_rgb(rc, img, fb):
+        return img[..., :3].mean()
+
+    # the output string "transmission RGB gaussian_filter": the stream's
+    # transmission has three channels, so an "RGBA" plane of it would not
+    # resolve, in JAX either
+    aovs_t = list(DEFAULT_AOVS) + [
+        AOVSpec("transmission", "RGB", GAUSSIAN, "transmission")]
+
+    def mean_rgb_and_transmission(rc, img, fb):
+        tr = resolve_aovs(rc, fb, aovs_t)["transmission"]
+        return img[..., :3].mean() + tr[..., :3].mean()
+
+    cfg5 = pt.CameraConfig(
+        camera_type=pt.CameraType.POLYNOMIAL_OPTICS, lens_model=FLAGSHIP,
+        fstop=2.8, focus_distance=20.0, vignetting_retries=2,
+        splat_queue_mult=4, trace_chunks=8)
+    rc_full = pt.RenderConfig(xres=res[0], yres=res[1], spp=1)
+    rc_par = pt.RenderConfig(xres=parity_res[0], yres=parity_res[1], spp=1)
+
+    def po(scene):
+        lens = load_poly_lens(FLAGSHIP, device=dev)
+        state = setup_po_camera(lens, cfg5, scene=scene)
+        return dict(po_lens=lens, po_state=state), [
+            lens.pt.coeffs.requires_grad_(True),
+            lens.ap.coeffs.requires_grad_(True)]
+
+    teapot = sc.teapot_scene(device=dev)
+    po_mb, leaves_mb = po(teapot)
+    glass = glass_teapot(dev)
+    po_g, leaves_g = po(glass)
+    cfg1 = pt.CameraConfig(focal_length=50.0, fstop=1.4, focus_distance=150.0,
+                           vignetting_retries=3, splat_queue_mult=8)
+    scene1 = sc.teapot_scene(device=dev)
+    m1 = m.clone().requires_grad_(True)
+    leaves1 = [scene1.albedo.requires_grad_(True),
+               scene1.emission.requires_grad_(True),
+               scene1.centers.requires_grad_(True), m1]
+    rc1 = pt.RenderConfig(xres=res1[0], yres=res1[1], spp=res1[2])
+    rc1_par = pt.RenderConfig(xres=parity_res1[0], yres=parity_res1[1],
+                              spp=parity_res1[2])
+    po_label = f"{rc_full.xres}x{rc_full.yres} @ 1 spp"
+    thin_label = f"{rc1.xres}x{rc1.yres} @ {rc1.spp} spp"
+    paths = {
+        "grad_mb_1080p": GradPath(
+            "grad_mb_1080p", "camera motion blur, the decomposed PO route, "
+            + po_label, cfg5, rc_full, rc_par, teapot, m, leaves_mb,
+            mean_rgb, cam_to_world_end=m_end, **po_mb),
+        "grad_aovs_1080p": GradPath(
+            "grad_aovs_1080p", "a gaussian transmission AOV beside RGBA, "
+            "K3, " + po_label, cfg5, rc_full, rc_par, glass, m, leaves_g,
+            mean_rgb_and_transmission, aovs=aovs_t, **po_g),
+        "grad_config1": GradPath(
+            "grad_config1", "BASELINE config 1's thin lens, K5, "
+            + thin_label, cfg1, rc1, rc1_par, scene1, m1, leaves1,
+            mean_rgb),
+        "grad_config1_coma": GradPath(
+            "grad_config1_coma", "config 1 with coma 0.5, the decomposed "
+            "thin lens, " + thin_label,
+            dataclasses.replace(cfg1, abb_coma=0.5), rc1, rc1_par, scene1,
+            m1, leaves1, mean_rgb),
+    }
+    return paths
+
+
+def grad_routes_phase(dev, tag, m, m_end, ptxas, **sizes) -> tuple:
+    """The three differentiable routes (:func:`grad_paths`, ``sizes`` its
+    frame sizes), each a counted step, three timed steps and its parity
+    frame (:class:`GradPath`), then their kernels against the plain
+    versions on the steps' own arguments: K6 on ``grad_mb_1080p``'s, K4
+    on ``grad_aovs_1080p``'s (nine payload columns), K5 on
+    ``grad_config1``'s.  Returns (the launches of each path, the kernel
+    records)."""
+    import torch
+
+    from pota_tpu_torch.ops import po_kernels as pk, splat_accum
+
+    paths = grad_paths(dev, m, m_end, **sizes)
+    launches = {}
+    for path, gp in paths.items():
+        launches[path] = gp.run(tag)
+        gp.parity()
+        torch.cuda.empty_cache()
+
+    phase("differentiable routes: kernels vs plain versions on the steps' "
+          "arguments")
+    records = []
+    args = {path: paths[path].capture()[name] for path, name in (
+        ("grad_mb_1080p", "po_backward"), ("grad_aovs_1080p", "segment_accum"),
+        ("grad_config1", "tl_splat"))}
+    with torch.no_grad():
+        records.append(k6_record(args.pop("grad_mb_1080p"), "grad_mb_1080p",
+                                 ptxas))
+        a4 = args.pop("grad_aovs_1080p")
+        if a4[2].shape[1] != 9:
+            fail(f"grad_aovs_1080p: K4's payload is {a4[2].shape[1]} "
+                 "columns wide, not 9")
+        seg = splat_accum.segment_accum
+        seg_plain = splat_accum.segment_accum_plain
+        err4 = check_accum("grad_aovs_1080p", seg, seg_plain, a4)
+        records.append(dict(
+            name="segment_accum", path="grad_aovs_1080p", route="cuda",
+            source="pota_tpu_torch/csrc/segment_accum.cu",
+            replaces="pota_tpu/ops/splat_accum.py:59", max_abs_err=err4,
+            **timed_ms(lambda: seg(*a4)),
+            plain_ms=median_ms(lambda: seg_plain(*a4)), **accum_bound(a4),
+            row_gather_ms=row_gather_ms(a4), library_ms=None,
+            n=int(a4[0].shape[0]), k=int(a4[2].shape[1]),
+            **ptxas["segment_accum"]))
+        del a4
+        a5 = args.pop("grad_config1")
+        k5 = check_splat_kernel(
+            "tl_splat", pk.tl_splat, pk.tl_splat_plain, a5, slice(0, 9),
+            "pota_tpu_torch/csrc/tl_splat.cu", f"{TPU_KERNELS}:958", 41.0,
+            85.0 + 20 * paths["grad_config1"].scene.n_objects)
+        k5.update(path="grad_config1", **timed_ms(lambda: pk.tl_splat(*a5)),
+                  **ptxas["tl_splat"])
+        records.append(k5)
+        del a5
+    for r in records:
+        print(f"{r['name']} ({r['path']}): kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}) {tag}", flush=True)
+    torch.cuda.empty_cache()
+    return launches, records
+
+
 def fit_fidelity(poly, lens, n: int = FIT_HELDOUT_RAYS):
     """rms (position mm, slope, iris mm) of a fit against the port's own
     tracer on fresh held-out rays (tests/test_fit_fidelity.py's measure)."""
@@ -2508,6 +2827,10 @@ def main() -> int:
     path_launches.update(derivs_phase(dev, tag, rc_full, lens, cfg_fw,
                                       state_fw, cfg1))
     path_launches.update(replay_phase(dev, tag, cfg, rc_full, scene, m, po))
+    grad_launches, grad_records = grad_routes_phase(dev, tag, m, m_end,
+                                                    ptxas)
+    path_launches.update(grad_launches)
+    records += grad_records
 
     path_of = {"tl_splat": "config1", "po_splat_lam": "config3_no_bokeh",
                "po_splat_ext": "config3", "po_backward": "flagship_mb"}

@@ -363,8 +363,7 @@ def render_frame_sharded(cfg: CameraConfig, rc: RenderConfig, scene,
     divide by the world size.  ``differentiable`` records the frame for
     autograd as :func:`render_frame` does (gaussian planes only; the
     closest merge carries no gradient, as JAX stops it)."""
-    check_supported(cfg, rc, differentiable=differentiable, po_lens=po_lens,
-                    aovs=aovs)
+    check_supported(cfg, rc, po_lens=po_lens)
     if differentiable and halo_rows is not None:
         raise NotImplementedError(
             "the halo merge carries no gradient: a differentiable sharded "

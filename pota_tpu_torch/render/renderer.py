@@ -1,10 +1,9 @@
 """End-to-end render pipeline: camera rays -> shading -> splat -> resolve
 (port of :mod:`pota_tpu.render.renderer`).
 
-The device is the scene's: every tensor of a render is made there.
-Configurations the port does not handle yet raise ``NotImplementedError``
-(see :func:`check_supported`); a configuration object of another package
-raises ``TypeError``.
+The device is the scene's: every tensor of a render is made there.  A
+configuration object of another package raises ``TypeError``
+(:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -24,41 +23,13 @@ from ..optics import thinlens
 from . import sampling
 
 
-def check_supported(cfg: CameraConfig, rc: RenderConfig,
-                    differentiable: bool = False, po_lens=None, aovs=None,
-                    motion_blur: bool = False):
+def check_supported(cfg: CameraConfig, rc: RenderConfig, po_lens=None):
     """Raise ``TypeError`` unless ``cfg`` and ``rc`` are the port's config
-    classes, and ``NotImplementedError`` for what the port does not run
-    yet, so nothing silently takes another path.  Each message names the
-    ROADMAP item that will port it.  ``differentiable`` runs on the PO
-    lens's fused splat routes (K3, K3b) with RGBA as the only gaussian AOV
-    (JAX's ``_gauss_names == ["RGBA"]``, ``pota_tpu/render/splat.py:663``),
-    without motion blur; ``aovs`` is the frame's AOV list (default
-    :data:`~pota_tpu_torch.render.aov.DEFAULT_AOVS`).  A PO frame whose
-    lens lies on the card raises ``ValueError`` for a fit outside the
-    degree-5 basis of the card's PO kernels
+    classes.  A PO frame whose lens lies on the card raises ``ValueError``
+    for a fit outside the degree-5 basis of the card's PO kernels
     (:func:`pota_tpu_torch.ops.po_kernels.check_basis`), before any kernel
     runs; on the CPU such a fit renders."""
     require_port_configs(cfg, rc)
-    reasons = []
-    if differentiable:
-        from .aov import DEFAULT_AOVS, GAUSSIAN
-
-        gauss = [a.name for a in (DEFAULT_AOVS if aovs is None else aovs)
-                 if a.filter == GAUSSIAN]
-        if motion_blur:
-            reasons.append("differentiable=True with motion blur (the "
-                           "decomposed differentiable route), ROADMAP Q1.8a")
-        if rc.enable_redistribution and gauss != ["RGBA"]:
-            reasons.append("differentiable=True with gaussian AOVs other "
-                           "than RGBA (the fused differentiable branch), "
-                           "ROADMAP Q1.8b")
-        if cfg.camera_type == CameraType.THIN_LENS:
-            reasons.append("differentiable=True on the thin-lens camera, "
-                           "ROADMAP Q1.8c")
-    if reasons:
-        raise NotImplementedError(
-            "not ported to pota_tpu_torch yet: " + "; ".join(reasons))
     if (cfg.camera_type == CameraType.POLYNOMIAL_OPTICS
             and po_lens is not None and po_lens.device.type == "cuda"):
         from ..ops.po_kernels import check_basis
@@ -318,16 +289,17 @@ def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
 
     ``differentiable=True`` (JAX's ``render_frame(..., use_pallas=False,
     differentiable=True)``) records the frame for autograd, so that
-    ``loss.backward()`` fills the ``grad`` of lens coefficients that
-    require it: the forward trace takes its differentiable route, the
-    splat geometry runs in its kernels without a gradient, and the value
-    chain carries the gradient through K2 and K4
-    (:func:`~pota_tpu_torch.render.splat.splat_frame`).  Without it the
-    frame runs under ``torch.no_grad()``."""
+    ``loss.backward()`` fills the ``grad`` of what requires it: the PO
+    lens's coefficients, the scene's tensors and ``cam_to_world`` (and
+    ``cam_to_world_end``).  The forward trace takes its differentiable
+    route, the splat geometry (K3, K5, K6 or the decomposed projection,
+    and the occlusion probe) runs without a gradient, and the value chain
+    carries the gradient through K2 and K4 on every route and to every
+    gaussian AOV (:func:`~pota_tpu_torch.render.splat.splat_frame`).
+    Without it the frame runs under ``torch.no_grad()``."""
     from .splat import resolve_imager, splat_frame
 
-    check_supported(cfg, rc, differentiable=differentiable, po_lens=po_lens,
-                    aovs=aovs, motion_blur=cam_to_world_end is not None)
+    check_supported(cfg, rc, po_lens=po_lens)
     dev = scene.device
     cam_to_world = cam_to_world.to(dev, torch.float32)
     if cam_to_world_end is not None:

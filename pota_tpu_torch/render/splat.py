@@ -459,12 +459,15 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
 
     ``differentiable`` (JAX's ``splat.py:750-790, 1134-1140``): the gates,
     budgets, queue, seeds and weights carry no gradient (integers, booleans
-    and floors) and are built under ``no_grad``; K3 / K3b get the expanded
-    geometry detached and run under ``no_grad``, as JAX's
-    ``stop_gradient`` does; the value chain stays differentiable: the
-    source table's value rows, K2 through
-    :class:`~pota_tpu_torch.ops.po_kernels.ExpandFn`, the payload columns,
-    the source-pixel fallback, and K4 through
+    and floors) and are built under ``no_grad``; so is the projection of
+    every route (K3 / K3b / K5 on the expanded geometry detached, as JAX's
+    ``stop_gradient`` does; K6 or the thin-lens projection and the
+    occlusion probe on the decomposed route, whose outputs reach the image
+    only through floors and booleans, as JAX's
+    ``differentiate_splat_geometry=False``); the value chain stays
+    differentiable: the source table's value rows, K2 through
+    :class:`~pota_tpu_torch.ops.po_kernels.ExpandFn`, the payload columns
+    of every gaussian AOV, the source-pixel fallback, and K4 through
     :class:`~pota_tpu_torch.ops.splat_accum.AccumFn`.
 
     Routes, as JAX routes a chip (see :data:`LAST_ROUTE`): on a scene of
@@ -480,8 +483,7 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
         from ..ops import KERNELS as ops
     if aovs is None:
         aovs = DEFAULT_AOVS
-    check_supported(cfg, rc, differentiable=differentiable, po_lens=po_lens,
-                    aovs=aovs, motion_blur=cam_to_world_end is not None)
+    check_supported(cfg, rc, po_lens=po_lens)
 
     n = stream["rgba"].shape[0]
     dev = stream["rgba"].device

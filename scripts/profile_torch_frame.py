@@ -5,7 +5,9 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 scripts/profile_torch_frame.py [--cells flagship flagship_mb
                                             config1 config3 config3_no_bokeh
-                                            config5 flagship_idmatte]
+                                            config5 flagship_idmatte
+                                            grad_mb_1080p grad_aovs_1080p
+                                            grad_config1]
 
 ``flagship`` is BASELINE config 4 (bench.py:172-246: 1920x1080 @ 1 spp,
 lens angenieux__double_gauss__1953__49mm, fstop 2.8, focus 20, lightgrid
@@ -25,7 +27,10 @@ spp, ``render_frame(differentiable=True)``, the mean-RGB loss and
 ``loss.backward()``, whose kernels are also charged to the step's forward
 and backward halves (the kernels launched inside ``loss.backward()``:
 the checkpointed trace's recompute, its VJPs and the implicit-function
-solve's, the shade's, K4's and K2's).  For each cell it
+solve's, the shade's, K4's and K2's); ``grad_mb_1080p``,
+``grad_aovs_1080p`` and ``grad_config1`` the differentiable routes'
+steps of chip_smoke.py's :func:`grad_paths`, split the same way.  For each
+cell it
 prints five unprofiled frame wall times, then profiles one warm frame with
 ``torch.profiler`` (CPU and CUDA activities), reads the kernels from the
 exported trace, and splits them into stages at the port's own kernels
@@ -58,6 +63,8 @@ OWN = (("po_forward_kernel", "K1 po_forward"), ("expand_kernel", "K2 expand"),
        ("tl_splat_kernel", "K5 tl_splat"),
        ("segment_tile_kernel", "K4 segment_accum tiles"),
        ("segment_carry_kernel", "K4 segment_accum carries"))
+# the differentiable routes' steps (chip_smoke.py's grad_paths)
+GRAD_CELLS = ("grad_mb_1080p", "grad_aovs_1080p", "grad_config1")
 # the port's functions whose device time is reported, innermost first
 # when ranges nest: (module, function)
 FUNCTIONS = (
@@ -68,6 +75,7 @@ FUNCTIONS = (
     ("render.splat", "splat_queue_compact"),
     ("render.splat", "_source_table"),
     ("render.splat", "po_backward_project"),
+    ("render.splat", "thinlens_backward_project"),
     ("render.splat", "_occluded_through_camera"),
     ("render.splat", "accumulate_sorted"),
     ("render.splat", "resolve_aovs"),
@@ -167,7 +175,7 @@ def main() -> int:
     ap.add_argument("--cells", nargs="+", default=["flagship", "flagship_mb"],
                     choices=["flagship", "flagship_mb", "config1", "config3",
                              "config3_no_bokeh", "config5",
-                             "flagship_idmatte"])
+                             "flagship_idmatte", *GRAD_CELLS])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -181,7 +189,7 @@ def main() -> int:
     import dataclasses
 
     import pota_tpu_torch as pt
-    from chip_smoke import Config5, glass_teapot, ring_pixels
+    from chip_smoke import Config5, glass_teapot, grad_paths, ring_pixels
     from pota_tpu_torch.optics.fit import load_poly_lens
     from pota_tpu_torch.optics.focus import setup_po_camera
     from pota_tpu_torch.render import scene as sc
@@ -232,6 +240,8 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
 
+    steps = ("config5", *GRAD_CELLS)
+    grads = None
     for cell in args.cells:
         if cell == "config5":
             c5 = Config5(dev, m)
@@ -240,6 +250,16 @@ def main() -> int:
                 with torch.profiler.record_function("forward"):
                     img, _ = c5.render()
                     loss = img[..., :3].mean()
+                with torch.profiler.record_function("loss.backward"):
+                    loss.backward()
+        elif cell in GRAD_CELLS:
+            grads = grads or grad_paths(
+                dev, m, look_at([2.0, 0, 0], [2.0, 0, -1], device=dev))
+            gp = grads[cell]
+
+            def frame():
+                with torch.profiler.record_function("forward"):
+                    loss = gp.forward()[0]
                 with torch.profiler.record_function("loss.backward"):
                     loss.backward()
         else:
@@ -273,8 +293,9 @@ def main() -> int:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-        if cell == "config5":
-            # ~100,000 kernels: too large to bring back from the card
+        if cell in steps:
+            # config 5's ~100,000 kernels: too large to bring back from
+            # the card; the other steps' are read here alone too
             os.remove(path)
         kernels = sorted((e["name"], float(e["ts"]), float(e["dur"]))
                          for e in events if e.get("cat") == "kernel")
@@ -303,7 +324,7 @@ def main() -> int:
         for name, (n, ms) in sorted(function_busy(events).items(),
                                     key=lambda kv: -kv[1][1]):
             print(f"| {name} | {ms:.2f} | {n} |", flush=True)
-        if cell == "config5":
+        if cell in steps:
             print("| half of the step | device busy ms | kernels |",
                   flush=True)
             halves = function_busy(events, exclude=tuple(

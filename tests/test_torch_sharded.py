@@ -26,8 +26,9 @@ on an 8-device virtual mesh):
 * ``train_step_sharded`` on 2 ranks at 16x16 against the one-process
   step (loss and gradients to 1e-5 relative; measured: the loss equal,
   the gradients 9.1e-8 ``pt`` and 4.3e-8 ``ap`` apart, the two ranks'
-  sums in another order), and on one rank against JAX's on a one-device
-  mesh (see the test).
+  sums in another order), the same with a gaussian ``P`` plane besides
+  RGBA (to 1e-6), and on one rank against JAX's on a one-device mesh (see
+  the test).
 
 ``splat_halo_rows`` and ``merge_traffic_bytes`` are held to JAX's.
 """
@@ -44,7 +45,7 @@ from pota_tpu_torch.optics.fit import load_poly_lens
 from pota_tpu_torch.optics.focus import setup_po_camera
 from pota_tpu_torch.parallel import sharded as sh
 from pota_tpu_torch.render import scene as sc
-from pota_tpu_torch.render.aov import DEFAULT_AOVS
+from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
 from pota_tpu_torch.render.renderer import look_at, render_frame
 
 torch.set_num_threads(2)
@@ -73,6 +74,10 @@ STEP_CFG = pt.CameraConfig(
     fstop=2.8, focus_distance=20.0, vignetting_retries=2, splat_queue_mult=4)
 STEP_RC = pt.RenderConfig(xres=16, yres=16, spp=1)
 STEP_TOL = 1e-5
+# a gaussian plane besides RGBA (the port's ROADMAP Q1.8b): the step's
+# merge carries nine gaussian columns
+STEP_AOVS = list(DEFAULT_AOVS) + [AOVSpec("P_gauss", "VECTOR", GAUSSIAN, "P")]
+STEP_AOVS_TOL = 1e-6
 
 
 def _m():
@@ -197,15 +202,16 @@ def _job_tie(mesh):
     return out
 
 
-def _job_step(mesh):
+def _job_step(mesh, aovs=None):
     lens, state, scene, target = _step_case()
     loss, grads = sh.train_step_sharded(STEP_CFG, STEP_RC, scene, _m(), mesh,
-                                        target, lens, state)
+                                        target, lens, state, aovs=aovs)
     return {"loss": loss, "g_pt": grads[0], "g_ap": grads[1]}
 
 
 JOBS = {"frames": _job_frames, "halo": _job_halo, "tie": _job_tie,
-        "step": _job_step}
+        "step": _job_step,
+        "step_aovs": lambda mesh: _job_step(mesh, STEP_AOVS)}
 
 
 def _rank_main(rank, world, store, out_dir, job):
@@ -353,29 +359,45 @@ def test_halo_rows_and_traffic_match_jax():
             jsh.merge_traffic_bytes(JRc(xres=1920, yres=1080), n, ch, rows)
 
 
-def test_train_step_sharded_matches_one_process(tmp_path):
-    """``train_step_sharded`` on 2 ranks against the one-process step
-    (``render_frame(differentiable=True)``, JAX's L2 loss, ``backward``):
-    the loss and the ``pt`` and ``ap`` gradients to 1e-5 relative."""
-    ranks = run_ranks(tmp_path, 2, "step")
+def _check_step_against_one_process(ranks, tol, aovs=None):
+    """Each rank's loss and ``pt`` / ``ap`` gradients against the
+    one-process step (``render_frame(differentiable=True)``, JAX's L2 loss,
+    ``backward``) to ``tol`` relative; the ranks' gradients equal."""
     lens, state, scene, target = _step_case()
     lens.pt.coeffs.requires_grad_(True)
     lens.ap.coeffs.requires_grad_(True)
     img, _ = render_frame(STEP_CFG, STEP_RC, scene, _m(), po_lens=lens,
-                          po_state=state, differentiable=True)
+                          po_state=state, differentiable=True, aovs=aovs)
     loss = ((img - target) ** 2).mean()
     loss.backward()
     loss = float(loss.detach())
     for r in ranks:
-        assert abs(float(r["loss"]) - loss) <= STEP_TOL * loss
+        assert abs(float(r["loss"]) - loss) <= tol * loss
         for key, c in (("g_pt", lens.pt.coeffs), ("g_ap", lens.ap.coeffs)):
             want = c.grad.numpy()
             assert np.isfinite(r[key]).all() and np.linalg.norm(want) > 0
             err = np.linalg.norm(r[key] - want) / np.linalg.norm(want)
             print(f"2-rank step {key}: rel L2 {err:.3e}; loss "
                   f"{float(r['loss'])} / {loss}")
-            assert err <= STEP_TOL, (key, err)
+            assert err <= tol, (key, err)
     np.testing.assert_array_equal(ranks[0]["g_pt"], ranks[1]["g_pt"])
+
+
+def test_train_step_sharded_matches_one_process(tmp_path):
+    """``train_step_sharded`` on 2 ranks against the one-process step: the
+    loss and the ``pt`` and ``ap`` gradients to 1e-5 relative."""
+    _check_step_against_one_process(run_ranks(tmp_path, 2, "step"),
+                                    STEP_TOL)
+
+
+def test_train_step_sharded_with_an_extra_gaussian_plane(tmp_path):
+    """The same 2-rank step with a gaussian ``P`` plane besides RGBA (the
+    differentiable K3 route with nine payload columns, the reduce-scatter
+    merging every gaussian plane): to 1e-6 of the one-process step
+    (measured: the loss equal, the gradients 9.1e-8 ``pt`` and 4.3e-8 ``ap``
+    apart, as without the plane)."""
+    _check_step_against_one_process(run_ranks(tmp_path, 2, "step_aovs"),
+                                    STEP_AOVS_TOL, STEP_AOVS)
 
 
 def test_make_mesh_refuses_what_it_cannot_run():

@@ -374,7 +374,12 @@ def ring_cdfs():
     return jb, bokeh_image_from_numpy(*tables, jb.resolution, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs, rc_kw, match", [
+# the differentiable cases' labels -> the splat route they take
+DIFFERENTIABLE_ROUTES = {"differentiable": "decomposed_po", "Q1.8b": "k3",
+                         "Q1.8c": "k5"}
+
+
+@pytest.mark.parametrize("kwargs, rc_kw, label", [
     ({"differentiable": True, "cam_to_world_end": "trucked"}, {},
      "differentiable"),
     ({"cam_to_world_end": torch.eye(4)}, {}, "motion blur"),
@@ -382,14 +387,17 @@ def ring_cdfs():
     ({"differentiable": True, "aovs": "extra gaussian"}, {}, "Q1.8b"),
     ({"differentiable": True, "camera": "thin lens"}, {}, "Q1.8c"),
 ])
-def test_unported_options_raise(jax_po, port_po, kwargs, rc_kw, match):
-    """The differentiable mode is refused with motion blur (ROADMAP
-    Q1.8a), with a gaussian AOV besides RGBA (Q1.8b) and on the thin lens
-    (Q1.8c).  Motion blur and the id-matte, refused before the port had
+def test_unported_options_raise(jax_po, port_po, kwargs, rc_kw, label):
+    """Nothing here is refused any more.  The differentiable mode with
+    motion blur (ROADMAP Q1.8a, the decomposed route), with a gaussian AOV
+    besides RGBA (Q1.8b, K3) and on the thin lens (Q1.8c, K5) renders an
+    8x8 frame that records a graph, and ``backward()`` fills finite,
+    non-zero gradients (of the lens coefficients; on the thin lens of
+    ``cam_to_world``); tests/test_torch_grad_{mb,aovs,thin}.py hold them
+    to JAX.  Motion blur and the id-matte, refused before the port had
     them, render an 8x8 frame held against JAX's splat of the same stream
     (the id-matte on K3, of a teapot with two glass spheres, its crypto
-    planes compared).  (``differentiable=True`` itself runs:
-    tests/test_torch_grad.py.)"""
+    planes compared)."""
     from pota_tpu_torch.render import splat as tsplat
     from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
 
@@ -419,9 +427,19 @@ def test_unported_options_raise(jax_po, port_po, kwargs, rc_kw, match):
     if kwargs.get("aovs") == "extra gaussian":
         kwargs["aovs"] = list(DEFAULT_AOVS) + [
             AOVSpec("P_gauss", "VECTOR", GAUSSIAN, "P")]
+    m = look_at([0, 0, 0], [0, 0, -1], device="cpu")
     if kwargs.pop("camera", None) == "thin lens":
         cfg = dataclasses.replace(cfg, camera_type=pt.CameraType.THIN_LENS)
-    with pytest.raises(NotImplementedError, match=match):
-        render_frame(cfg, rc, _scene(),
-                     look_at([0, 0, 0], [0, 0, -1], device="cpu"),
-                     po_lens=lens, po_state=state, **kwargs)
+        leaves = [m.requires_grad_(True)]
+    else:
+        lens = load_poly_lens(gc.FLAGSHIP, device="cpu")
+        leaves = [lens.pt.coeffs.requires_grad_(True),
+                  lens.ap.coeffs.requires_grad_(True)]
+    img, _ = render_frame(cfg, rc, sc.teapot_scene(device="cpu"), m,
+                          po_lens=lens, po_state=state, **kwargs)
+    assert tsplat.LAST_ROUTE == DIFFERENTIABLE_ROUTES[label]
+    assert img.requires_grad
+    img[..., :3].mean().backward()
+    for leaf in leaves:
+        assert bool(torch.isfinite(leaf.grad).all())
+        assert float(leaf.grad.norm()) > 0

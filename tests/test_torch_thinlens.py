@@ -4,8 +4,8 @@ aberration branch, K5's plain version against the Pallas thin-lens splat
 kernel in interpret mode, the thin-lens frame at the ``thinlens_teapot``
 golden configuration (64x64, 4 spp, teapot scene) against the committed
 golden and against JAX's expanded branch on the same stream, the
-configurations the port still refuses, and 8x8 frames of the settings it
-refused before it had JAX's decomposed splat (held against JAX's splat of
+differentiable frame, and 8x8 frames of the settings it refused before it
+had JAX's decomposed splat (held against JAX's splat of
 the same sample stream to 1e-6 of scale, as ``tests/test_torch_slice.py``
 holds its same-stream splat).
 
@@ -338,9 +338,10 @@ def test_tl_render_matches_golden(tl_renders):
 # ------------------------------------------------------------- refusals
 
 
-# case -> (camera changes, render changes, splat_frame options, refusal);
-# the cases with no refusal were refused before the port had JAX's
-# decomposed splat and now render
+# case -> (camera changes, render changes, splat_frame options, route of a
+# differentiable frame); every case was refused once: the settings before
+# the port had JAX's decomposed splat, the differentiable frame before it
+# had the thin lens's gradient
 REFUSALS = {
     "tl_coma": ({"abb_coma": 0.5}, {}, {}, None),
     "tl_chromatic": ({"abb_chromatic": 0.5}, {}, {}, None),
@@ -352,35 +353,41 @@ REFUSALS = {
     "motion_blur": ({}, {}, {"m_end": "pan"}, None),
     "id_matte": ({"abb_coma": 0.5}, {"enable_id_matte": True}, {}, None),
     "gaussian_aovs": ({}, {}, {"aovs": "extra"}, None),
-    "differentiable": ({}, {}, {"differentiable": True}, "differentiable"),
+    "differentiable": ({}, {}, {}, "k5"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_check_supported_refuses(case):
-    """The differentiable mode is refused, naming the ROADMAP item that
-    ports it.  Every other case renders an 8x8 teapot frame of its setting
-    whose splat of JAX's sample stream equals JAX's to 1e-6 of scale (the
-    aberrated settings, motion blur and the id-matte (with coma) through
-    the decomposed route, the extra gaussian AOV through K5; the id-matte
-    with its crypto planes compared)."""
+    """No setting is refused any more.  The differentiable frame (ROADMAP
+    Q1.8c) renders through K5 and records a graph: ``backward()`` fills a
+    finite, non-zero gradient of ``cam_to_world`` and of the scene's
+    albedo (tests/test_torch_grad_thin.py holds it to JAX).  Every other
+    case renders an 8x8 teapot frame of its setting whose splat of JAX's
+    sample stream equals JAX's to 1e-6 of scale (the aberrated settings,
+    motion blur and the id-matte (with coma) through the decomposed route,
+    the extra gaussian AOV through K5; the id-matte with its crypto planes
+    compared)."""
     from pota_tpu.render import scene as jsc
 
     from pota_tpu_torch.render import splat as tsplat
     from pota_tpu_torch.render.aov import DEFAULT_AOVS, GAUSSIAN, AOVSpec
 
-    cfg_kw, rc_kw, kw, match = REFUSALS[case]
+    cfg_kw, rc_kw, kw, route = REFUSALS[case]
     cfg = dataclasses.replace(TL_CFG_T, **cfg_kw)
     rc = dataclasses.replace(to_port(RenderConfig(xres=8, yres=8, spp=2)),
                              **rc_kw)
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            check_supported(cfg, rc, **kw)
-        # the ROADMAP item that ports it is named
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Q1\.8"):
-            check_supported(cfg, rc, **kw)
-        return
     check_supported(cfg, rc)
+    if route is not None:
+        scene = sc.teapot_scene(device="cpu")
+        scene.albedo.requires_grad_(True)
+        m = look_at([0, 0, 0], [0, 0, -1], device="cpu").requires_grad_(True)
+        img, _ = render_frame(cfg, rc, scene, m, differentiable=True)
+        assert tsplat.LAST_ROUTE == route and img.requires_grad
+        img[..., :3].mean().backward()
+        for g in (m.grad, scene.albedo.grad):
+            assert bool(torch.isfinite(g).all()) and float(g.norm()) > 0
+        return
     opts = {}
     if kw.get("aovs") == "extra":
         opts["aovs"] = list(DEFAULT_AOVS) + [
