@@ -22,12 +22,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                piled up (:func:`writer_stream`), each run twice and held
                to identical bits; K5 with its occupancy and compiled
                instruction mix (:func:`k5_profile`); K4 and K5 timed over
-               50 runs, with the spread (:func:`timed_ms`); K2, K3 and K4
-               again on the arguments of config 5's 4K differentiable step
-               (records with ``path: "config5"``; the plain K3 on the
-               queue's first :data:`CONFIG5_PLAIN_SLOTS` slots), and the
-               VJPs of K2 and K4 there (``ExpandFn``, ``AccumFn``) against
-               float64 oracles (:func:`config5_vjp_checks`)
+               50 runs, with the spread (:func:`timed_ms`); K1, K2, K3 and
+               K4 again on the arguments of config 5's 4K differentiable
+               step (records with ``path: "config5"``; K1 on the trace's
+               first chunk; the plain K3 on the queue's first
+               :data:`CONFIG5_PLAIN_SLOTS` slots), K1v (K1's VJP) on every
+               chunk's arguments of that step, held to its plain version
+               in float32 and on the first :data:`PLAIN_VJP_F64` candidates
+               in float64 (:data:`VJP_TOL`), two runs to identical bits
+               (:func:`forward_vjp_record`), and the VJPs of K2 and K4
+               there (``ExpandFn``, ``AccumFn``) against float64 oracles
+               (:func:`config5_vjp_checks`)
   4. parity    renders small frames twice, through the kernels and through
                the plain versions on CUDA tensors, and compares: the
                flagship at 256x256 @ 1 spp, config 1 at 64x64 @ 4 spp,
@@ -52,7 +57,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                ``trace_chunks`` 32, 3 candidates a ray), loss
                ``mean(img[..., :3])``, ``loss.backward()`` to the flagship
                fit's ``pt`` and ``ap`` coefficients; launch counts (K2, K3,
-               K4 once each, K1 never), one warm-up and three timed steps
+               K4 once each; the trace through ``ForwardFn``, K1 twice and
+               K1v once in each of its 32 checkpointed chunks:
+               :func:`want_launches`), one warm-up and three timed steps
                (``config5_step_s``, the median), peak memory, the
                gradient's norm; then three gradient-descent steps of JAX's
                ``train_step_sharded`` L2 loss (one device) from seeded
@@ -67,6 +74,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                parity frame (phase 4, 256x144 @ 1 spp, ``trace_chunks``
                4) holds the image and the ``pt`` gradient through the
                kernels to the plain versions' (:data:`CONFIG5_GRAD_TOL`)
+               and splits the gradient's difference between K1, K1v and
+               K3 by mixed kernel sets (printed, not asserted)
   9. flagship_idmatte  BASELINE config 4's camera on ``teapot_scene()``
                with thin glass of grey 0.5 on its spheres 0 and 1
                (:func:`glass_teapot`, the PO state set up on that scene),
@@ -131,7 +140,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                gaussian transmission plane beside RGBA: K2, K3, K4, K4 over
                nine payload columns), ``grad_config1`` (BASELINE config
                1's thin lens: K2, K5, K4) and ``grad_config1_coma`` (coma
-               0.5: K2, K4); K6, K4 and K5 again on those steps' arguments
+               0.5: K2, K4); the PO routes' traces through ``ForwardFn``
+               (K1 twice and K1v once in each of 8 chunks); K2 on three of
+               those steps' arguments, K3, K6, K4 and K5 again on them
                (records with ``path``)
 Each kernel record carries ``bound_ms``, the least time the card could take
 for the same work: the larger of the bytes the kernel must move (each input
@@ -140,7 +151,9 @@ over 67 TFLOP/s (an FMA is two; the integer TEA-8 draws are not counted),
 counted from the kernel's code and this run's shapes (for the kernels on
 the folded degree-5 basis the work they run: :func:`basis_forward_flops`
 for K1, :func:`basis_solve_flops` for K3, K3b and K6; for K4 the bytes of
-its live writers only, :func:`accum_bound`).  Those five records
+its live writers only, :func:`accum_bound`; for K1v the operations of the
+candidates that carry a cotangent, :func:`basis_forward_vjp_flops`).
+K1's, K3's, K3b's and K6's records
 add ``runtime_term_bound_ms`` (the same bound for the runtime-term code each
 ran before, :func:`forward_flops` / :func:`solve_flops`, from the fit's
 exponent table), their registers and spill bytes; K3's, K3b's
@@ -183,7 +196,8 @@ PATH_KERNELS = {
     "config3_no_bokeh": ("po_forward", "expand", "po_splat_lam",
                          "segment_accum"),
     "config3": ("po_forward", "expand", "po_splat_ext", "segment_accum"),
-    "config5": ("expand", "po_splat", "segment_accum"),
+    "config5": ("po_forward", "expand", "po_splat", "segment_accum",
+                "po_forward_vjp"),
     "flagship_idmatte": ("po_forward", "expand", "po_splat", "segment_accum"),
     "config2": ("po_forward",),
     "flagship_fresh_fit": ("po_forward", "expand", "po_splat",
@@ -194,9 +208,12 @@ PATH_KERNELS = {
     "replay_null": ("expand", "po_backward", "segment_accum"),
     "sharded_flagship": ("po_forward", "expand", "po_splat", "segment_accum"),
     "sharded_config1": ("expand", "tl_splat", "segment_accum"),
-    "sharded_config5": ("expand", "po_splat", "segment_accum"),
-    "grad_mb_1080p": ("expand", "po_backward", "segment_accum"),
-    "grad_aovs_1080p": ("expand", "po_splat", "segment_accum"),
+    "sharded_config5": ("po_forward", "expand", "po_splat", "segment_accum",
+                        "po_forward_vjp"),
+    "grad_mb_1080p": ("po_forward", "expand", "po_backward", "segment_accum",
+                      "po_forward_vjp"),
+    "grad_aovs_1080p": ("po_forward", "expand", "po_splat", "segment_accum",
+                        "po_forward_vjp"),
     "grad_config1": ("expand", "tl_splat", "segment_accum"),
     "grad_config1_coma": ("expand", "segment_accum"),
 }
@@ -219,10 +236,18 @@ REPLAY_ENERGY_TOL = 2e-3
 CRYPTO_TOL = 1e-5
 # config 5's plain K3 runs on the leading slots of its 33M-slot queue
 CONFIG5_PLAIN_SLOTS = 1 << 22
+# K1v against a float64 accumulation of its plain version on the leading
+# candidates of config 5's step; the plain versions run in chunks of
+PLAIN_VJP_F64 = 1 << 22
+PLAIN_VJP_CHUNK = 1 << 20
+# relative L2 of K1v's coefficient cotangents against its plain version
+# (float32, and float64 on the leading candidates)
+VJP_TOL = 1e-4
 # relative L2 of config 5's parity gradient of pt (kernels against the
-# plain versions; measured 1.14e-5, ap 8.2e-6, on an NVIDIA H100 80GB HBM3:
-# K3 and its plain version disagree on a few slots); the images are held
-# by the parity frames' pixel limit
+# plain versions; measured 6.5e-5, ap 6.4e-5, on an NVIDIA H100 80GB HBM3:
+# K3 alone among the plain versions gives the same, while K1's forward
+# (no trans > 0 decision differs) and K1v move it by 4e-8 at most); the
+# images are held by the parity frames' pixel limit
 CONFIG5_GRAD_TOL = 1e-3
 # config 5's descent step, of the coefficients' norm: the range where the
 # loss with K3's decisions held follows the gradient on the CPU
@@ -230,6 +255,26 @@ CONFIG5_GRAD_TOL = 1e-3
 DESCENT_STEP = 1e-9
 # the world-size-1 sharded 4K step against the single-process step
 SHARDED_STEP_TOL = 1e-6
+
+
+def trace_chunks_of(cfg, rc) -> int:
+    """The checkpointed chunks of a differentiable frame's trace
+    (``trace_chunk_count`` of the renderer, on the frame's samples)."""
+    from pota_tpu_torch.render.renderer import trace_chunk_count
+
+    return trace_chunk_count(cfg, rc.xres_region * rc.yres_region * rc.spp)
+
+
+def want_launches(path: str, chunks: int = 1) -> dict:
+    """The launches of one run of ``path``: each of its kernels once; on a
+    differentiable PO path, whose trace runs in ``chunks`` checkpointed
+    chunks, K1 twice a chunk (the forward and the backward's recompute;
+    once without chunks) and K1v once a chunk."""
+    want = {k: 1 for k in PATH_KERNELS[path]}
+    if "po_forward_vjp" in want:
+        want.update(po_forward=2 * chunks if chunks > 1 else 1,
+                    po_forward_vjp=chunks)
+    return want
 
 
 def fail(msg: str) -> None:
@@ -302,6 +347,21 @@ def basis_forward_flops(iterations: int) -> float:
     the shift and conditioning (12), the 126 monomials (125 multiplies),
     pt's five rows (630 FMAs) and the clamp (1)."""
     return float(4 + 524 + 4 + iterations * 175 + 12 + 125 + 1260 + 1)
+
+
+def basis_forward_vjp_flops(with_trans: bool) -> float:
+    """f32 operations of one K1v candidate that carries a cotangent
+    (``csrc/po_forward_vjp.cu``): the conditioning of u and u' (14); two
+    walks of 125 monomial products with four tangents (6 each: 1500); at
+    u' per monomial the weighted coefficient (a multiply, four FMAs) and
+    the four tangent FMAs (17 x 126); at u ap's eight Jacobian FMAs (16 x
+    126); the chain rule, the transposed 2x2 solve and the rays'
+    cotangents (40); the staged powers (40); per monomial the two staged
+    products (6) and the seven weighted sums (14: 20 x 126).  With a
+    cotangent of trans, its raw value first: 125 multiplies and pt's five
+    rows (1,260)."""
+    return float(14 + 1500 + 17 * 126 + 16 * 126 + 40 + 40 + 20 * 126
+                 + (125 + 1260 if with_trans else 0))
 
 
 def accum_bound(args) -> dict:
@@ -714,16 +774,21 @@ def check_id_matte(label, fb, records, layers, npix: int) -> dict:
 
 class Recorder:
     """A kernel set that runs the kernels and keeps the arguments of the
-    first call of each, so they can be replayed at main-path shapes."""
+    first call of each, so they can be replayed at main-path shapes.  Its
+    wrappers hold the ``args`` dict, not the Recorder: a reference cycle
+    would keep a frame's arguments on the card until a garbage collection
+    (and in the next phase's peak memory)."""
 
     def __init__(self, kernels):
         self.args = {}
         for name in kernels._fields:
-            setattr(self, name, self._wrap(name, getattr(kernels, name)))
+            setattr(self, name, self._wrap(self.args, name,
+                                           getattr(kernels, name)))
 
-    def _wrap(self, name, fn):
+    @staticmethod
+    def _wrap(seen, name, fn):
         def call(*args):
-            self.args.setdefault(name, args)
+            seen.setdefault(name, args)
             return fn(*args)
         return call
 
@@ -943,6 +1008,194 @@ def _config5_vjp_checks(fn_args, accum_args) -> dict:
     return out
 
 
+def k1_record(a1, ptxas, tag, path=None) -> dict:
+    """K1 against its plain version on the captured arguments ``a1`` (the
+    plain version in 1M-ray chunks): ``trans > 0`` agreement and the
+    largest error on the rays both keep; its record (``path`` None: the
+    flagship's)."""
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    lens = a1[0]
+    got = pk.po_forward(*a1)
+    ref = plain_chunked(pk.po_forward_plain, a1, slice(1, 5))
+    ok_g, ok_p = got[1] > 0, ref[1] > 0
+    agree = float((ok_g == ok_p).double().mean())
+    both = ok_g & ok_p
+    err = max(float((g[both] - r[both]).abs().max())
+              for g, r in zip(got, ref))
+    n1 = int(a1[1].shape[0])
+    where = f" ({path})" if path else ""
+    print(f"K1 po_forward{where} M={n1} trans>0 agree={agree:.6f} "
+          f"max_abs_err(valid rays)={err:.3e} mm", flush=True)
+    if agree < MASK_AGREE or err > 1e-3:
+        fail(f"K1 po_forward{where} disagrees with its plain version")
+    del got, ref, ok_g, ok_p, both
+    rec = dict(
+        name="po_forward", route="cuda",
+        source="pota_tpu_torch/csrc/po_forward.cu",
+        replaces=f"{TPU_KERNELS}:83", max_abs_err=err,
+        ms=median_ms(lambda: pk.po_forward(*a1)),
+        plain_ms=median_ms(
+            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 5)), 3),
+        **bound(48.0 * n1, n1 * basis_forward_flops(a1[7])),
+        runtime_term_bound_ms=bound(48.0 * n1, n1 * forward_flops(
+            lens.ap.exponents, lens.pt.exponents, a1[7]))["bound_ms"],
+        **ptxas["po_forward"], library_ms=None, n=n1, mask_agree=agree)
+    if path:
+        rec["path"] = path
+    print(f"po_forward{where} (folded forward): {rec['ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), runtime-term "
+          f"bound {rec['runtime_term_bound_ms']:.3f} ms, "
+          f"{rec['registers']} registers, {rec['spill_bytes']} spill "
+          f"bytes {tag}", flush=True)
+    return rec
+
+
+def k2_record(a2, ptxas, path) -> dict:
+    """K2 against its plain version (exactly) on the captured arguments
+    ``a2`` of ``path``, and its record; the library yardstick is
+    ``index_select`` on both tables."""
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    got = pk.expand(*a2)
+    ref = pk.expand_plain(*a2)
+    err = max(float((got[0] - ref[0]).abs().max()),
+              float((got[1] - ref[1]).abs().max()))
+    print(f"K2 expand ({path}) S={a2[0].shape[0]} max_abs_err={err}",
+          flush=True)
+    if err != 0:
+        fail(f"K2 expand disagrees with its plain version on {path}")
+    del got, ref
+    s2, n2 = a2[0].shape[0], a2[1].shape[1]
+    rows = a2[1].shape[0] + a2[2].shape[0]
+    return dict(
+        name="expand", path=path, route="cuda",
+        source="pota_tpu_torch/csrc/expand.cu",
+        replaces=f"{TPU_KERNELS}:877", max_abs_err=err,
+        ms=median_ms(lambda: pk.expand(*a2)),
+        plain_ms=median_ms(lambda: pk.expand_plain(*a2)),
+        **bound(4.0 * (s2 + rows * (s2 + n2)), 0.0),
+        library_ms=median_ms(lambda: (a2[1].index_select(1, a2[0]),
+                                      a2[2].index_select(1, a2[0]))),
+        n=int(s2), **ptxas["expand"])
+
+
+def _vjp_slice(args, lo: int, hi: int, dtype=None) -> tuple:
+    """K1v's arguments (lens, rays, solution, cotangents, lam, shift,
+    need_inputs) cut to candidates [lo, hi), the tensors in ``dtype``."""
+    cut = [None if t is None else
+           (t[lo:hi] if dtype is None else t[lo:hi].to(dtype)).contiguous()
+           for t in args[1:11]]
+    return (args[0], *cut, *args[11:])
+
+
+def vjp_plain_sum(args, dtype) -> tuple:
+    """K1v's plain version over ``args``'s candidates in chunks of
+    :data:`PLAIN_VJP_CHUNK`, the inputs in ``dtype``, the chunks' (pt, ap)
+    cotangents summed in float64."""
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    m = args[1].shape[0]
+    total = None
+    for lo in range(0, m, PLAIN_VJP_CHUNK):
+        part = pk.po_forward_vjp_plain(
+            *_vjp_slice(args, lo, min(lo + PLAIN_VJP_CHUNK, m), dtype))[:2]
+        part = [p.double() for p in part]
+        total = part if total is None else [a + b
+                                            for a, b in zip(total, part)]
+    return total
+
+
+def forward_vjp_record(calls, ptxas, tag, path) -> dict:
+    """K1v on the arguments of every launch of one step of ``path`` (the
+    trace's checkpointed chunks, ``calls``): on all of them in one launch
+    against its plain version (float32, chunks summed in float64) and, on
+    the first :data:`PLAIN_VJP_F64` candidates, against the plain version
+    in float64, both by :data:`VJP_TOL` relative L2 of the ``pt`` and
+    ``ap`` cotangents; two runs give the same bits.  ``ms``, ``plain_ms``
+    and ``bound_ms`` are per launch: the step's launches run back to back
+    (the chunks differ: a band of sky carries no cotangent), over their
+    count; ``all_ms`` the whole step's candidates in one launch.  The
+    bound counts the operations of the candidates that carry a cotangent
+    (:func:`basis_forward_vjp_flops`) and the bytes the function needs:
+    the cotangents given for every candidate, the rays and the solution
+    for those that carry one, and the outputs."""
+    import torch
+
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    one = calls[0]
+    cat = [None if one[i] is None else torch.cat([c[i] for c in calls])
+           for i in range(1, 11)]
+    full = (one[0], *cat, *one[11:])
+    m_all, m1 = int(cat[0].shape[0]), int(one[1].shape[0])
+    got = pk.po_forward_vjp(*full)
+    again = pk.po_forward_vjp(*full)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    rel = lambda g, r: float((g.double() - r).norm() / r.norm())
+    ref = vjp_plain_sum(full, torch.float32)
+    err = [rel(g, r) for g, r in zip(got[:2], ref)]
+    abs_err = max(float((g.double() - r).abs().max())
+                  for g, r in zip(got[:2], ref))
+    n64 = min(m_all, PLAIN_VJP_F64)
+    head = _vjp_slice(full, 0, n64)
+    got64 = pk.po_forward_vjp(*head)
+    ref64 = vjp_plain_sum(head, torch.float64)
+    err64 = [rel(g, r) for g, r in zip(got64[:2], ref64)]
+    plain64 = [rel(g, r) for g, r in zip(vjp_plain_sum(head, torch.float32),
+                                         ref64)]
+    del got, again, ref, got64, ref64, head
+    cts = [t for t in cat[6:10] if t is not None]
+    live = torch.zeros(m_all, dtype=torch.bool, device=cts[0].device)
+    for t in cts:
+        live |= (t != 0).reshape(m_all, -1).any(1)
+    active = int(live.sum())
+    # the cotangents given are read for every candidate, the rays and the
+    # solution (x, y, dx, dy) only for those that carry one; the rays'
+    # cotangents (need_inputs) are written for all, the sums once a launch
+    need_inputs = len(one) > 13 and bool(one[13])
+    n_bytes = (sum(4.0 * t.numel() for t in cts) + 16.0 * active
+               + (16.0 * m_all if need_inputs else 0.0)
+               + 8.0 * pk.VJP_SUMS * len(calls))
+    per_launch = lambda fn: lambda: [fn(*c) for c in calls]
+    print(f"K1v po_forward_vjp ({path}) on {len(calls)} launches' {m_all} "
+          f"candidates: rel L2 pt {err[0]:.3e} ap {err[1]:.3e} against the "
+          f"plain version; on the first {n64} against float64 pt "
+          f"{err64[0]:.3e} ap {err64[1]:.3e} (the float32 plain version "
+          f"{plain64[0]:.3e} / {plain64[1]:.3e}); two runs identical bits "
+          f"{same}", flush=True)
+    if max(err + err64) > VJP_TOL or not same:
+        fail(f"K1v po_forward_vjp ({path}) disagrees with its plain version "
+             "or is not reproducible")
+    rec = dict(
+        name="po_forward_vjp", path=path, route="cuda",
+        source="pota_tpu_torch/csrc/po_forward_vjp.cu",
+        replaces=f"{TPU_KERNELS}:83",
+        role="K1's backward; no TPU kernel: JAX differentiates its pure "
+             "path (pota_tpu/optics/polynomial.py:256-324)",
+        max_abs_err=abs_err, rel_l2=dict(pt=err[0], ap=err[1]),
+        f64_rel_l2=dict(pt=err64[0], ap=err64[1], n=n64,
+                        plain_f32_pt=plain64[0], plain_f32_ap=plain64[1]),
+        identical_bits=same,
+        ms=median_ms(per_launch(pk.po_forward_vjp)) / len(calls),
+        plain_ms=median_ms(per_launch(pk.po_forward_vjp_plain), 3)
+        / len(calls),
+        all_ms=median_ms(lambda: pk.po_forward_vjp(*full)),
+        **bound(n_bytes / len(calls), active / len(calls)
+                * basis_forward_vjp_flops(one[8] is not None)),
+        bytes_ms=n_bytes / len(calls) / HBM_BYTES_PER_S * 1e3,
+        library_ms=None, n=m1, n_all=m_all, active=active,
+        **ptxas["po_forward_vjp"])
+    print(f"po_forward_vjp ({path}): {rec['ms']:.3f} ms a launch at M={m1} "
+          f"({len(calls)} launches, {active} of {m_all} candidates carry a "
+          f"cotangent), all in one launch {rec['all_ms']:.3f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms a launch, bound {rec['bound_ms']:.4f} "
+          f"ms a launch ({rec['bound_by']}; bytes {rec['bytes_ms']:.4f}), "
+          f"{rec['registers']} registers, "
+          f"{rec['spill_bytes']} spill bytes {tag}", flush=True)
+    return rec
+
+
 class Config5:
     """BASELINE config 5 (bench.py:249-297), the differentiable 4K step:
     the flagship fit (its own copy, whose ``pt`` and ``ap`` coefficients
@@ -997,16 +1250,24 @@ class Config5:
         return float(loss.detach()), img.detach(), fb
 
     def kernel_records(self, ptxas, tag) -> list:
-        """K2, K3 and K4 on the arguments of one 4K step (``path:
-        "config5"``; the plain K3 on the queue's first
-        :data:`CONFIG5_PLAIN_SLOTS` slots), and the VJPs of K2 and K4 on
-        them (:func:`config5_vjp_checks`, in K4's record)."""
+        """K1, K2, K3, K4 and K1v on the arguments of one 4K step
+        (``path: "config5"``; K1 on the trace's first chunk, K1v on every
+        chunk's (:func:`forward_vjp_record`); the plain K3 on the queue's
+        first :data:`CONFIG5_PLAIN_SLOTS` slots), and the VJPs of K2 and K4
+        on them (:func:`config5_vjp_checks`, in K4's record)."""
         import torch
 
         from pota_tpu_torch import ops
         from pota_tpu_torch.ops import po_kernels as pk, splat_accum
 
         rec = Recorder(ops.KERNELS)
+        vjp_calls = []
+
+        def recording_vjp(*a):
+            vjp_calls.append(a)
+            return ops.KERNELS.po_forward_vjp(*a)
+
+        rec.po_forward_vjp = recording_vjp
         fn_args = {}
         expand_apply = pk.ExpandFn.apply
 
@@ -1016,34 +1277,22 @@ class Config5:
 
         pk.ExpandFn.apply = recording_apply
         try:
-            self.render(ops=rec)
+            with torch.enable_grad():
+                self.step(ops=rec)
         finally:
             del pk.ExpandFn.apply
+        for c in self.coeffs:
+            c.grad = None
         torch.cuda.synchronize()
-        records = []
-        a2 = rec.args["expand"]
-        got = pk.expand(*a2)
-        ref = pk.expand_plain(*a2)
-        err2 = max(float((got[0] - ref[0]).abs().max()),
-                   float((got[1] - ref[1]).abs().max()))
-        print(f"K2 expand (config 5) S={a2[0].shape[0]} max_abs_err={err2}",
-              flush=True)
-        if err2 != 0:
-            fail("K2 expand disagrees with its plain version on config 5")
-        del got, ref
-        s2, n2 = a2[0].shape[0], a2[1].shape[1]
-        rows = a2[1].shape[0] + a2[2].shape[0]
-        records.append(dict(
-            name="expand", path="config5", route="cuda",
-            source="pota_tpu_torch/csrc/expand.cu",
-            replaces=f"{TPU_KERNELS}:877", max_abs_err=err2,
-            ms=median_ms(lambda: pk.expand(*a2)),
-            plain_ms=median_ms(lambda: pk.expand_plain(*a2)),
-            **bound(4.0 * (s2 + rows * (s2 + n2)), 0.0),
-            library_ms=median_ms(lambda: (a2[1].index_select(1, a2[0]),
-                                          a2[2].index_select(1, a2[0]))),
-            n=int(s2), **ptxas["expand"]))
-        del a2
+        chunks = trace_chunks_of(self.cfg, self.rc)
+        if len(vjp_calls) != chunks:
+            fail(f"config 5: K1v ran {len(vjp_calls)} times, not once a "
+                 f"chunk ({chunks})")
+        records = [k1_record(rec.args["po_forward"], ptxas, tag, "config5"),
+                   forward_vjp_record(vjp_calls, ptxas, tag, "config5")]
+        vjp_calls.clear()
+        torch.cuda.empty_cache()
+        records.append(k2_record(rec.args["expand"], ptxas, "config5"))
         a3 = rec.args["po_splat"]
         k3 = check_splat_kernel(
             "po_splat", pk.po_splat, pk.po_splat_plain, a3, slice(1, 10),
@@ -1067,10 +1316,6 @@ class Config5:
             library_ms=None, n=int(a4[0].shape[0]),
             **ptxas["segment_accum"],
             config5_vjp=config5_vjp_checks(fn_args["expand_fn"], a4)))
-        # the Recorder refers to itself: drop the 4K tensors it holds now
-        # rather than at the next cycle collection
-        rec.args.clear()
-        fn_args.clear()
         for r in records:
             print(f"{r['name']} (config 5): kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms (on {r.get('plain_n', r['n'])} "
@@ -1081,27 +1326,70 @@ class Config5:
     def parity(self) -> None:
         """The parity frame (``trace_chunks`` 4) through the kernels and
         through the plain versions: the image by the parity frames' pixel
-        limit, the ``pt`` gradient by :data:`CONFIG5_GRAD_TOL`."""
+        limit, the ``pt`` gradient by :data:`CONFIG5_GRAD_TOL`.  Mixed
+        sets split the gradient's difference: K1's forward, K1v (each with
+        K2, K3 and K4 as in the kernel set), and K3 alone among the plain
+        versions; K1's ``trans > 0`` decisions on the frame's forward
+        chunks are counted against its plain version's."""
         import torch
 
         from pota_tpu_torch import ops
+        from pota_tpu_torch.ops import po_kernels as pk
 
         rc = self.parity_rc
         phase(f"parity config 5 {rc.xres}x{rc.yres} @ 1 spp, "
               "differentiable: kernels vs plain versions")
         cfg = dataclasses.replace(self.cfg, trace_chunks=4)
+        k1_calls = []
+
+        def recording_k1(*a):
+            k1_calls.append(a)
+            return ops.KERNELS.po_forward(*a)
+
+        sets = (("kernels", ops.KERNELS._replace(po_forward=recording_k1)),
+                ("plain", ops.PLAIN),
+                ("K1 with plain K1v", ops.KERNELS._replace(
+                    po_forward_vjp=ops.PLAIN.po_forward_vjp)),
+                ("plain K1 with K1v", ops.KERNELS._replace(
+                    po_forward=ops.PLAIN.po_forward)),
+                ("K3 alone", ops.PLAIN._replace(
+                    po_splat=ops.KERNELS.po_splat)))
         res = {}
-        for label, kset in (("kernels", None), ("plain", ops.PLAIN)):
+        for label, kset in sets:
             _, img, fb = self.step(rc, cfg, ops=kset)
             res[label] = (img, float(fb["RGBA"].detach().double().sum()),
                           *(c.grad.clone() for c in self.coeffs))
+        rel = lambda a, i: float((res[a][i] - res["plain"][i]).norm()
+                                 / res["plain"][i].norm())
         off = frac_pixels_off(res["kernels"][0], res["plain"][0])
-        g_err = [float((res["kernels"][i] - res["plain"][i]).norm()
-                       / res["plain"][i].norm()) for i in (2, 3)]
+        g_err = [rel("kernels", i) for i in (2, 3)]
         print(f"  RGBA: pixels off {off:.5f}; energy kernels "
               f"{res['kernels'][1]:.6f} plain {res['plain'][1]:.6f}; "
               f"gradient rel L2 pt {g_err[0]:.3e} ap {g_err[1]:.3e}",
               flush=True)
+        for label, _ in sets[2:]:
+            print(f"  {label} against the plain versions: pixels off "
+                  f"{frac_pixels_off(res[label][0], res['plain'][0]):.5f}; "
+                  f"gradient rel L2 pt {rel(label, 2):.3e} ap "
+                  f"{rel(label, 3):.3e}", flush=True)
+        # the forward's chunks come first, the backward's recompute after
+        chunks = trace_chunks_of(cfg, rc)
+        flips = n_k1 = 0
+        d_err = 0.0
+        for a in k1_calls[:chunks]:
+            with torch.no_grad():
+                got, ref = pk.po_forward(*a), pk.po_forward_plain(*a)
+            ok_g, ok_p = got[1] > 0, ref[1] > 0
+            both = ok_g & ok_p
+            flips += int((ok_g != ok_p).sum())
+            n_k1 += int(ok_g.numel())
+            if bool(both.any()):
+                d_err = max([d_err] + [float((g[both] - r[both]).abs().max())
+                                       for g, r in zip(got[2:], ref[2:])])
+        print(f"  K1 against its plain version on the frame's {n_k1} "
+              f"candidates: trans > 0 differs on {flips}; dx, dy max abs "
+              f"difference {d_err:.3e} where both pass", flush=True)
+        del k1_calls
         if (off > MAX_PIXELS_OFF or g_err[0] > CONFIG5_GRAD_TOL
                 or abs(res["kernels"][1] - res["plain"][1])
                 > 2e-3 * abs(res["plain"][1])
@@ -1111,10 +1399,10 @@ class Config5:
 
     def run(self, tag) -> dict:
         """The config 5 phase: one step with the launch counters set to 0
-        just before it and read just after (K2, K3, K4 once each, nothing
-        else), its peak memory, energy, planes and gradient norms; a
-        warm-up and three timed steps; three descent steps.  Returns the
-        launches."""
+        just before it and read just after (K2, K3, K4 once each, K1 twice
+        and K1v once a trace chunk, nothing else: :func:`want_launches`),
+        its peak memory, energy, planes and gradient norms; a warm-up and
+        three timed steps; three descent steps.  Returns the launches."""
         import torch
 
         from pota_tpu_torch import ops
@@ -1126,15 +1414,16 @@ class Config5:
               "@ 1 spp")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
         ops.reset_launches()
         loss, _, fb = self.step()
         launches = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"launches in the config 5 step: {launches}", flush=True)
-        if {k: v for k, v in launches.items() if v} != {
-                k: 1 for k in PATH_KERNELS["config5"]}:
-            fail("config 5: K2, K3 and K4 must launch once each, and "
-                 "nothing else")
+        print(f"config5 resident before the step {resident} GiB", flush=True)
+        want = want_launches("config5", trace_chunks_of(self.cfg, rc))
+        if {k: v for k, v in launches.items() if v} != want:
+            fail(f"config 5: the launches must be {want}, and nothing else")
         with torch.no_grad():
             npix = rc.xres * rc.yres
             w_sum = float(fb["filter_weight"].double().sum())
@@ -1326,10 +1615,11 @@ class Config5:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"launches in the sharded config 5 step: {launches}",
               flush=True)
-        if {k: v for k, v in launches.items() if v} != {
-                k: 1 for k in PATH_KERNELS["sharded_config5"]}:
-            fail("sharded config 5 step: K2, K3 and K4 must launch once "
-                 "each, and nothing else")
+        want = want_launches("sharded_config5",
+                             trace_chunks_of(self.cfg, self.rc))
+        if {k: v for k, v in launches.items() if v} != want:
+            fail(f"sharded config 5 step: the launches must be {want}, and "
+                 "nothing else")
         ref_loss, *ref = self.l2_ref
         errs = [abs(float(loss) - ref_loss) / abs(ref_loss)] + [
             float((g - r).norm() / r.norm()) for g, r in zip(grads, ref)]
@@ -1490,7 +1780,8 @@ class GradPath:
 
     def run(self, tag) -> dict:
         """One step with the launch counters set to 0 just before it and
-        read just after (the path's kernels once each, nothing else), its
+        read just after (the path's kernels once each, K1 and K1v once or
+        twice a trace chunk: :func:`want_launches`; nothing else), its
         peak memory, energy, finite planes and gradient norms; a warm-up
         and three timed steps.  Returns the launches."""
         import torch
@@ -1507,10 +1798,10 @@ class GradPath:
         launches = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"launches in the {self.path} step: {launches}", flush=True)
-        if {k: v for k, v in launches.items() if v} != {
-                k: 1 for k in PATH_KERNELS[self.path]}:
-            fail(f"{self.path}: {PATH_KERNELS[self.path]} must launch once "
-                 "each, and nothing else")
+        want = want_launches(self.path, trace_chunks_of(self.cfg, rc))
+        if {k: v for k, v in launches.items() if v} != want:
+            fail(f"{self.path}: the launches must be {want}, and nothing "
+                 "else")
         with torch.no_grad():
             npix = rc.xres * rc.yres
             w_sum = float(fb["filter_weight"].double().sum())
@@ -1692,8 +1983,11 @@ def grad_routes_phase(dev, tag, m, m_end, ptxas, **sizes) -> tuple:
     """The three differentiable routes (:func:`grad_paths`, ``sizes`` its
     frame sizes), each a counted step, three timed steps and its parity
     frame (:class:`GradPath`), then their kernels against the plain
-    versions on the steps' own arguments: K6 on ``grad_mb_1080p``'s, K4
-    on ``grad_aovs_1080p``'s (nine payload columns), K5 on
+    versions on the steps' own arguments: K2 on ``grad_mb_1080p``'s,
+    ``grad_aovs_1080p``'s and ``grad_config1``'s, K3 on
+    ``grad_aovs_1080p``'s (the plain version on the first
+    :data:`CONFIG5_PLAIN_SLOTS` slots), K6 on ``grad_mb_1080p``'s, K4 on
+    ``grad_aovs_1080p``'s (nine payload columns), K5 on
     ``grad_config1``'s.  Returns (the launches of each path, the kernel
     records)."""
     import torch
@@ -1710,10 +2004,25 @@ def grad_routes_phase(dev, tag, m, m_end, ptxas, **sizes) -> tuple:
     phase("differentiable routes: kernels vs plain versions on the steps' "
           "arguments")
     records = []
-    args = {path: paths[path].capture()[name] for path, name in (
-        ("grad_mb_1080p", "po_backward"), ("grad_aovs_1080p", "segment_accum"),
-        ("grad_config1", "tl_splat"))}
+    caps = {path: paths[path].capture() for path in (
+        "grad_mb_1080p", "grad_aovs_1080p", "grad_config1")}
     with torch.no_grad():
+        for path, cap in caps.items():
+            records.append(k2_record(cap.pop("expand"), ptxas, path))
+        a3 = caps["grad_aovs_1080p"].pop("po_splat")
+        k3 = check_splat_kernel(
+            "po_splat", pk.po_splat, pk.po_splat_plain, a3, slice(1, 10),
+            "pota_tpu_torch/csrc/po_splat.cu", f"{TPU_KERNELS}:697", 41.0,
+            basis_solve_flops(a3[13]) + 60
+            + 20 * paths["grad_aovs_1080p"].scene.n_objects + 20,
+            plain_reps=3, plain_n=CONFIG5_PLAIN_SLOTS)
+        k3.update(path="grad_aovs_1080p", **ptxas["po_splat"])
+        records.append(k3)
+        del a3
+        args = {path: caps.pop(path)[name] for path, name in (
+            ("grad_mb_1080p", "po_backward"),
+            ("grad_aovs_1080p", "segment_accum"),
+            ("grad_config1", "tl_splat"))}
         records.append(k6_record(args.pop("grad_mb_1080p"), "grad_mb_1080p",
                                  ptxas))
         a4 = args.pop("grad_aovs_1080p")
@@ -2150,6 +2459,8 @@ def main() -> int:
             ("po_splat_ext", "po_splat_kernelILi2E",
              "K3b external-aperture instantiation (SPLAT_EXTERNAL)"),
             ("po_backward", "po_backward_kernel", "K6 (the basis solve)"),
+            ("po_forward_vjp", "po_forward_vjp_kernel",
+             "K1v (K1's VJP on the folded table)"),
             ("expand", "expand_kernelILi4E", "K2 (four slots a thread)"),
             ("segment_accum", "segment_tile_kernel", "K4 tiles"),
             ("segment_carry", "segment_carry_kernel", "K4 carries"),
@@ -2225,37 +2536,7 @@ def main() -> int:
     with torch.no_grad():
         # K1: PO forward, M = N * K rays
         a1 = rec["po_forward"]
-        got = pk.po_forward(*a1)
-        ref = plain_chunked(pk.po_forward_plain, a1, slice(1, 5))
-        ok_g, ok_p = got[1] > 0, ref[1] > 0
-        agree = float((ok_g == ok_p).double().mean())
-        both = ok_g & ok_p
-        err1 = max(float((g[both] - r[both]).abs().max())
-                   for g, r in zip(got, ref))
-        n1 = int(a1[1].shape[0])
-        print(f"K1 po_forward M={n1} trans>0 agree={agree:.6f} "
-              f"max_abs_err(valid rays)={err1:.3e} mm", flush=True)
-        if agree < MASK_AGREE or err1 > 1e-3:
-            fail("K1 po_forward disagrees with its plain version")
-        ms = median_ms(lambda: pk.po_forward(*a1))
-        plain_ms = median_ms(
-            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 5)), 3)
-        k1 = dict(
-            name="po_forward", route="cuda",
-            source="pota_tpu_torch/csrc/po_forward.cu",
-            replaces=f"{TPU_KERNELS}:83", max_abs_err=err1,
-            ms=ms, plain_ms=plain_ms,
-            **bound(48.0 * n1, n1 * basis_forward_flops(a1[7])),
-            runtime_term_bound_ms=bound(48.0 * n1, n1 * forward_flops(
-                lens.ap.exponents, lens.pt.exponents, a1[7]))["bound_ms"],
-            **ptxas["po_forward"], library_ms=None, n=n1, mask_agree=agree)
-        print(f"po_forward (folded forward): {ms:.3f} ms, bound "
-              f"{k1['bound_ms']:.3f} ms ({k1['bound_by']}), runtime-term "
-              f"bound {k1['runtime_term_bound_ms']:.3f} ms, "
-              f"{k1['registers']} registers, {k1['spill_bytes']} spill "
-              f"bytes {tag}", flush=True)
-        records.append(k1)
-        del got, ref, ok_g, ok_p, both
+        records.append(k1_record(a1, ptxas, tag))
 
         # K2: expand, S slots; the library yardstick is index_select
         a2 = rec["expand"]

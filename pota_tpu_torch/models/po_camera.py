@@ -4,9 +4,11 @@
 The reference's vignetting-retry loop becomes K = ``vignetting_retries + 1``
 candidate aperture samples per ray, all traced by the PO forward kernel
 (``ops.po_kernels.po_forward``), then a first-success select.  The
-differentiable route traces them as JAX's training call does
-(``use_pallas=False``): the implicit-function aperture solve, the sensor
-shift and ``pt_evaluate`` in torch, which K1 (values only) cannot replace.
+differentiable route traces them through the same kernel with its VJP
+(``ops.po_kernels.ForwardFn``: K1 forward, K1v backward), the gradient JAX
+takes through its pure path (``use_pallas=False``); the ray differentials'
+path keeps the torch trace (``_ApertureSolve``), which ``torch.func.jvp``
+differentiates.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from ..config import CameraConfig
 
+from ..ops.po_kernels import ForwardFn
 from ..optics import geometry as geo
 from ..optics import samplers
 from ..optics.polynomial import (
@@ -49,21 +52,22 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     Returns (origin [N, 3], dir [N, 3], weight [N], tries [N]) scaled to
     scene units, camera looking down -z.  ``ops`` selects the kernel set
     (default: the kernel wrappers, :data:`pota_tpu_torch.ops.KERNELS`).
-    ``differentiable`` takes JAX's pure path
-    (``pota_tpu/models/po_camera.py:194-205``) on the [N, K] candidates, so
-    origin and direction carry gradients to the lens coefficients; K1 is
-    not launched.  ``deriv_ray`` traces one candidate on (r1, r2), draws
-    no retry uniforms (``retry_key`` may be None) and takes the
-    differentiable path, so ``torch.func.jvp`` can differentiate it
-    (JAX's ``pota_tpu/models/po_camera.py:140-151``): the ray
-    differentials' path.
+    ``differentiable`` traces the [N, K] candidates through
+    :class:`~pota_tpu_torch.ops.po_kernels.ForwardFn` (``ops.po_forward``
+    forward, ``ops.po_forward_vjp`` backward: JAX's gradient of its pure
+    path, ``pota_tpu/models/po_camera.py:194-205``), so origin and
+    direction carry gradients to the lens coefficients.  ``deriv_ray``
+    traces one candidate on (r1, r2), draws no retry uniforms
+    (``retry_key`` may be None) and takes the torch trace
+    (``pt_sample_aperture``, ``pt_evaluate``), which ``torch.func.jvp``
+    differentiates (JAX's ``pota_tpu/models/po_camera.py:140-151``): the
+    ray differentials' path.
     """
     if ops is None:
         from ..ops import KERNELS as ops
     aperture_radius = po_state.aperture_radius
     sensor_shift = po_state.sensor_shift
     n_tries = 1 if deriv_ray else cfg.vignetting_retries + 1
-    differentiable = differentiable or deriv_ray
     n = sx.shape[0]
     hsw = cfg.sensor_width * 0.5
     x = sx * hsw
@@ -80,7 +84,7 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
             r1k, r2k = r1[:, None], r2[:, None]
         aperture = (po_sample_aperture_disk(cfg, r1k, r2k, bokeh_cdf)
                     * aperture_radius)
-    if cfg.enable_dof and differentiable:
+    if cfg.enable_dof and deriv_ray:
         zero = torch.zeros((n, n_tries), dtype=x.dtype, device=x.device)
         sensor5 = pt_sample_aperture(
             lens, torch.stack([x[:, None] + zero, y[:, None] + zero, zero,
@@ -94,11 +98,15 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
             lens, torch.stack([xk, yk, dx, dy, sensor5[..., 4]], -1))
     elif cfg.enable_dof:
         rep = lambda a: a[:, None].expand(n, n_tries).reshape(-1)
-        out4, trans, dx, dy = ops.po_forward(
-            lens, rep(x), rep(y), aperture[..., 0].reshape(-1).contiguous(),
-            aperture[..., 1].reshape(-1).contiguous(), cfg.lambda_um,
-            sensor_shift, newton_iterations,
-        )
+        rays = (rep(x), rep(y), aperture[..., 0].reshape(-1).contiguous(),
+                aperture[..., 1].reshape(-1).contiguous())
+        if differentiable:
+            out4, trans, dx, dy = ForwardFn.apply(
+                *rays, lens.pt.coeffs, lens.ap.coeffs, lens, cfg.lambda_um,
+                sensor_shift, newton_iterations, ops)
+        else:
+            out4, trans, dx, dy = ops.po_forward(
+                lens, *rays, cfg.lambda_um, sensor_shift, newton_iterations)
         out4 = out4.reshape(n, n_tries, 4)
         trans = trans.reshape(n, n_tries)
         dx = dx.reshape(n, n_tries)

@@ -8,7 +8,10 @@ code, and are what the CPU tests hold against the JAX package.
 
 * :func:`po_forward` — K1, the PO forward trace
   (``pota_tpu/ops/po_pallas.py::build_po_forward_kernel``), on the table
-  :func:`fold_forward_tables` folds at the frame's wavelength;
+  :func:`fold_forward_tables` folds at the frame's wavelength, and
+  :func:`po_forward_vjp` — K1v, its VJP on the same table (no TPU kernel:
+  JAX differentiates its pure path), which :class:`ForwardFn` binds as
+  K1's gradient for the differentiable PO trace;
 * :func:`expand` — K2, compact source table -> queue slots
   (``po_pallas.py::build_expand_kernel``), and :class:`ExpandFn`, K2 with
   the linear transpose JAX defines for it, for the differentiable splat;
@@ -31,8 +34,9 @@ another before a frame starts.  The plain versions take any fit.
 The kernels compute values only.  A wrapper handed a tensor (or a lens
 whose coefficients) that requires grad while grad mode is on raises
 ``RuntimeError`` (:func:`_refuse_grad`): its output would be cut off from
-the graph.  The differentiable splat calls them under ``no_grad`` or inside
-an ``autograd.Function``.
+the graph.  The differentiable routes call them under ``no_grad`` or inside
+an ``autograd.Function`` (:class:`ForwardFn`, :class:`ExpandFn`,
+``splat_accum.AccumFn``).
 """
 from __future__ import annotations
 
@@ -46,8 +50,10 @@ from ..optics import samplers
 from ..optics.geometry import CHARTS
 from ..optics.polynomial import (
     PolyLens,
+    aperture_solve_vjp,
     inner_pupil_ok,
     lt_sample_aperture,
+    poly_eval,
     pt_evaluate,
     pt_sample_aperture,
 )
@@ -479,6 +485,18 @@ FWD_AP = FWD_HEADER
 FWD_PT = FWD_AP + 2 * len(BASIS)
 FWD_TRANS = FWD_PT + 4 * len(BASIS)
 FWD_TABLE_FLOATS = FWD_TRANS + -(-len(BASIS) // 4) * 4
+# the rows of K1's polynomials, ap's (apx, apy) then pt's (o0..o3, trans):
+# the rows of K1v's folded cotangents (csrc/po_forward_vjp.cu kRows)
+FWD_AP_ROWS, FWD_PT_ROWS = 2, 5
+
+
+def _forward_rows(lens: PolyLens, lam_um: float, device):
+    """K1's two polynomials folded at ``lam_um`` (um) onto :data:`BASIS`,
+    float64 on ``device``: (scale [5], shift [5], ap [2, 126], pt [5,
+    126])."""
+    scale, shift, ul = _fold_conditioning(lens, lam_um, device)
+    return (scale, shift, _fold_rows(lens, lens.ap, FWD_AP_ROWS, ul),
+            _fold_rows(lens, lens.pt, FWD_PT_ROWS, ul))
 
 
 def fold_forward_tables(lens: PolyLens, lam_um: float,
@@ -490,11 +508,9 @@ def fold_forward_tables(lens: PolyLens, lam_um: float,
     (:func:`_fold_rows`).  Computes in float64 on ``device`` and casts to
     f32 at the end.  Reads the exponents to the host.  Raises
     ``ValueError`` for a lens whose folded monomials fall outside the
-    basis."""
+    basis.  K1v (:func:`po_forward_vjp`) reads the same table."""
     dev = torch.device(device)
-    scale, shift, ul = _fold_conditioning(lens, lam_um, dev)
-    ap = _fold_rows(lens, lens.ap, 2, ul)
-    pt = _fold_rows(lens, lens.pt, 5, ul)
+    scale, shift, ap, pt = _forward_rows(lens, lam_um, dev)
     table = torch.zeros((FWD_TABLE_FLOATS,), dtype=torch.float64, device=dev)
     table[:4] = scale[:4]
     table[4:8] = shift[:4]
@@ -629,7 +645,7 @@ def _po_forward_terms(lens: PolyLens, x, y, ax, ay, lam_um: float,
     dx, dy = solved[..., 2], solved[..., 3]
     out4, trans = pt_evaluate(lens, torch.stack(
         [x + dx * sensor_shift, y + dy * sensor_shift, dx, dy, lam], -1))
-    return out4, trans, dx, dy
+    return out4.contiguous(), trans, dx.contiguous(), dy.contiguous()
 
 
 def po_forward_plain(lens: PolyLens, x, y, ax, ay, lam_um: float,
@@ -715,6 +731,211 @@ def po_forward(lens: PolyLens, x, y, ax, ay, lam_um: float,
     _build.check(err, "po_forward")
     _build.LAUNCHES["po_forward"] += 1
     return out4, trans, dx, dy
+
+
+# -------------------------------------------- K1v: the VJP of K1's function
+
+
+def _grads(out, wrt, ct=None) -> list:
+    """``torch.autograd.grad`` of ``out`` (cotangent ``ct``) with zeros
+    for the tensors of ``wrt`` it does not reach."""
+    got = torch.autograd.grad(out, wrt, grad_outputs=ct, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(got, wrt)]
+
+
+def po_forward_vjp_plain(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4,
+                         g_trans, g_dx, g_dy, lam_um: float,
+                         sensor_shift: float, need_inputs: bool = False):
+    """Plain K1v: the VJP of K1's function at its solution ``dx, dy``, on
+    the fit's own term set, by autograd of ``pt_evaluate`` and
+    :func:`~pota_tpu_torch.optics.polynomial.aperture_solve_vjp` (the
+    aperture solve's backward, without its recompute).
+
+    Rays and solution are [M] in one dtype (the coefficients are taken in
+    it: float64 inputs give a float64 oracle); the cotangents of K1's
+    outputs are ``g_out4`` [M, 4], ``g_trans``, ``g_dx``, ``g_dy`` [M], any
+    of them None for zero.  JAX's ``custom_root`` rule: the cotangent of
+    the shifted sensor point ``(x + dx s, y + dy s, dx, dy)`` through pt
+    (trans's where its raw value is <= 0 masked, as ``relu_nan``'s),
+    carried with ``g_dx, g_dy`` onto the direction ``h``; ``J^T l = h``
+    with ap's 2x2 Jacobian in (dx, dy) at the solution (the determinant
+    floored at 1e-12); ``-l^T d ap / d theta`` for ap's coefficients and
+    the rays, ``l`` for the aperture point.  The Newton's start gets no
+    gradient, as in JAX.
+
+    Returns (d pt.coeffs, d ap.coeffs) in the rays' dtype and, with
+    ``need_inputs``, the cotangents of ``x, y, ax, ay`` after them."""
+    dt = x.dtype
+    if all(g is None for g in (g_out4, g_trans, g_dx, g_dy)):
+        zeros = [torch.zeros(c.shape, dtype=dt, device=x.device)
+                 for c in (lens.pt.coeffs, lens.ap.coeffs)]
+        return (*zeros, *([torch.zeros_like(x)] * 4 if need_inputs else []))
+    with torch.enable_grad():
+        pt_c = lens.pt.coeffs.detach().to(dt).requires_grad_(True)
+        xy = [t.detach().requires_grad_(need_inputs) for t in (x, y)]
+        d = torch.stack([dx, dy], -1).detach().requires_grad_(True)
+        lam = torch.full_like(x, lam_um)
+        out = poly_eval(lens.pt, torch.stack(
+            [xy[0] + d[:, 0] * sensor_shift, xy[1] + d[:, 1] * sensor_shift,
+             d[:, 0], d[:, 1], lam], -1), pt_c)
+        raw = out[:, 4]
+        terms = [(g_out4, out[:, :4]),
+                 (g_trans, torch.where(raw > 0.0, raw, 0.0)),
+                 (g_dx, d[:, 0]), (g_dy, d[:, 1])]
+        loss = sum((g * v).sum() for g, v in terms if g is not None)
+        h, g_pt, *g_direct = _grads(loss, [d, pt_c,
+                                           *(xy if need_inputs else [])])
+    zero = torch.zeros_like(x)
+    g_s5, g_target, g_ap = aperture_solve_vjp(
+        lens.ap, lens.ap.coeffs.detach().to(dt),
+        torch.stack([x, y, zero, zero, lam], -1), torch.stack([ax, ay], -1),
+        d.detach(), h, (need_inputs, need_inputs, True))
+    if not need_inputs:
+        return g_pt, g_ap
+    return (g_pt, g_ap, g_s5[:, 0] + g_direct[0], g_s5[:, 1] + g_direct[1],
+            g_target[:, 0], g_target[:, 1])
+
+
+def _unfold_index(lens: PolyLens, lam_um: float, device) -> list:
+    """Per polynomial (pt, ap): each term's index in :data:`BASIS` and its
+    conditioned wavelength power ``ul ** e_4`` (float64), on ``device``;
+    kept in the lens's fold cache, so a backward pass reads nothing from
+    the card after the first."""
+    cache = _fold_cache(lens)
+    key = ("unfold", float(lam_um), str(device))
+    if key not in cache:
+        _, _, ul = _fold_conditioning(lens, lam_um, device)
+        cache[key] = [
+            (torch.tensor(_basis_positions(lens, fn), device=device),
+             ul ** fn.exponents[:, 4].to(device, torch.float64))
+            for fn in (lens.pt, lens.ap)]
+    return cache[key]
+
+
+def unfold_forward_grads(lens: PolyLens, G_ap, G_pt, lam_um: float):
+    """Cotangents on K1's folded basis (``G_ap`` [2, 126], ``G_pt`` [5,
+    126]: what K1v sums) mapped back to the fit's terms, the transpose of
+    :func:`_fold_rows`: ``d c[r, t] = G[r, pos(t)] * ul ** e_4(t)``.  A row
+    the fold does not read gets zero.  Returns (d pt.coeffs, d ap.coeffs)
+    float64 on ``G_pt``'s device."""
+    out = []
+    for fn, G, (pos, lam_pow) in zip(
+            (lens.pt, lens.ap), (G_pt, G_ap),
+            _unfold_index(lens, lam_um, G_pt.device)):
+        g = torch.zeros(fn.coeffs.shape, dtype=torch.float64,
+                        device=G.device)
+        g[:G.shape[0]] = G.double()[:, pos] * lam_pow
+        out.append(g)
+    return tuple(out)
+
+
+# K1v's folded cotangent rows (ap's two, then pt's five) and sums
+VJP_SUMS = (FWD_AP_ROWS + FWD_PT_ROWS) * len(BASIS)
+
+
+def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
+                   g_dx, g_dy, lam_um: float, sensor_shift: float,
+                   need_inputs: bool = False):
+    """K1v wrapper: the VJP of K1 (:func:`po_forward`) at its solution
+    ``dx, dy``, as :func:`po_forward_vjp_plain` takes and returns it; the
+    plain version on the CPU.  On the card the kernel
+    (``csrc/po_forward_vjp.cu``) reads K1's folded table, sums the
+    cotangents of the folded coefficients in a fixed order (two runs give
+    the same bits) and :func:`unfold_forward_grads` maps them onto the
+    fit's terms.  Rays, solution and cotangents f32 contiguous on the
+    lens's device (``g_out4`` [M, 4], the rest [M]); ``ax, ay`` enter
+    only their own cotangent (``l``), which the kernel writes without
+    reading them."""
+    _refuse_grad("po_forward_vjp", x, y, ax, ay, dx, dy, g_out4, g_trans,
+                 g_dx, g_dy, lens=lens)
+    dev = x.device
+    m = x.shape[0]
+    for name, t in (("x", x), ("y", y), ("ax", ax), ("ay", ay), ("dx", dx),
+                    ("dy", dy), ("g_trans", g_trans), ("g_dx", g_dx),
+                    ("g_dy", g_dy)):
+        if t is not None:
+            _check(name, t, torch.float32, dev, (m,))
+    if g_out4 is not None:
+        _check("g_out4", g_out4, torch.float32, dev, (m, 4))
+    if lens.device != dev:
+        raise ValueError(f"lens on {lens.device}, rays on {dev}")
+    if dev.type == "cpu":
+        return po_forward_vjp_plain(lens, x, y, ax, ay, dx, dy, g_out4,
+                                    g_trans, g_dx, g_dy, lam_um,
+                                    sensor_shift, need_inputs)
+    table = _folded_table(lens, "forward", (lam_um,), dev)
+    lib = _build.lib()
+    blocks = lib.pota_po_forward_vjp_blocks(m)
+    partials = torch.empty((max(blocks, 1), VJP_SUMS), dtype=torch.float32,
+                           device=dev)
+    folded = torch.zeros((FWD_AP_ROWS + FWD_PT_ROWS, len(BASIS)),
+                         dtype=torch.float64, device=dev)
+    g_in = ([torch.empty((m,), dtype=torch.float32, device=dev)
+             for _ in range(4)] if need_inputs else [])
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.pota_po_forward_vjp(
+        x.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        ptr(g_out4), ptr(g_trans), ptr(g_dx), ptr(g_dy), m,
+        table.data_ptr(), float(sensor_shift), partials.data_ptr(), blocks,
+        folded.data_ptr(), *(ptr(t) for t in (g_in or [None] * 4)),
+        _stream(dev))
+    _build.check(err, "po_forward_vjp")
+    _build.LAUNCHES["po_forward_vjp"] += 1
+    g_pt, g_ap = unfold_forward_grads(lens, folded[:FWD_AP_ROWS],
+                                      folded[FWD_AP_ROWS:], lam_um)
+    return (g_pt.to(lens.pt.coeffs.dtype), g_ap.to(lens.ap.coeffs.dtype),
+            *g_in)
+
+
+class ForwardFn(torch.autograd.Function):
+    """K1 with a gradient: ``ForwardFn.apply(x, y, ax, ay, pt_coeffs,
+    ap_coeffs, lens, lam_um, sensor_shift, iterations, ops)`` returns
+    K1's (out4, trans, dx, dy), with ``pt_coeffs`` / ``ap_coeffs`` the
+    lens's own coefficient tensors, passed so that they get their
+    gradients.  On the card the forward is ``ops.po_forward`` (K1, or in
+    :data:`~pota_tpu_torch.ops.PLAIN` its plain version, K1's rounding);
+    on the CPU it is K1's function on the fit's term set
+    (:func:`_po_forward_terms`), the rounding of JAX's pure path, to which
+    the CPU tests hold the differentiable frame (K1's rounding moves the
+    splat decisions of a few sources, and so the loss's differences).
+
+    It saves the rays and the solution ``dx, dy`` only.  The backward is
+    ``ops.po_forward_vjp`` (K1v on the card), JAX's ``custom_root`` rule
+    for the aperture solve (``pota_tpu/optics/polynomial.py:256-324``)
+    through pt; JAX differentiates its pure path, since a ``pallas_call``
+    has no VJP.  Inputs that require grad get their cotangents; the
+    Newton's start gets none, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, y, ax, ay, pt_coeffs, ap_coeffs, lens, lam_um,
+                sensor_shift, iterations, ops):
+        forward = (_po_forward_terms if x.device.type == "cpu"
+                   else ops.po_forward)
+        out4, trans, dx, dy = forward(lens, x, y, ax, ay, lam_um,
+                                      sensor_shift, iterations)
+        ctx.save_for_backward(x, y, ax, ay, dx, dy)
+        ctx.args = (lens, lam_um, sensor_shift, ops)
+        ctx.set_materialize_grads(False)
+        return out4, trans, dx, dy
+
+    @staticmethod
+    def backward(ctx, g_out4, g_trans, g_dx, g_dy):
+        lens, lam_um, sensor_shift, ops = ctx.args
+        need = ctx.needs_input_grad
+        cts = [None if g is None else g.contiguous()
+               for g in (g_out4, g_trans, g_dx, g_dy)]
+        if all(g is None for g in cts) or not any(need[:6]):
+            return (None,) * 11
+        need_inputs = any(need[:4])
+        g_pt, g_ap, *g_rays = ops.po_forward_vjp(
+            lens, *ctx.saved_tensors, *cts, lam_um, sensor_shift,
+            need_inputs)
+        if not need_inputs:
+            g_rays = [None] * 4
+        grads = [g if n else None for g, n in zip((*g_rays, g_pt, g_ap),
+                                                  need)]
+        return (*grads, None, None, None, None, None)
 
 
 def _check_po_splat(lens, slots, params, spheres,

@@ -199,6 +199,33 @@ def _ap_residual(fn: PolyFunction, coeffs, sensor5, ap_target):
     return residual
 
 
+def aperture_solve_vjp(fn: PolyFunction, coeffs, sensor5, ap_target, d, g,
+                       want) -> list:
+    """The implicit-function VJP of the aperture solve at its solution
+    ``d`` [..., 2] for the cotangent ``g`` [..., 2] (JAX's ``custom_root``
+    rule): ``J^T l = g`` with J = dr/dd (:func:`_ap_residual`, the
+    closed-form 2x2 solve and its determinant floor), then ``-(dr/dtheta)^T
+    l`` for theta = (sensor5, ap_target, coeffs), by one
+    ``torch.autograd.grad`` of the residual.  Returns the three cotangents,
+    None where ``want`` (three bools) is false."""
+    with torch.no_grad():
+        _, jac = _batched_jacobian(
+            _ap_residual(fn, coeffs, sensor5, ap_target), d, 2)
+        # J^T l = g
+        l0, l1 = _solve2(jac[..., 0, 0], jac[..., 1, 0], jac[..., 0, 1],
+                         jac[..., 1, 1], g[..., 0], g[..., 1])
+    if not any(want):
+        return [None, None, None]
+    with torch.enable_grad():
+        theta = [t.detach().requires_grad_(bool(w))
+                 for t, w in zip((sensor5, ap_target, coeffs), want)]
+        r = _ap_residual(fn, theta[2], theta[0], theta[1])(d.detach())
+        got = iter(torch.autograd.grad(
+            r, [t for t, w in zip(theta, want) if w],
+            grad_outputs=-torch.stack([l0, l1], -1)))
+    return [next(got) if w else None for w in want]
+
+
 class _ApertureSolve(torch.autograd.Function):
     """The sensor directions d [..., 2] solving the iris-hit residual
     (:func:`_ap_residual`) = 0, with implicit-function gradients (JAX's
@@ -209,8 +236,8 @@ class _ApertureSolve(torch.autograd.Function):
     target, without a graph.  Backward: at the solution d*, solve the
     transposed system ``J^T l = g`` (J = dr/dd, the same closed-form 2x2
     solve and determinant floor) and return ``-(dr/dtheta)^T l`` for the
-    inputs theta = (sensor5, ap_target, coeffs), by one
-    ``torch.autograd.grad`` of the residual.  Forward mode (``jvp``, for
+    inputs theta = (sensor5, ap_target, coeffs)
+    (:func:`aperture_solve_vjp`).  Forward mode (``jvp``, for
     ``torch.func.jvp``): at d*, ``dd = -J^-1 (dr/dtheta . t)``, the
     residual's tangent by one ``torch.func.jvp`` and the same 2x2 solve, as
     JAX's ``jax.jvp`` through ``lax.custom_root`` gives it.  (The Newton's
@@ -243,23 +270,8 @@ class _ApertureSolve(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         sensor5, ap_target, coeffs, d = ctx.saved_tensors
-        _, jac = _batched_jacobian(
-            _ap_residual(ctx.fn, coeffs, sensor5, ap_target), d, 2)
-        # J^T l = g
-        l0, l1 = _solve2(jac[..., 0, 0], jac[..., 1, 0], jac[..., 0, 1],
-                         jac[..., 1, 1], g[..., 0], g[..., 1])
-        want = [i for i in range(3) if ctx.needs_input_grad[i]]
-        grads = [None, None, None]
-        if want:
-            with torch.enable_grad():
-                theta = [t.detach().requires_grad_(i in want)
-                         for i, t in enumerate((sensor5, ap_target, coeffs))]
-                r = _ap_residual(ctx.fn, theta[2], theta[0], theta[1])(d)
-                got = torch.autograd.grad(
-                    r, [theta[i] for i in want],
-                    grad_outputs=-torch.stack([l0, l1], -1))
-            for i, gi in zip(want, got):
-                grads[i] = gi
+        grads = aperture_solve_vjp(ctx.fn, coeffs, sensor5, ap_target, d, g,
+                                   ctx.needs_input_grad[:3])
         return (*grads, None, None, None)
 
     @staticmethod

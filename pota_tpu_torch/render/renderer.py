@@ -148,6 +148,13 @@ def camera_reverse_ray(cfg: CameraConfig, p_cam, po_lens=None):
     return torch.stack([p_cam[..., 0] * coeff, p_cam[..., 1] * coeff], -1)
 
 
+def trace_chunk_count(cfg: CameraConfig, n_samples: int) -> int:
+    """The checkpointed chunks of a differentiable trace of ``n_samples``
+    samples: ``cfg.trace_chunks`` where it divides them, else one."""
+    tc = cfg.trace_chunks
+    return tc if tc > 1 and n_samples % tc == 0 else 1
+
+
 def _trace_chunked(cfg: CameraConfig, samples: dict, n_chunks: int,
                    **kw):
     """:func:`trace_camera_rays` over ``n_chunks`` equal sample chunks in
@@ -178,17 +185,15 @@ def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
     stream); returns the per-sample AOV stream.
     With ``cam_to_world_end`` each sample's rays leave the camera matrix
     blended to its shutter ``time`` (motion blur).  ``differentiable``
-    takes the differentiable forward trace, in ``cfg.trace_chunks``
-    checkpointed chunks when that divides the sample count
-    (:func:`_trace_chunked`)."""
+    takes the differentiable forward trace, in checkpointed chunks
+    (:func:`trace_chunk_count`, :func:`_trace_chunked`)."""
     require_port_configs(cfg, rc)
     if samples is None:
         samples = sampling.frame_samples(rc, seed, device=scene.device)
     trace_kw = dict(po_lens=po_lens, po_state=po_state, ops=ops,
                     bokeh_cdf=bokeh_cdf, differentiable=differentiable)
-    n = samples["sx"].shape[0]
-    tc = cfg.trace_chunks
-    if differentiable and tc > 1 and n % tc == 0:
+    tc = trace_chunk_count(cfg, samples["sx"].shape[0])
+    if differentiable and tc > 1:
         origin_cs, dir_cs, weight = _trace_chunked(cfg, samples, tc,
                                                    **trace_kw)
     else:

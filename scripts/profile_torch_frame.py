@@ -26,16 +26,18 @@ the differentiable step: chip_smoke.py's :class:`Config5` at 3840x2160 @ 1
 spp, ``render_frame(differentiable=True)``, the mean-RGB loss and
 ``loss.backward()``, whose kernels are also charged to the step's forward
 and backward halves (the kernels launched inside ``loss.backward()``:
-the checkpointed trace's recompute, its VJPs and the implicit-function
-solve's, the shade's, K4's and K2's); ``grad_mb_1080p``,
+the checkpointed trace's recompute, its VJPs (K1v), the shade's, K4's
+and K2's; the backward is also split by part, the splat's and shade's
+VJPs, the recomputes and the trace's VJPs, and by autograd node:
+:func:`backward_parts`); ``grad_mb_1080p``,
 ``grad_aovs_1080p`` and ``grad_config1`` the differentiable routes'
 steps of chip_smoke.py's :func:`grad_paths`, split the same way.  For each
 cell it
 prints five unprofiled frame wall times, then profiles one warm frame with
 ``torch.profiler`` (CPU and CUDA activities), reads the kernels from the
 exported trace, and splits them into stages at the port's own kernels
-(K1 po_forward, K2 expand, K3 / K3b po_splat / K5 tl_splat / K6
-po_backward, K4 segment_accum's tile and carry kernels)
+(K1 po_forward, K1v po_forward_vjp, K2 expand, K3 / K3b po_splat / K5
+tl_splat / K6 po_backward, K4 segment_accum's tile and carry kernels)
 and at the first radix-sort kernel after the splat: device busy ms, wall
 span ms and kernel count per stage, and the device's idle share of the
 frame's kernel span.  It then charges each kernel to the innermost of the
@@ -57,7 +59,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 FLAGSHIP = "angenieux__double_gauss__1953__49mm"
-OWN = (("po_forward_kernel", "K1 po_forward"), ("expand_kernel", "K2 expand"),
+OWN = (("po_forward_kernel", "K1 po_forward"),
+       ("po_forward_vjp_kernel", "K1v po_forward_vjp"),
+       ("po_forward_vjp_finish", "K1v po_forward_vjp (its float64 sums)"),
+       ("expand_kernel", "K2 expand"),
        ("po_splat_kernel", "K3/K3b po_splat"), ("po_backward_kernel",
                                                "K6 po_backward"),
        ("tl_splat_kernel", "K5 tl_splat"),
@@ -134,6 +139,57 @@ def function_busy(events, exclude=()):
         n, ms = busy.get(name, (0, 0.0))
         busy[name] = (n + 1, ms + float(e["dur"]) / 1e3)
     return busy
+
+
+def backward_parts(events):
+    """Device busy ms of a step's ``loss.backward`` by part, in the order
+    the autograd engine runs them: the kernels launched before the first
+    recompute of a checkpointed trace chunk (the splat's and the shade's
+    VJPs: the trace's nodes were created first, so they run last), the
+    recomputes (``trace_camera_rays`` ranges inside the backward), and
+    the kernels launched after the first recompute outside them (the
+    trace's VJPs); then the autograd nodes that launched the most device
+    time.  Returns ([(part, kernels, ms)], [(node, kernels, ms)])."""
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+             for e in events if e.get("cat") == "user_annotation"]
+    back = [r for r in spans if r[2] == "loss.backward"]
+    if not back:
+        return [], []
+    b0, b1 = back[0][:2]
+    recompute = [r for r in spans if r[2] == "trace_camera_rays"
+                 and b0 <= r[0] <= b1]
+    first = min((r[0] for r in recompute), default=b1)
+    nodes = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+              e["name"].split(": ", 1)[-1]) for e in events
+             if e.get("cat") == "cpu_op"
+             and e["name"].startswith("autograd::engine::evaluate_function")]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    parts, by_node = {}, {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        t = launch_ts.get(e["args"].get("correlation"))
+        if t is None or not b0 <= t <= b1:
+            continue
+        ms = float(e["dur"]) / 1e3
+        if any(r[0] <= t <= r[1] for r in recompute):
+            part = "the trace chunks' recompute"
+        elif t < first:
+            part = "before the first recompute: the splat's and shade's VJPs"
+        else:
+            part = "after it, outside the recomputes: the trace's VJPs"
+        n, b = parts.get(part, (0, 0.0))
+        parts[part] = (n + 1, b + ms)
+        inside = [r for r in nodes if r[0] <= t <= r[1]]
+        node = (min(inside, key=lambda r: r[1] - r[0])[2] if inside
+                else "(no autograd node)")
+        n, b = by_node.get(node, (0, 0.0))
+        by_node[node] = (n + 1, b + ms)
+    return ([(k, n, b) for k, (n, b) in parts.items()],
+            sorted(((k, n, b) for k, (n, b) in by_node.items()),
+                   key=lambda x: -x[2]))
 
 
 def own_kernel(name: str):
@@ -312,13 +368,27 @@ def main() -> int:
               f"{len(kernels)} kernels, device busy {busy:.2f} ms of a "
               f"{span:.2f} ms kernel span (idle {100 * (1 - busy / span):.1f}%)",
               flush=True)
-        print("| stage | device busy ms | wall span ms | kernels |",
-              flush=True)
-        for label, ks in stages(kernels):
-            b = sum(k[2] for k in ks) / 1e3
-            sp = (ks[-1][1] + ks[-1][2] - ks[0][1]) / 1e3
-            print(f"| {label} | {b:.2f} | {sp:.2f} | {len(ks)} |",
+        if cell in steps:
+            # a step's trace launches K1 and K1v once or twice a chunk: the
+            # port's kernels summed, not a stage each
+            own = {}
+            for k in kernels:
+                label = own_kernel(k[0])
+                if label:
+                    n, b = own.get(label, (0, 0.0))
+                    own[label] = (n + 1, b + k[2] / 1e3)
+            print("| the port's kernel | device busy ms | launches |",
                   flush=True)
+            for label, (n, b) in own.items():
+                print(f"| {label} | {b:.3f} | {n} |", flush=True)
+        else:
+            print("| stage | device busy ms | wall span ms | kernels |",
+                  flush=True)
+            for label, ks in stages(kernels):
+                b = sum(k[2] for k in ks) / 1e3
+                sp = (ks[-1][1] + ks[-1][2] - ks[0][1]) / 1e3
+                print(f"| {label} | {b:.2f} | {sp:.2f} | {len(ks)} |",
+                      flush=True)
         print("| function (innermost range) | device busy ms | kernels |",
               flush=True)
         for name, (n, ms) in sorted(function_busy(events).items(),
@@ -332,8 +402,20 @@ def main() -> int:
             for name, (n, ms) in sorted(halves.items(),
                                         key=lambda kv: -kv[1][1]):
                 print(f"| {name} | {ms:.2f} | {n} |", flush=True)
+            parts, nodes = backward_parts(events)
+            print("| loss.backward, by part | device busy ms | kernels |",
+                  flush=True)
+            for name, n, ms in parts:
+                print(f"| {name} | {ms:.2f} | {n} |", flush=True)
+            print("| loss.backward, by autograd node (top 12) | device busy "
+                  "ms | kernels |", flush=True)
+            for name, n, ms in nodes[:12]:
+                print(f"| {name} | {ms:.2f} | {n} |", flush=True)
+        seen = set()
         for e in events:
-            if e.get("cat") == "kernel" and own_kernel(e["name"]):
+            if (e.get("cat") == "kernel" and own_kernel(e["name"])
+                    and own_kernel(e["name"]) not in seen):
+                seen.add(own_kernel(e["name"]))
                 a = e["args"]
                 print(f"  {own_kernel(e['name'])}: "
                       f"{a.get('registers per thread')} registers, block "

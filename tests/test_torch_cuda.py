@@ -76,6 +76,59 @@ def test_po_forward_kernel_matches_plain(dev, name, degree, lam_um):
         assert float((g[both] - r_[both]).abs().max()) < 1e-3
 
 
+def _vjp_args(lens, dev, n, full, seed=0):
+    """K1v's arguments on ``n`` seeded candidates at K1's solution: the
+    frame's cotangent (out4 only, two rows in three zero, as the
+    first-success select leaves them) or, ``full``, every cotangent."""
+    rng = np.random.default_rng(seed)
+    x, y = (rng.uniform(-14, 14, n).astype(np.float32) for _ in range(2))
+    r = lens.aperture_housing_radius * 0.6
+    ax, ay = (rng.uniform(-r, r, n).astype(np.float32) for _ in range(2))
+    rays = [_t(a, dev) for a in (x, y, ax, ay)]
+    with torch.no_grad():
+        _, _, dx, dy = pk.po_forward(lens, *rays, 0.55, STATE.sensor_shift, 3)
+    g4 = rng.standard_normal((n, 4)).astype(np.float32)
+    if not full:
+        g4[np.arange(n) % 3 != 0] = 0.0
+        return (lens, *rays, dx, dy, _t(g4, dev), None, None, None, 0.55,
+                STATE.sensor_shift, False)
+    g = [_t(rng.standard_normal(n).astype(np.float32), dev)
+         for _ in range(3)]
+    return (lens, *rays, dx, dy, _t(g4, dev), *g, 0.55, STATE.sensor_shift,
+            True)
+
+
+@pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
+@pytest.mark.parametrize("full", [False, True], ids=["out4", "all"])
+@pytest.mark.parametrize("n", [20000, 300_001])
+def test_po_forward_vjp_kernel_matches_plain(dev, name, full, n):
+    """K1v against its plain version (the fit's own terms) at K1's
+    solution: the coefficient cotangents (and, with every cotangent given,
+    the rays') within 1e-4 relative L2; two runs give the same bits."""
+    lens = load_poly_lens(name, device=dev)
+    args = _vjp_args(lens, dev, n, full)
+    with torch.no_grad():
+        got = pk.po_forward_vjp(*args)
+        again = pk.po_forward_vjp(*args)
+        want = pk.po_forward_vjp_plain(*args)
+    assert len(got) == (6 if full else 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).norm() / w.norm()) < 1e-4
+
+
+def test_po_forward_vjp_kernel_takes_an_empty_queue(dev):
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    args = _vjp_args(lens, dev, 0, True)
+    ops.reset_launches()
+    with torch.no_grad():
+        got = pk.po_forward_vjp(*args)
+    assert ops.LAUNCHES["po_forward_vjp"] == 1
+    assert got[0].shape == lens.pt.coeffs.shape
+    assert not any(bool(t.any()) for t in got)
+
+
 @pytest.mark.parametrize("n, s", [
     (5000, 40000),   # 16-byte runs
     (5000, 39998),   # ragged: S % 4 != 0, scalar runs
@@ -422,7 +475,7 @@ def test_render_kernels_match_plain(dev):
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
     flagship = {"po_forward": 1, "expand": 1, "po_splat": 1,
                 "segment_accum": 1, "tl_splat": 0, "po_splat_lam": 0,
-                "po_splat_ext": 0, "po_backward": 0}
+                "po_splat_ext": 0, "po_backward": 0, "po_forward_vjp": 0}
     ops.reset_launches()
     img_k, fb_k = render_frame(CFG, rc, scene, m, po_lens=lens,
                                po_state=STATE)
@@ -501,7 +554,7 @@ def test_render_motion_blur_kernels_match_plain(dev, chroma):
     assert ops.LAUNCHES == {
         "po_forward": 1, "expand": 1, "po_splat": 0, "segment_accum": 1,
         "tl_splat": 0, "po_splat_lam": 0, "po_splat_ext": 0,
-        "po_backward": 1}, ops.LAUNCHES
+        "po_backward": 1, "po_forward_vjp": 0}, ops.LAUNCHES
     img_p, _ = render_frame(cfg, rc, scene, m, po_lens=lens, po_state=STATE,
                             cam_to_world_end=end, ops=ops.PLAIN)
     npix = rc.xres * rc.yres
@@ -572,10 +625,12 @@ def test_accum_fn_backward_on_the_card(dev):
 
 def test_render_differentiable_on_the_card(dev):
     """A differentiable PO frame on the card: K2, K3 and K4 launched once
-    each, K1 never; gradients finite, non-zero, and within 5e-2 relative
-    L2 of the same frame's through the plain versions (a loose limit: K3
-    and its plain version may split a grazing source differently;
-    chip_smoke.py's 256x144 parity frame measures 1.1e-5)."""
+    each, the trace through ``ForwardFn`` in its 4 checkpointed chunks (K1
+    twice a chunk, forward and recompute, K1v once); gradients finite,
+    non-zero, and within 5e-2 relative L2 of the same frame's through the
+    plain versions (a loose limit: K3 and its plain version may split a
+    grazing source differently; chip_smoke.py's 256x144 parity frame
+    measures 6.5e-5)."""
     scene = sc.teapot_scene(device=dev)
     rc = pt.RenderConfig(xres=64, yres=48, spp=1)
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
@@ -594,7 +649,8 @@ def test_render_differentiable_on_the_card(dev):
         img[..., :3].mean().backward()
         if kernel_set is ops.KERNELS:
             assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
-                "expand": 1, "po_splat": 1, "segment_accum": 1}
+                "po_forward": 8, "expand": 1, "po_splat": 1,
+                "segment_accum": 1, "po_forward_vjp": 4}
         grads.append(lens.pt.coeffs.grad.clone())
     assert bool(torch.isfinite(grads[0]).all())
     assert float(grads[0].norm()) > 0
