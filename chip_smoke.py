@@ -29,8 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                :data:`CONFIG5_PLAIN_SLOTS` slots), K1v (K1's VJP) on every
                chunk's arguments of that step, held to its plain version
                in float32 and on the first :data:`PLAIN_VJP_F64` candidates
-               in float64 (:data:`VJP_TOL`), two runs to identical bits
-               (:func:`forward_vjp_record`), and the VJPs of K2 and K4
+               in float64 (:data:`VJP_TOL`), two runs to identical bits,
+               its live candidates, its time through the wrapper and its
+               kernels' device time (:func:`device_ms`), its registers and
+               blocks an SM (:func:`forward_vjp_record`), and the VJPs of
+               K2 and K4
                there (``ExpandFn``, ``AccumFn``) against float64 oracles
                (:func:`config5_vjp_checks`)
   4. parity    renders small frames twice, through the kernels and through
@@ -111,10 +114,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                under ``pota_tpu_torch/build/lens_fits/``) and checks that
                ``data/lenses/`` did not change
  13. derivs    ``trace_camera_rays_with_derivs`` at 1920x1080 @ 1 spp with
-               config 2's PO camera (K1 once) and config 1's thin lens:
-               finite differentials on live rays, held on 65,536 seeded
-               live rays to float64 central differences of the deriv-ray
-               path (:func:`deriv_check`); ms and peak memory
+               config 2's PO camera (K1 for the primary rays and K1j once
+               for both axes) and config 1's thin lens: finite
+               differentials on live rays, held on 65,536 seeded live rays
+               to float64 central differences of the deriv ray's term
+               trace (:func:`deriv_check`); ms and peak memory; K1j on the
+               frame's arguments against K1 (identical primal) and its
+               plain version (:func:`k1j_record`), and the PO
+               differentials once by the term trace's ``torch.func.jvp``
+               (the route before K1j), its ms and peak memory beside
  14. replay    the flagship's 1080p stream saved (``save_capture``), read
                back onto the card and replayed with the scene (K2, K3, K4
                once each, K1 never; against the live frame) and without
@@ -152,7 +160,8 @@ counted from the kernel's code and this run's shapes (for the kernels on
 the folded degree-5 basis the work they run: :func:`basis_forward_flops`
 for K1, :func:`basis_solve_flops` for K3, K3b and K6; for K4 the bytes of
 its live writers only, :func:`accum_bound`; for K1v the operations of the
-candidates that carry a cotangent, :func:`basis_forward_vjp_flops`).
+candidates that carry a cotangent, :func:`basis_forward_vjp_flops`; for
+K1j :func:`basis_forward_jvp_flops`).
 K1's, K3's, K3b's and K6's records
 add ``runtime_term_bound_ms`` (the same bound for the runtime-term code each
 ran before, :func:`forward_flops` / :func:`solve_flops`, from the fit's
@@ -202,7 +211,7 @@ PATH_KERNELS = {
     "config2": ("po_forward",),
     "flagship_fresh_fit": ("po_forward", "expand", "po_splat",
                            "segment_accum"),
-    "derivs_po": ("po_forward",),
+    "derivs_po": ("po_forward", "po_forward_jvp"),
     "derivs_thin": (),
     "replay": ("expand", "po_splat", "segment_accum"),
     "replay_null": ("expand", "po_backward", "segment_accum"),
@@ -243,6 +252,9 @@ PLAIN_VJP_CHUNK = 1 << 20
 # relative L2 of K1v's coefficient cotangents against its plain version
 # (float32, and float64 on the leading candidates)
 VJP_TOL = 1e-4
+# relative L2 of K1j's Jacobian against its plain version on the rays both
+# keep (its primal: K1's bits, and within 1e-5 of the plain version's)
+JVP_TOL = 1e-4
 # relative L2 of config 5's parity gradient of pt (kernels against the
 # plain versions; measured 6.5e-5, ap 6.4e-5, on an NVIDIA H100 80GB HBM3:
 # K3 alone among the plain versions gives the same, while K1's forward
@@ -362,6 +374,50 @@ def basis_forward_vjp_flops(with_trans: bool) -> float:
     rows (1,260)."""
     return float(14 + 1500 + 17 * 126 + 16 * 126 + 40 + 40 + 20 * 126
                  + (125 + 1260 if with_trans else 0))
+
+
+def basis_forward_jvp_flops(iterations: int) -> float:
+    """f32 operations of one K1j ray (``csrc/po_forward_jvp.cu``): K1's
+    trace (:func:`basis_forward_flops`); the conditioning of u (8); ap's
+    D4 walk, 125 steps of a multiply and four tangents (6 each: 750) and
+    eight Jacobian FMAs a monomial (16 x 126), the chain rule (8); D (2 x
+    2 columns: 20 with the determinant); u' and its two tangents (24);
+    pt's walk with two directional tangents, 125 steps of a multiply and
+    two (multiply, FMA) pairs (7 each: 875) and eight FMAs a monomial (16
+    x 126)."""
+    return float(basis_forward_flops(iterations) + 8 + 750 + 16 * 126 + 8
+                 + 20 + 24 + 875 + 16 * 126)
+
+
+def device_ms(fn, names, reps: int = 3) -> dict:
+    """Device time a call of ``fn`` of the kernels whose names hold each of
+    ``names``, from a ``torch.profiler`` trace of ``reps`` calls (the
+    trace's ``kernel`` events; None where it shows none)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [(e["name"], float(e["dur"])) for e in events
+               if e.get("cat") == "kernel"]
+    out = {}
+    for n in names:
+        durs = [d for k, d in kernels if n in k]
+        out[n] = sum(durs) / 1e3 / reps if durs else None
+    return out
 
 
 def accum_bound(args) -> dict:
@@ -1122,7 +1178,7 @@ def forward_vjp_record(calls, ptxas, tag, path) -> dict:
     for those that carry one, and the outputs."""
     import torch
 
-    from pota_tpu_torch.ops import po_kernels as pk
+    from pota_tpu_torch.ops import _build, po_kernels as pk
 
     one = calls[0]
     cat = [None if one[i] is None else torch.cat([c[i] for c in calls])
@@ -1158,6 +1214,22 @@ def forward_vjp_record(calls, ptxas, tag, path) -> dict:
                + (16.0 * m_all if need_inputs else 0.0)
                + 8.0 * pk.VJP_SUMS * len(calls))
     per_launch = lambda fn: lambda: [fn(*c) for c in calls]
+    names = ("po_forward_vjp_kernel", "po_forward_vjp_finish")
+    dev_ms = device_ms(per_launch(pk.po_forward_vjp), names)
+    kernel_ms = (None if None in dev_ms.values()
+                 else sum(dev_ms.values()) / len(calls))
+    # the first launch's kernel time with no candidate live (the scan
+    # alone), as given, and every candidate live (seeded normal cotangents)
+    g4, by_live = one[7], {}
+    if g4 is not None:
+        dense = torch.randn(g4.shape, device=g4.device, generator=(
+            torch.Generator(g4.device).manual_seed(5)))
+        for label, g in (("none", torch.zeros_like(g4)), ("given", g4),
+                         ("all", dense)):
+            a = (*one[:7], g, *one[8:])
+            by_live[label] = device_ms(lambda: pk.po_forward_vjp(*a),
+                                       names)["po_forward_vjp_kernel"]
+        del dense
     print(f"K1v po_forward_vjp ({path}) on {len(calls)} launches' {m_all} "
           f"candidates: rel L2 pt {err[0]:.3e} ap {err[1]:.3e} against the "
           f"plain version; on the first {n64} against float64 pt "
@@ -1184,15 +1256,25 @@ def forward_vjp_record(calls, ptxas, tag, path) -> dict:
         **bound(n_bytes / len(calls), active / len(calls)
                 * basis_forward_vjp_flops(one[8] is not None)),
         bytes_ms=n_bytes / len(calls) / HBM_BYTES_PER_S * 1e3,
+        kernel_ms=kernel_ms,
+        kernel_parts_ms={k: (None if v is None else v / len(calls))
+                         for k, v in dev_ms.items()},
+        kernel_ms_by_live=by_live,
         library_ms=None, n=m1, n_all=m_all, active=active,
+        blocks_per_sm=_build.lib().pota_po_forward_vjp_blocks_per_sm(),
         **ptxas["po_forward_vjp"])
-    print(f"po_forward_vjp ({path}): {rec['ms']:.3f} ms a launch at M={m1} "
-          f"({len(calls)} launches, {active} of {m_all} candidates carry a "
-          f"cotangent), all in one launch {rec['all_ms']:.3f} ms, plain "
+    k_ms = "not measured" if kernel_ms is None else f"{kernel_ms:.4f} ms"
+    print(f"po_forward_vjp ({path}): {rec['ms']:.3f} ms a launch through "
+          f"the wrapper at M={m1} ({len(calls)} launches, {active} of "
+          f"{m_all} candidates carry a cotangent), the kernels alone "
+          f"{k_ms} a launch ({rec['kernel_parts_ms']}; the first launch's "
+          f"main kernel with none, its own and every candidate live "
+          f"{by_live}), all in one launch "
+          f"{rec['all_ms']:.3f} ms, plain "
           f"{rec['plain_ms']:.3f} ms a launch, bound {rec['bound_ms']:.4f} "
           f"ms a launch ({rec['bound_by']}; bytes {rec['bytes_ms']:.4f}), "
-          f"{rec['registers']} registers, "
-          f"{rec['spill_bytes']} spill bytes {tag}", flush=True)
+          f"{rec['registers']} registers, {rec['spill_bytes']} spill bytes, "
+          f"{rec['blocks_per_sm']} blocks of 128 an SM {tag}", flush=True)
     return rec
 
 
@@ -2258,10 +2340,99 @@ def fit_phase(dev, tag, cfg, rc, scene, m, po, drive) -> dict:
     return {"flagship_fresh_fit": launches}
 
 
-def derivs_phase(dev, tag, rc, lens, cfg_po, state_po, cfg_thin) -> dict:
-    """Phase 13: ray differentials of a full frame, PO (K1 once) and thin
-    lens (no kernel), held to float64 central differences.  Returns the
-    launches of each run."""
+def k1j_record(a, ptxas, tag) -> dict:
+    """K1j on the arguments ``a`` of the 1080p PO differentials: its primal
+    identical to K1's on every ray, and against its plain version (1M-ray
+    chunks) ``trans > 0`` agreement, the primal's largest error and the
+    Jacobian's relative L2 on the rays both keep; its record."""
+    import torch
+
+    from pota_tpu_torch.ops import _build, po_kernels as pk
+
+    got = pk.po_forward_jvp(*a)
+    k1 = pk.po_forward(*a)
+    same = all(torch.equal(g, k) for g, k in zip(got[:4], k1))
+    del k1
+    ref = plain_chunked(pk.po_forward_jvp_plain, a, slice(1, 5))
+    ok_g, ok_p = got[1] > 0, ref[1] > 0
+    agree = float((ok_g == ok_p).double().mean())
+    both = ok_g & ok_p
+    primal_err = max(float((g[both] - r[both]).abs().max())
+                     for g, r in zip(got[:4], ref[:4]))
+    jg, jr = got[4][both].double(), ref[4][both].double()
+    jac_rel = float((jg - jr).norm() / jr.norm())
+    jac_abs = float((jg - jr).abs().max())
+    n = int(a[1].shape[0])
+    print(f"K1j po_forward_jvp (derivs_po) N={n}: primal identical to K1's "
+          f"{same}; against its plain version trans>0 agree={agree:.6f}, "
+          f"primal max_abs_err {primal_err:.3e} mm, Jacobian relative L2 "
+          f"{jac_rel:.3e} (max abs {jac_abs:.3e}) on the rays both keep",
+          flush=True)
+    if (not same or agree < MASK_AGREE or primal_err > 1e-5
+            or jac_rel > JVP_TOL):
+        fail("K1j po_forward_jvp disagrees with K1 or its plain version")
+    del got, ref, ok_g, ok_p, both, jg, jr
+    rec = dict(
+        name="po_forward_jvp", path="derivs_po", route="cuda",
+        source="pota_tpu_torch/csrc/po_forward_jvp.cu",
+        replaces=f"{TPU_KERNELS}:83",
+        role="K1's forward derivative; no TPU kernel: JAX takes jax.jvp of "
+             "its pure path (pota_tpu/render/renderer.py:126-131)",
+        max_abs_err=jac_abs, jac_rel_l2=jac_rel,
+        primal_max_abs_err=primal_err, primal_identical_to_k1=same,
+        ms=median_ms(lambda: pk.po_forward_jvp(*a)),
+        plain_ms=median_ms(
+            lambda: plain_chunked(pk.po_forward_jvp_plain, a, slice(1, 5)),
+            3),
+        k1_ms=median_ms(lambda: pk.po_forward(*a)),
+        **bound(76.0 * n, n * basis_forward_jvp_flops(a[7])),
+        library_ms=None, n=n, mask_agree=agree,
+        blocks_per_sm=_build.lib().pota_po_forward_jvp_blocks_per_sm(),
+        **ptxas["po_forward_jvp"])
+    print(f"po_forward_jvp (derivs_po): {rec['ms']:.3f} ms at N={n} (K1 on "
+          f"the same rays {rec['k1_ms']:.3f} ms), plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+          f"({rec['bound_by']}), {rec['registers']} registers, "
+          f"{rec['spill_bytes']} spill bytes, {rec['blocks_per_sm']} blocks "
+          f"of 256 an SM {tag}", flush=True)
+    return rec
+
+
+def term_trace_derivs(cfg, rc, smp, lens, state) -> dict:
+    """The PO differentials by the route K1j replaced: the primary rays
+    through ``trace_camera_rays`` (K1), then one ``torch.func.jvp`` per
+    pixel step over the deriv ray's term trace
+    (``trace_fw_po(deriv_ray=True)``, ``_ApertureSolve.jvp``).  Returns
+    {"dOdx", "dOdy", "dDdx", "dDdy"}."""
+    import torch
+    from pota_tpu_torch.models.po_camera import trace_fw_po
+    from pota_tpu_torch.render.renderer import trace_camera_rays
+
+    trace_camera_rays(cfg, smp, po_lens=lens, po_state=state)
+
+    def deriv_trace(sx, sy):
+        return trace_fw_po(cfg, lens, sx, sy, smp["r1"], smp["r2"], None,
+                           state, deriv_ray=True)[:2]
+
+    zeros = torch.zeros_like(smp["sx"])
+    (dOdx, dDdx), (dOdy, dDdy) = (
+        torch.func.jvp(deriv_trace, (smp["sx"], smp["sy"]), t)[1]
+        for t in ((torch.full_like(zeros, 2.0 / rc.xres), zeros),
+                  (zeros, torch.full_like(zeros, 2.0 / rc.yres))))
+    return {"dOdx": dOdx, "dOdy": dOdy, "dDdx": dDdx, "dDdy": dDdy}
+
+
+def derivs_phase(dev, tag, rc, lens, cfg_po, state_po, cfg_thin,
+                 ptxas) -> tuple:
+    """Phase 13: ray differentials of a full frame, PO (K1 for the primary
+    rays, K1j once for both axes) and thin lens (no kernel), held to
+    float64 central differences of the deriv ray's term trace
+    (``trace_fw_po(deriv_ray=True)`` on a float64 lens); K1j held to K1
+    and to its plain version on the frame's arguments
+    (:func:`k1j_record`); the PO differentials also by the route before
+    K1j (:func:`term_trace_derivs`: K1's primary rays and the term trace's
+    ``torch.func.jvp`` on the card), once, its ms and peak memory beside
+    K1j's route.  Returns (the launches of each run, [K1j's record])."""
     import copy
 
     import torch
@@ -2275,7 +2446,7 @@ def derivs_phase(dev, tag, rc, lens, cfg_po, state_po, cfg_thin) -> dict:
           f"trace_camera_rays_with_derivs, PO (config 2's camera) and thin "
           f"lens (config 1's camera)")
     lens64 = copy.deepcopy(lens).double()
-    out = {}
+    out, records = {}, []
     for path, cfg_d, kw, trace64 in (
             ("derivs_po", cfg_po, dict(po_lens=lens, po_state=state_po),
              lambda s, sx, sy: trace_fw_po(
@@ -2286,9 +2457,18 @@ def derivs_phase(dev, tag, rc, lens, cfg_po, state_po, cfg_thin) -> dict:
                  cfg_thin, sx, sy, s["r1"], s["r2"], deriv_ray=True)[:2])):
         smp = sampling.frame_samples(rc, 0, device=dev)
 
-        def run():
-            return trace_camera_rays_with_derivs(cfg_d, rc, smp, **kw)
+        def run(**extra):
+            return trace_camera_rays_with_derivs(cfg_d, rc, smp, **kw,
+                                                 **extra)
 
+        if path == "derivs_po":
+            rec = Recorder(ops.KERNELS)
+            run(ops=rec)
+            with torch.no_grad():
+                records.append(k1j_record(rec.args.pop("po_forward_jvp"),
+                                          ptxas, tag))
+            del rec
+            torch.cuda.empty_cache()
         run()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2309,14 +2489,31 @@ def derivs_phase(dev, tag, rc, lens, cfg_po, state_po, cfg_thin) -> dict:
             if not bool(torch.isfinite(v[live]).all()):
                 fail(f"{path}: {k} not finite on live rays")
         deriv_check(trace64, smp, live, rc.xres, rc.yres, der, path)
-        del der, w, live
         ms = host_ms(run)
         print(f"{path}_ms {ms} {tag}", flush=True)
         print(f"{path}_peak_device_gb {peak} {tag}", flush=True)
+        if path == "derivs_po":
+            # the route before K1j: the term trace under torch.func.jvp
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            terms = term_trace_derivs(cfg_d, rc, smp, lens, state_po)
+            torch.cuda.synchronize()
+            terms_ms = (time.perf_counter() - t0) * 1e3
+            terms_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            gap = max(float((der[k] - terms[k])[live].abs().max())
+                      for k in der)
+            print(f"derivs_po by the term trace's torch.func.jvp (one run): "
+                  f"{terms_ms} ms, peak {terms_peak} GiB; K1j's route "
+                  f"{ms} ms, peak {peak} GiB; the two routes' differentials "
+                  f"at most {gap:.3e} apart on live rays {tag}", flush=True)
+            del terms
+        del der, w, live
         out[path] = launches
         del smp
         torch.cuda.empty_cache()
-    return out
+    return out, records
 
 
 def replay_phase(dev, tag, cfg, rc, scene, m, po) -> dict:
@@ -2461,6 +2658,10 @@ def main() -> int:
             ("po_backward", "po_backward_kernel", "K6 (the basis solve)"),
             ("po_forward_vjp", "po_forward_vjp_kernel",
              "K1v (K1's VJP on the folded table)"),
+            ("po_forward_vjp_finish", "po_forward_vjp_finish",
+             "K1v's float64 sums and unfold"),
+            ("po_forward_jvp", "po_forward_jvp_kernel",
+             "K1j (K1's JVP on the folded table)"),
             ("expand", "expand_kernelILi4E", "K2 (four slots a thread)"),
             ("segment_accum", "segment_tile_kernel", "K4 tiles"),
             ("segment_carry", "segment_carry_kernel", "K4 carries"),
@@ -3105,8 +3306,10 @@ def main() -> int:
          scene1, {})), c5))
     path_launches.update(fit_phase(dev, tag, cfg, rc_full, scene, m, po,
                                    drive))
-    path_launches.update(derivs_phase(dev, tag, rc_full, lens, cfg_fw,
-                                      state_fw, cfg1))
+    derivs_launches, derivs_records = derivs_phase(
+        dev, tag, rc_full, lens, cfg_fw, state_fw, cfg1, ptxas)
+    path_launches.update(derivs_launches)
+    records += derivs_records
     path_launches.update(replay_phase(dev, tag, cfg, rc_full, scene, m, po))
     grad_launches, grad_records = grad_routes_phase(dev, tag, m, m_end,
                                                     ptxas)

@@ -17,30 +17,45 @@
 //   l      J^T l = h (the determinant floored at 1e-12, as _solve2);
 // and the folded coefficients' cotangents are the sums over candidates
 //   G_pt[r][k] += w_r mono_k(u'),  G_ap[i][k] += -l_i mono_k(u),
-// 7 x 126 sums that po_kernels.py unfold_forward_grads maps onto the fit's
-// terms.  The rays' cotangents (x, y: through u' and -l^T dap/dx; ax, ay:
-// l) are written per candidate when asked for.
+// 7 x 126 sums, which the finishing kernel adds over blocks and maps onto
+// the fit's terms (po_kernels.py unfold_forward_grads is its plain
+// version).  The rays' cotangents (x, y: through u' and -l^T dap/dx; ax,
+// ay: l) are written per candidate when asked for.
 //
-// What bounds it on the H100: arithmetic.  About 8,400 f32 operations a
-// candidate that carries a cotangent (two tangent walks, the 7 x 126 sums)
-// against 32 bytes in; on the differentiable frame the first-success
-// select passes a cotangent to one candidate a ray.
+// What bounds it on the H100: arithmetic over the candidates that carry a
+// cotangent, about 8,400 f32 operations each (two tangent walks, the 7 x
+// 126 sums), and the cotangents of all candidates (28 bytes each).  On the
+// differentiable frame the first-success select passes a cotangent to one
+// candidate a ray at most: 6.4% of config 5's.
 //
-// Design: the reduction.  882 sums over 24.9M candidates (config 5's 4K
-// step) cannot live in a thread's registers, and float atomics would add in
-// a different order each run.  So each warp stages its 32 candidates (the
-// powers u'^e and u^e of each variable, e <= 5, and the seven weights) in
-// shared memory, and then, for each candidate that carries a cotangent in
-// lane order (a ballot: the others are skipped), lane j forms monomials k =
-// j, j + 32, j + 64, j + 96 of both points from the staged powers and adds
-// the weighted values into its 28 register sums.  At the end the block adds
-// its warps' sums in warp order into one partial row [882] in device
-// memory; po_forward_vjp_finish adds the rows block by block in float64.
-// The grid is fixed by the candidate count and the card (its resident
-// blocks), so two runs add in the same order and give the same bits.  No
-// [M, 126] monomial tensor leaves the SM.  The table (3.5 KB, K1's) is read
-// from shared memory by basis::ld4 as K1 reads it.
-#include "po_forward_basis.cuh"
+// Design.
+// * Only live candidates are walked.  Each warp first reads the
+//   cotangents of its whole grid-stride range, four strides of 32 at a
+//   time (their loads in flight together), ballots the live lanes and
+//   writes their indices, in stride and lane order, over its own slots of
+//   a queue in device memory.  Then it takes them 32 at a time, one a
+//   lane, so no lane runs the walks for a dead candidate; the walks' code
+//   holds none of the scan's registers.  Nothing is read back to the host.
+// * The reduction.  882 sums over 24.9M candidates cannot live in a
+//   thread's registers, and float atomics would add in a different order
+//   each run.  A batch's lanes stage their candidates' powers u'^e, u^e (e
+//   <= 5) and seven weights in shared memory; then lane j forms monomials
+//   j, j + 32, j + 64, j + 96 of each staged candidate in queue order and
+//   adds them into its 28 sums, kept in shared memory between batches, so
+//   that they are not live during the walks.  At the end the block adds its
+//   warps' sums in warp order into one partial row [882] in device memory.
+//   The grid is fixed by the candidate count and the card (one wave of its
+//   resident blocks): the queue order and every addition's order depend on
+//   nothing else, so two runs give the same bits.
+// * po_forward_vjp_finish adds the rows block by block in float64 and
+//   writes the fit's cotangents directly: a term's is its monomial's sum
+//   times the term's conditioned wavelength power (an index of the terms of
+//   each monomial and the powers, on the card, cached per lens and λ).
+// * The walks run one after another in a batch (at most 8 sums live), so a
+//   thread stays within 128 registers: four blocks of 128 an SM.  No [M,
+//   126] monomial tensor leaves the SM.  The table (3.5 KB, K1's) is read
+//   from shared memory by basis::ld4 as K1 reads it.
+#include "po_forward_walks.cuh"
 
 namespace pota {
 namespace vjp {
@@ -50,6 +65,8 @@ using basis::kMonomials;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+// at most 128 registers a thread: four blocks an SM
+constexpr int kMinBlocks = 4;
 constexpr int kApRows = 2, kPtRows = 5, kRows = kApRows + kPtRows;
 // the folded cotangents: ap's rows (apx, apy), then pt's (o0..o3, trans),
 // 126 each (po_kernels.py VJP_SUMS)
@@ -62,57 +79,15 @@ constexpr int kPowers = kDegree + 1;
 constexpr int kStPt = 0, kStAp = 4 * kPowers, kStW = 8 * kPowers;
 constexpr int kStage = kStW + kRows;
 static_assert(kStage % 2 == 1, "the stage stride must be odd");
-// a lane's monomials in the sums: lane, lane + 32, ...
+// a lane's monomials in the sums: lane, lane + 32, ...; its sums, row r of
+// monomial lane + 32 j at [j * kRows + r] (ap's rows first)
 constexpr int kLaneMonos = (kMonomials + 31) / 32;
-static_assert(kWarps * kSums <= kWarps * 32 * kStage,
-              "the block's partial sums reuse the stage");
-constexpr int kFinishThreads = 256;
-
-// p * u_v for the conditioned variable v (unit tangent along v).
-__device__ __forceinline__ D4 times_var(const D4& p, float uv, int v) {
-  D4 r;
-  r.v = p.v * uv;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    r.d[i] = i == v ? fmaf(p.d[i], uv, p.v) : p.d[i] * uv;
-  return r;
-}
-
-// basis::for_each_monomial's walk, each monomial with its partials along
-// the four variables: calls f(k, m), m the k-th monomial as a D4.
-template <class F>
-__device__ __forceinline__ void for_each_monomial_d(const float u[4],
-                                                    F&& f) {
-  int k = 0;
-  D4 pa = dconst(1.0f);
-#pragma unroll
-  for (int a = 0; a <= kDegree; ++a) {
-    D4 pb = pa;
-#pragma unroll
-    for (int b = 0; b <= kDegree; ++b) {
-      if (a + b <= kDegree) {
-        D4 pc = pb;
-#pragma unroll
-        for (int c = 0; c <= kDegree; ++c) {
-          if (a + b + c <= kDegree) {
-            D4 pd = pc;
-#pragma unroll
-            for (int d = 0; d <= kDegree; ++d) {
-              if (a + b + c + d <= kDegree) {
-                f(k, pd);
-                ++k;
-                pd = times_var(pd, u[3], 3);
-              }
-            }
-            pc = times_var(pc, u[2], 2);
-          }
-        }
-        pb = times_var(pb, u[1], 1);
-      }
-    }
-    pa = times_var(pa, u[0], 0);
-  }
-}
+constexpr int kLaneSums = kLaneMonos * kRows;
+// the strides of 32 candidates a warp reads before it ballots (their loads
+// in flight together)
+constexpr int kScan = 4;
+// the finishing kernel: 32 warps add a column group's rows
+constexpr int kFinishThreads = 1024;
 
 // The partials of sum_r w_r pt_r over the basis: per monomial the weighted
 // coefficient q = sum_r w_r P[r][k], then g += q dm.
@@ -138,42 +113,26 @@ struct PtVjp {
   }
 };
 
-// ap's two rows' partials along the four variables.
-struct ApJac {
-  unsigned ap;  // shared-memory address of the ap section
-  float J[kApRows][4];
-  float4 two;   // the (apx, apy) of monomials k and k + 1, k even
-
-  __device__ __forceinline__ void operator()(int k, const D4& m) {
-    if ((k & 1) == 0) two = basis::ld4(ap + 8 * k);
-    const float c0 = (k & 1) ? two.z : two.x;
-    const float c1 = (k & 1) ? two.w : two.y;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      J[0][v] = fmaf(c0, m.d[v], J[0][v]);
-      J[1][v] = fmaf(c1, m.d[v], J[1][v]);
-    }
-  }
+// Each monomial's four stage offsets, a byte each (x^a at a, y^b at
+// kPowers + b, ...), in basis order; past the basis the constant
+// monomial's, whose sums are dropped.
+struct StageOffsets {
+  int v[kLaneMonos * 32];
 };
-
-// Monomial k's four stage offsets, a byte each (x^a at a, y^b at
-// kPowers + b, ...); past the basis the constant monomial's, whose sums
-// are dropped.
-__device__ int monomial_offsets(int k) {
+constexpr StageOffsets make_stage_offsets() {
+  StageOffsets t{};
   int m = 0;
-#pragma unroll 1
   for (int a = 0; a <= kDegree; ++a)
-#pragma unroll 1
     for (int b = 0; a + b <= kDegree; ++b)
-#pragma unroll 1
       for (int c = 0; a + b + c <= kDegree; ++c)
-#pragma unroll 1
         for (int d = 0; a + b + c + d <= kDegree; ++d, ++m)
-          if (m == k)
-            return a | (kPowers + b) << 8 | (2 * kPowers + c) << 16 |
+          t.v[m] = a | (kPowers + b) << 8 | (2 * kPowers + c) << 16 |
                    (3 * kPowers + d) << 24;
-  return kPowers << 8 | (2 * kPowers) << 16 | (3 * kPowers) << 24;
+  for (; m < kLaneMonos * 32; ++m)
+    t.v[m] = kPowers << 8 | (2 * kPowers) << 16 | (3 * kPowers) << 24;
+  return t;
 }
+__constant__ StageOffsets kStageOffsets = make_stage_offsets();
 
 // The product of the four staged powers at offsets `o` from `p`.
 __device__ __forceinline__ float staged_monomial(const float* p, int o) {
@@ -181,9 +140,164 @@ __device__ __forceinline__ float staged_monomial(const float* p, int o) {
          p[o >> 24];
 }
 
+// The cotangents of candidate i, zero where a pointer is null.
+struct Cotangents {
+  float w[4], gt, gdx, gdy;
+
+  __device__ __forceinline__ Cotangents(const float* g_out4,
+                                        const float* g_trans,
+                                        const float* g_dx, const float* g_dy,
+                                        int i) {
+    const float4 o = g_out4 ? reinterpret_cast<const float4*>(g_out4)[i]
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    w[0] = o.x;
+    w[1] = o.y;
+    w[2] = o.z;
+    w[3] = o.w;
+    gt = g_trans ? g_trans[i] : 0.0f;
+    gdx = g_dx ? g_dx[i] : 0.0f;
+    gdy = g_dy ? g_dy[i] : 0.0f;
+  }
+
+  __device__ __forceinline__ bool live() const {
+    return w[0] != 0.0f || w[1] != 0.0f || w[2] != 0.0f || w[3] != 0.0f ||
+           gt != 0.0f || gdx != 0.0f || gdy != 0.0f;
+  }
+};
+
+// One live candidate c, on its lane: its stage `st` (the powers first, so
+// that u' and u die with the walks), the weights, both walks one after the
+// other, J^T l = h and the rays' cotangents.  The conditioning is read from
+// the table where it is used, and u from the stage, not kept in registers
+// across the walks.
+__device__ __forceinline__ void walk_candidate(
+    int c, const float* __restrict__ xs, const float* __restrict__ ys,
+    const float* __restrict__ dxs, const float* __restrict__ dys,
+    const float* __restrict__ g_out4, const float* __restrict__ g_trans,
+    const float* __restrict__ g_dx, const float* __restrict__ g_dy,
+    unsigned tab_s, float sensor_shift, float* st, float* __restrict__ g_x,
+    float* __restrict__ g_y, float* __restrict__ g_ax,
+    float* __restrict__ g_ay) {
+  float u[4], up[4];
+  {
+    const float4 sc = basis::ld4(tab_s), sh = basis::ld4(tab_s + 16);
+    const float x = xs[c], y = ys[c], dx = dxs[c], dy = dys[c];
+    u[0] = (x - sh.x) * sc.x;
+    u[1] = (y - sh.y) * sc.y;
+    u[2] = (dx - sh.z) * sc.z;
+    u[3] = (dy - sh.w) * sc.w;
+    up[0] = (__fmaf_rn(dx, sensor_shift, x) - sh.x) * sc.x;
+    up[1] = (__fmaf_rn(dy, sensor_shift, y) - sh.y) * sc.y;
+    up[2] = u[2];
+    up[3] = u[3];
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    float pp = 1.0f, pa = 1.0f;
+#pragma unroll
+    for (int e = 0; e < kPowers; ++e) {
+      st[kStPt + v * kPowers + e] = pp;
+      st[kStAp + v * kPowers + e] = pa;
+      pp *= up[v];
+      pa *= u[v];
+    }
+  }
+  // out4's and trans's cotangents now; dx's and dy's after the walk, so
+  // that they are not live during it
+  const Cotangents ct(g_out4, g_trans, nullptr, nullptr, c);
+  PtVjp pv;
+  pv.pt = tab_s + 4 * fwd::kPt;
+  pv.trans = tab_s + 4 * fwd::kTrans;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) pv.w[r] = ct.w[r];
+  pv.w[4] = 0.0f;
+  if (ct.gt != 0.0f) {
+    // relu_nan's mask needs trans's raw value at u'
+    fwd::PtSums pts;
+    pts.pt = tab_s + 4 * fwd::kPt;
+    pts.trans = tab_s + 4 * fwd::kTrans;
+    pts.o[0] = pts.o[1] = pts.o[2] = pts.o[3] = pts.tr = 0.0f;
+    basis::for_each_monomial(up, pts);
+    pv.w[4] = pts.tr > 0.0f ? ct.gt : 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < kPtRows; ++r) st[kStW + r] = pv.w[r];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) pv.g[v] = 0.0f;
+  fwd::for_each_monomial_d(up, pv);
+  const float4 sc = basis::ld4(tab_s);
+  const float gu0 = pv.g[0] * sc.x, gu1 = pv.g[1] * sc.y;
+  // onto (dx, dy): u'_0 = x + dx s, u'_2 = dx (and y, dy alike)
+  const float hx = fmaf(gu0, sensor_shift, pv.g[2] * sc.z) +
+                   (g_dx ? g_dx[c] : 0.0f);
+  const float hy = fmaf(gu1, sensor_shift, pv.g[3] * sc.w) +
+                   (g_dy ? g_dy[c] : 0.0f);
+
+  // u again from its staged first powers (a volatile read: u itself is
+  // not kept live through the pt walk)
+  float u1[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
+    u1[v] = reinterpret_cast<volatile float*>(st)[kStAp + v * kPowers + 1];
+  float J[kApRows][4];
+  fwd::ap_jacobian(tab_s, u1, J);
+  // J^T l = h: _solve2(J00, J10, J01, J11, hx, hy)
+  float det = J[0][2] * J[1][3] - J[1][2] * J[0][3];
+  det = fabsf(det) < 1e-12f ? 1e-12f : det;
+  const float l0 = (J[1][3] * hx - J[1][2] * hy) / det;
+  const float l1 = (-J[0][3] * hx + J[0][2] * hy) / det;
+  st[kStW + kPtRows] = -l0;
+  st[kStW + kPtRows + 1] = -l1;
+  if (g_x) {
+    g_x[c] = gu0 - (l0 * J[0][0] + l1 * J[1][0]);
+    g_y[c] = gu1 - (l0 * J[0][1] + l1 * J[1][1]);
+    g_ax[c] = l0;
+    g_ay[c] = l1;
+  }
+}
+
+// The sums of a batch: the warp's `count` staged candidates in queue
+// order, each lane its monomials' 28 sums (`sums`: the warp's, in shared
+// memory, [kLaneSums][32]; `s_offs`: each monomial's stage offsets).
+__device__ __forceinline__ void add_batch(const float* stage, int count,
+                                          const int* s_offs, float* sums,
+                                          int lane) {
+  int offs[kLaneMonos];
+#pragma unroll
+  for (int j = 0; j < kLaneMonos; ++j) offs[j] = s_offs[lane + 32 * j];
+  float acc[kLaneMonos][kRows];
+#pragma unroll
+  for (int j = 0; j < kLaneMonos; ++j)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      acc[j][r] = sums[(j * kRows + r) * 32 + lane];
+  for (int t = 0; t < count; ++t) {
+    const float* st = stage + t * kStage;
+    float wt[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) wt[r] = st[kStW + r];
+#pragma unroll
+    for (int j = 0; j < kLaneMonos; ++j) {
+      const float mp = staged_monomial(st + kStPt, offs[j]);
+      const float ma = staged_monomial(st + kStAp, offs[j]);
+#pragma unroll
+      for (int r = 0; r < kApRows; ++r)
+        acc[j][r] = fmaf(wt[kPtRows + r], ma, acc[j][r]);
+#pragma unroll
+      for (int r = 0; r < kPtRows; ++r)
+        acc[j][kApRows + r] = fmaf(wt[r], mp, acc[j][kApRows + r]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kLaneMonos; ++j)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      sums[(j * kRows + r) * 32 + lane] = acc[j][r];
+}
+
 }  // namespace vjp
 
-__global__ void __launch_bounds__(vjp::kThreads)
+__global__ void __launch_bounds__(vjp::kThreads, vjp::kMinBlocks)
 po_forward_vjp_kernel(const float* __restrict__ xs,
                       const float* __restrict__ ys,
                       const float* __restrict__ dxs,
@@ -193,236 +307,179 @@ po_forward_vjp_kernel(const float* __restrict__ xs,
                       const float* __restrict__ g_dx,
                       const float* __restrict__ g_dy, int n,
                       const float* __restrict__ g_tab, float sensor_shift,
+                      int* __restrict__ queue,
                       float* __restrict__ partials, float* __restrict__ g_x,
                       float* __restrict__ g_y, float* __restrict__ g_ax,
                       float* __restrict__ g_ay) {
   using namespace vjp;
   __shared__ __align__(16) float s_tab[fwd::kTableFloats];
   __shared__ float s_stage[kWarps * 32 * kStage];
+  __shared__ float s_sums[kWarps * kLaneSums * 32];
+  __shared__ int s_offs[kLaneMonos * 32];
   block_load(s_tab, g_tab, fwd::kTableFloats);
+  for (int s = threadIdx.x; s < kWarps * kLaneSums * 32; s += kThreads)
+    s_sums[s] = 0.0f;
+  for (int k = threadIdx.x; k < kLaneMonos * 32; k += kThreads)
+    s_offs[k] = kStageOffsets.v[k];
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* stage = s_stage + warp * 32 * kStage;
+  float* sums = s_sums + warp * kLaneSums * 32;
   const unsigned tab_s = (unsigned)__cvta_generic_to_shared(s_tab);
-  const float s0 = s_tab[0], s1 = s_tab[1], s2 = s_tab[2], s3 = s_tab[3];
-  const float h0 = s_tab[4], h1 = s_tab[5], h2 = s_tab[6], h3 = s_tab[7];
-  const float scale[4] = {s0, s1, s2, s3};
 
-  int offs[kLaneMonos];
+  // Pass 1: the warp's live candidates, in stride and lane order, into its
+  // own slots of `queue` (entry j at the j / 32-th of its strides, lane j %
+  // 32: never more entries than the warp has candidates).  The loop's bound
+  // is the warp's, so every lane reaches the ballots.
+  const int first = (blockIdx.x * kWarps + warp) * 32;
+  const int stride = gridDim.x * kThreads;
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;
+  for (int base = first; base < n; base += kScan * stride) {
+    bool live[kScan];
 #pragma unroll
-  for (int j = 0; j < kLaneMonos; ++j)
-    offs[j] = monomial_offsets(lane + 32 * j);
-  float acc_pt[kLaneMonos][kPtRows], acc_ap[kLaneMonos][kApRows];
+    for (int q = 0; q < kScan; ++q) {
+      const int i = base + q * stride + lane;
+      live[q] = i < n && Cotangents(g_out4, g_trans, g_dx, g_dy, i).live();
+    }
 #pragma unroll
-  for (int j = 0; j < kLaneMonos; ++j) {
-#pragma unroll
-    for (int r = 0; r < kPtRows; ++r) acc_pt[j][r] = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kApRows; ++r) acc_ap[j][r] = 0.0f;
+    for (int q = 0; q < kScan; ++q) {
+      const int i = base + q * stride + lane;
+      if (i < n && !live[q] && g_x)
+        g_x[i] = g_y[i] = g_ax[i] = g_ay[i] = 0.0f;
+      const unsigned mask = __ballot_sync(0xffffffffu, live[q]);
+      const int j = count + __popc(mask & below);
+      if (live[q]) queue[first + (j >> 5) * stride + (j & 31)] = i;
+      count += __popc(mask);
+    }
   }
-
-  // the loop bound is the warp's, so every lane reaches the ballot
-  for (int base = (blockIdx.x * kWarps + warp) * 32; base < n;
-       base += gridDim.x * kThreads) {
-    const int i = base + lane;
-    bool active = false;
-    if (i < n) {
-      float w[kPtRows];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) w[r] = g_out4 ? g_out4[4 * i + r] : 0.0f;
-      const float gt = g_trans ? g_trans[i] : 0.0f;
-      const float gdx = g_dx ? g_dx[i] : 0.0f;
-      const float gdy = g_dy ? g_dy[i] : 0.0f;
-      active = w[0] != 0.0f || w[1] != 0.0f || w[2] != 0.0f ||
-               w[3] != 0.0f || gt != 0.0f || gdx != 0.0f || gdy != 0.0f;
-      float l0 = 0.0f, l1 = 0.0f, gx = 0.0f, gy = 0.0f;
-      if (active) {
-        const float x = xs[i], y = ys[i], dx = dxs[i], dy = dys[i];
-        const float u[4] = {(x - h0) * s0, (y - h1) * s1, (dx - h2) * s2,
-                            (dy - h3) * s3};
-        const float up[4] = {(__fmaf_rn(dx, sensor_shift, x) - h0) * s0,
-                             (__fmaf_rn(dy, sensor_shift, y) - h1) * s1,
-                             u[2], u[3]};
-        w[4] = 0.0f;
-        if (gt != 0.0f) {
-          // relu_nan's mask needs trans's raw value at u'
-          fwd::PtSums pts;
-          pts.pt = tab_s + 4 * fwd::kPt;
-          pts.trans = tab_s + 4 * fwd::kTrans;
-          pts.o[0] = pts.o[1] = pts.o[2] = pts.o[3] = pts.tr = 0.0f;
-          basis::for_each_monomial(up, pts);
-          w[4] = pts.tr > 0.0f ? gt : 0.0f;
-        }
-        PtVjp pv;
-        pv.pt = tab_s + 4 * fwd::kPt;
-        pv.trans = tab_s + 4 * fwd::kTrans;
-#pragma unroll
-        for (int r = 0; r < kPtRows; ++r) pv.w[r] = w[r];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) pv.g[v] = 0.0f;
-        for_each_monomial_d(up, pv);
-        float gu[4];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) gu[v] = pv.g[v] * scale[v];
-        // onto (dx, dy): u'_0 = x + dx s, u'_2 = dx (and y, dy alike)
-        const float hx = fmaf(gu[0], sensor_shift, gu[2]) + gdx;
-        const float hy = fmaf(gu[1], sensor_shift, gu[3]) + gdy;
-
-        ApJac aj;
-        aj.ap = tab_s + 4 * fwd::kAp;
-#pragma unroll
-        for (int v = 0; v < 4; ++v) aj.J[0][v] = aj.J[1][v] = 0.0f;
-        for_each_monomial_d(u, aj);
-        float J[kApRows][4];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          J[0][v] = aj.J[0][v] * scale[v];
-          J[1][v] = aj.J[1][v] * scale[v];
-        }
-        // J^T l = h: _solve2(J00, J10, J01, J11, hx, hy)
-        float det = J[0][2] * J[1][3] - J[1][2] * J[0][3];
-        det = fabsf(det) < 1e-12f ? 1e-12f : det;
-        l0 = (J[1][3] * hx - J[1][2] * hy) / det;
-        l1 = (-J[0][3] * hx + J[0][2] * hy) / det;
-        gx = gu[0] - (l0 * J[0][0] + l1 * J[1][0]);
-        gy = gu[1] - (l0 * J[0][1] + l1 * J[1][1]);
-
-        float* st = stage + lane * kStage;
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          float pp = 1.0f, pa = 1.0f;
-#pragma unroll
-          for (int e = 0; e < kPowers; ++e) {
-            st[kStPt + v * kPowers + e] = pp;
-            st[kStAp + v * kPowers + e] = pa;
-            pp *= up[v];
-            pa *= u[v];
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kPtRows; ++r) st[kStW + r] = w[r];
-        st[kStW + kPtRows] = -l0;
-        st[kStW + kPtRows + 1] = -l1;
-      }
-      if (g_x) {
-        g_x[i] = gx;
-        g_y[i] = gy;
-        g_ax[i] = l0;
-        g_ay[i] = l1;
-      }
-    }
-    unsigned todo = __ballot_sync(0xffffffffu, active);
+  __syncwarp();
+  // Pass 2: batches of 32 queued candidates, one a lane, the last partial
+  for (int b = 0; b < count; b += 32) {
+    const int batch = min(count - b, 32);
+    const int c = lane < batch ? queue[first + (b >> 5) * stride + lane] : -1;
+    if (c >= 0)
+      walk_candidate(c, xs, ys, dxs, dys, g_out4, g_trans, g_dx, g_dy,
+                     tab_s, sensor_shift, stage + lane * kStage, g_x, g_y,
+                     g_ax, g_ay);
     __syncwarp();
-    while (todo) {
-      const int t = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const float* st = stage + t * kStage;
-      float wt[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) wt[r] = st[kStW + r];
-#pragma unroll
-      for (int j = 0; j < kLaneMonos; ++j) {
-        const float mp = staged_monomial(st + kStPt, offs[j]);
-        const float ma = staged_monomial(st + kStAp, offs[j]);
-#pragma unroll
-        for (int r = 0; r < kPtRows; ++r)
-          acc_pt[j][r] = fmaf(wt[r], mp, acc_pt[j][r]);
-#pragma unroll
-        for (int r = 0; r < kApRows; ++r)
-          acc_ap[j][r] = fmaf(wt[kPtRows + r], ma, acc_ap[j][r]);
-      }
-    }
+    add_batch(stage, batch, s_offs, sums, lane);
     __syncwarp();
   }
 
   // the block's partial row: its warps' sums added in warp order
   __syncthreads();
-  float* part = s_stage;  // [kWarps][kSums]
-#pragma unroll
-  for (int j = 0; j < kLaneMonos; ++j) {
-    const int k = lane + 32 * j;
-    if (k < kMonomials) {
-#pragma unroll
-      for (int r = 0; r < kApRows; ++r)
-        part[warp * kSums + r * kMonomials + k] = acc_ap[j][r];
-#pragma unroll
-      for (int r = 0; r < kPtRows; ++r)
-        part[warp * kSums + (kApRows + r) * kMonomials + k] = acc_pt[j][r];
-    }
-  }
-  __syncthreads();
   for (int s = threadIdx.x; s < kSums; s += kThreads) {
-    float sum = part[s];
+    const int row = s / kMonomials, k = s - row * kMonomials;
+    const int at = ((k >> 5) * kRows + row) * 32 + (k & 31);
+    float sum = s_sums[at];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) sum += part[w * kSums + s];
+    for (int w = 1; w < kWarps; ++w) sum += s_sums[w * kLaneSums * 32 + at];
     partials[(size_t)blockIdx.x * kSums + s] = sum;
   }
 }
 
-// out[s] = the sum over blocks of partials[b][s], in float64, in a fixed
-// order: warp w adds rows w, w + 8, ...; then the eight warp sums in order.
+// The sum over blocks of partials[b][s], in float64, in a fixed order (warp
+// w adds rows w, w + 32, ...; then the 32 warp sums in order), mapped onto
+// the fit's terms: d c[row][t] = G[row][k] * lam_pow[t] for each term t of
+// monomial k.  unfold: per polynomial (pt, then ap) kMonomials + 1 offsets
+// into the term list that follows them (pt's terms, then ap's, each
+// monomial's together); lam_pow: each term's conditioned wavelength power
+// (pt's t_pt, then ap's t_ap).  g_pt [5][t_pt], g_ap [2][t_ap] f32.
 __global__ void __launch_bounds__(vjp::kFinishThreads)
 po_forward_vjp_finish(const float* __restrict__ partials, int blocks,
-                      double* __restrict__ out) {
-  constexpr int kFinishWarps = vjp::kFinishThreads / 32;
+                      const int* __restrict__ unfold,
+                      const double* __restrict__ lam_pow,
+                      float* __restrict__ g_pt, int t_pt,
+                      float* __restrict__ g_ap, int t_ap) {
+  using namespace vjp;
+  constexpr int kFinishWarps = kFinishThreads / 32;
   __shared__ double s_sum[kFinishWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int s = blockIdx.x * 32 + lane;
   double sum = 0.0;
-  if (s < vjp::kSums)
+  if (s < kSums)
     for (int b = warp; b < blocks; b += kFinishWarps)
-      sum += (double)partials[(size_t)b * vjp::kSums + s];
+      sum += (double)partials[(size_t)b * kSums + s];
   s_sum[warp][lane] = sum;
   __syncthreads();
-  if (warp == 0 && s < vjp::kSums) {
-    double t = s_sum[0][lane];
-    for (int w = 1; w < kFinishWarps; ++w) t += s_sum[w][lane];
-    out[s] = t;
+  if (warp == 0 && s < kSums) {
+    double G = s_sum[0][lane];
+    for (int w = 1; w < kFinishWarps; ++w) G += s_sum[w][lane];
+    const int row = s / kMonomials, k = s - row * kMonomials;
+    const bool ap = row < kApRows;
+    const int* start = unfold + (ap ? kMonomials + 1 : 0);
+    const int* terms = unfold + 2 * (kMonomials + 1);
+    const double* lp = ap ? lam_pow + t_pt : lam_pow;
+    float* out = ap ? g_ap + (size_t)row * t_ap
+                    : g_pt + (size_t)(row - kApRows) * t_pt;
+    for (int e = start[k]; e < start[k + 1]; ++e) {
+      const int t = terms[e];
+      out[t] = (float)(G * lp[t]);
+    }
   }
 }
 
 }  // namespace pota
+
+static int vjp_blocks_per_sm() {
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, pota::po_forward_vjp_kernel, pota::vjp::kThreads, 0);
+    return b;
+  }();
+  return per_sm;
+}
+
+// Resident blocks of K1v's kernel an SM (the occupancy query).
+extern "C" int pota_po_forward_vjp_blocks_per_sm() {
+  return vjp_blocks_per_sm();
+}
 
 // The blocks (partial rows) of a launch over n candidates: one wave of the
 // kernel's resident blocks at most, so the sums' order depends only on n
 // and the card.
 extern "C" int pota_po_forward_vjp_blocks(int n) {
   if (n <= 0) return 0;
-  static const int per_sm = [] {
-    int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, pota::po_forward_vjp_kernel, pota::vjp::kThreads, 0);
-    return b < 1 ? 1 : b;
-  }();
-  return pota::grid_for(n, pota::vjp::kThreads, per_sm);
+  const int per_sm = vjp_blocks_per_sm();
+  return pota::grid_for(n, pota::vjp::kThreads, per_sm < 1 ? 1 : per_sm);
 }
 
 // table: K1's folded forward table of the frame's wavelength
-// (po_kernels.py fold_forward_tables); partials: blocks x 882 floats of
-// scratch, blocks = pota_po_forward_vjp_blocks(n); out: 882 doubles, ap's
-// two rows then pt's five over the basis.  A null cotangent is zero; g_x,
-// g_y, g_ax, g_ay are all null or all written.
+// (po_kernels.py fold_forward_tables); queue: n ints of scratch; partials:
+// blocks x 882 floats of scratch, blocks = pota_po_forward_vjp_blocks(n);
+// unfold, lam_pow: the
+// fit's term index (po_forward_vjp_finish); g_pt [5][t_pt], g_ap
+// [2][t_ap]: the coefficients' cotangents, written whole (zero when n is
+// 0).  A null cotangent is zero; g_out4 is 16-byte aligned; g_x, g_y,
+// g_ax, g_ay are all null or all written.
 extern "C" int pota_po_forward_vjp(const float* x, const float* y,
                                    const float* dx, const float* dy,
                                    const float* g_out4, const float* g_trans,
                                    const float* g_dx, const float* g_dy,
                                    int n, const float* table,
-                                   float sensor_shift, float* partials,
-                                   int blocks, double* out, float* g_x,
-                                   float* g_y, float* g_ax, float* g_ay,
-                                   cudaStream_t stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (blocks != pota_po_forward_vjp_blocks(n)) return (int)cudaErrorInvalidValue;
-  pota::po_forward_vjp_kernel<<<blocks, pota::vjp::kThreads, 0, stream>>>(
-      x, y, dx, dy, g_out4, g_trans, g_dx, g_dy, n, table, sensor_shift,
-      partials, g_x, g_y, g_ax, g_ay);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+                                   float sensor_shift, int* queue,
+                                   float* partials, int blocks,
+                                   const int* unfold,
+                                   const double* lam_pow, float* g_pt,
+                                   int t_pt, float* g_ap, int t_ap,
+                                   float* g_x, float* g_y, float* g_ax,
+                                   float* g_ay, cudaStream_t stream) {
+  if (blocks != pota_po_forward_vjp_blocks(n))
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    pota::po_forward_vjp_kernel<<<blocks, pota::vjp::kThreads, 0, stream>>>(
+        x, y, dx, dy, g_out4, g_trans, g_dx, g_dy, n, table, sensor_shift,
+        queue, partials, g_x, g_y, g_ax, g_ay);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   pota::po_forward_vjp_finish<<<(pota::vjp::kSums + 31) / 32,
                                 pota::vjp::kFinishThreads, 0, stream>>>(
-      partials, blocks, out);
+      partials, blocks, unfold, lam_pow, g_pt, t_pt, g_ap, t_ap);
   return (int)cudaGetLastError();
 }

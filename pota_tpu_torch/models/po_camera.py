@@ -6,9 +6,11 @@ candidate aperture samples per ray, all traced by the PO forward kernel
 (``ops.po_kernels.po_forward``), then a first-success select.  The
 differentiable route traces them through the same kernel with its VJP
 (``ops.po_kernels.ForwardFn``: K1 forward, K1v backward), the gradient JAX
-takes through its pure path (``use_pallas=False``); the ray differentials'
-path keeps the torch trace (``_ApertureSolve``), which ``torch.func.jvp``
-differentiates.
+takes through its pure path (``use_pallas=False``).  The ray differentials
+take K1j on the card (:func:`trace_fw_po_jvp`: K1's function and its
+Jacobian in the sensor point, one launch) and, on the CPU and without
+depth of field, the deriv ray's torch trace (``trace_fw_po(deriv_ray=True)``,
+``_ApertureSolve``), which ``torch.func.jvp`` differentiates.
 """
 from __future__ import annotations
 
@@ -42,6 +44,21 @@ def po_sample_aperture_disk(cfg: CameraConfig, r1, r2, bokeh_cdf=None):
                                                cfg.aperture_blades)
 
 
+def rays_from_chart(cfg: CameraConfig, lens: PolyLens, out4):
+    """The outer pupil's chart ``out4`` [N, 4] (mm) to camera-space rays in
+    scene units: ``chart_to_cs``, the scale (negative: it reverses the rays
+    and converts mm to units), the direction normalised.  Returns (origin
+    [N, 3], direction [N, 3])."""
+    R = lens.outer_pupil_curvature_radius
+    origin, direction = geo.chart_to_cs(out4[..., :2], out4[..., 2:4], -R, R,
+                                        lens.outer_chart)
+    scale = cfg.unit_scale_po
+    origin = origin * scale
+    direction = direction * scale
+    dir_n2 = torch.sum(direction * direction, -1, keepdim=True)
+    return origin, direction / torch.sqrt(torch.clamp(dir_n2, min=1e-24))
+
+
 def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
                 retry_key, po_state, newton_iterations: int = 3, ops=None,
                 bokeh_cdf=None, differentiable: bool = False,
@@ -59,9 +76,11 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     direction carry gradients to the lens coefficients.  ``deriv_ray``
     traces one candidate on (r1, r2), draws no retry uniforms
     (``retry_key`` may be None) and takes the torch trace
-    (``pt_sample_aperture``, ``pt_evaluate``), which ``torch.func.jvp``
-    differentiates (JAX's ``pota_tpu/models/po_camera.py:140-151``): the
-    ray differentials' path.
+    (``pt_sample_aperture``, ``pt_evaluate``: the term trace, whatever the
+    device and dtype), which ``torch.func.jvp`` differentiates (JAX's
+    ``pota_tpu/models/po_camera.py:140-151``): the ray differentials' path
+    on the CPU, and their float64 oracle; on the card they take
+    :func:`trace_fw_po_jvp`.
     """
     if ops is None:
         from ..ops import KERNELS as ops
@@ -132,16 +151,41 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     any_ok = ok.any(-1)
     out_sel = torch.gather(out4, 1, first[:, None, None].expand(n, 1, 4))[:, 0]
 
-    R = lens.outer_pupil_curvature_radius
-    origin, direction = geo.chart_to_cs(out_sel[..., :2], out_sel[..., 2:4],
-                                        -R, R, lens.outer_chart)
-    scale = cfg.unit_scale_po  # negative: reverses rays + converts mm->units
-    origin = origin * scale
-    direction = direction * scale
-    dir_n2 = torch.sum(direction * direction, -1, keepdim=True)
-    direction = direction / torch.sqrt(torch.clamp(dir_n2, min=1e-24))
+    origin, direction = rays_from_chart(cfg, lens, out_sel)
 
     finite = torch.all(torch.isfinite(origin) & torch.isfinite(direction), -1)
     weight = torch.where(any_ok & finite, 1.0, 0.0)
     tries = torch.where(any_ok, first, n_tries).to(torch.int32)
     return origin, direction, weight, tries
+
+
+def trace_fw_po_jvp(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
+                    po_state, tangents, newton_iterations: int = 3, ops=None,
+                    bokeh_cdf=None):
+    """The deriv ray's differentials (one candidate on (r1, r2), no
+    retries, depth of field on) by K1j: ``ops.po_forward_jvp`` once for
+    K1's function and its Jacobian in the sensor point (x, y), JAX's
+    ``custom_root`` tangent at the Newton's solution; then, per screen
+    tangent ``(t_sx, t_sy)`` of ``tangents`` ([N] each), the chart's
+    tangent ``J (t_sx, t_sy) hsw`` through :func:`rays_from_chart` by
+    ``torch.func.jvp`` (the torch tail alone).  What ``torch.func.jvp`` of
+    ``trace_fw_po(deriv_ray=True)`` computes, without its torch trace.
+    Returns [(d origin [N, 3], d direction [N, 3])], one pair a tangent."""
+    if ops is None:
+        from ..ops import KERNELS as ops
+    hsw = cfg.sensor_width * 0.5
+    aperture = (po_sample_aperture_disk(cfg, r1[:, None], r2[:, None],
+                                        bokeh_cdf)[:, 0]
+                * po_state.aperture_radius)
+    out4, _, _, _, jac = ops.po_forward_jvp(
+        lens, (sx * hsw).contiguous(), (sy * hsw).contiguous(),
+        aperture[:, 0].contiguous(), aperture[:, 1].contiguous(),
+        cfg.lambda_um, po_state.sensor_shift, newton_iterations)
+    out = []
+    for t_sx, t_sy in tangents:
+        t_out4 = (jac[..., 0] * (t_sx * hsw)[:, None]
+                  + jac[..., 1] * (t_sy * hsw)[:, None])
+        _, d = torch.func.jvp(lambda o: rays_from_chart(cfg, lens, o),
+                              (out4,), (t_out4,))
+        out.append(d)
+    return out

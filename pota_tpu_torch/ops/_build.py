@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 
 KERNEL_NAMES = ("po_forward", "expand", "po_splat", "segment_accum",
                 "tl_splat", "po_splat_lam", "po_splat_ext", "po_backward",
-                "po_forward_vjp")
+                "po_forward_vjp", "po_forward_jvp")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _p = ctypes.c_void_p
@@ -53,8 +53,12 @@ SIGNATURES = {
     "pota_tl_splat": [_p] * 9 + [_i, _i, _f, _f, _p, _p, _i, _p, _p, _p],
     "pota_tl_splat_blocks_per_sm": [_i],
     "pota_po_backward": [_p] * 6 + [_i, _p, _i, _p, _i, _i] + [_p] * 6,
-    "pota_po_forward_vjp": [_p] * 8 + [_i, _p, _f, _p, _i] + [_p] * 6,
+    "pota_po_forward_vjp": [_p] * 8 + [_i, _p, _f, _p, _p, _i, _p, _p, _p,
+                                       _i, _p, _i] + [_p] * 5,
     "pota_po_forward_vjp_blocks": [_i],
+    "pota_po_forward_vjp_blocks_per_sm": [],
+    "pota_po_forward_jvp": [_p] * 4 + [_i, _p, _f, _f, _i] + [_p] * 6,
+    "pota_po_forward_jvp_blocks_per_sm": [],
 }
 
 _lock = threading.Lock()

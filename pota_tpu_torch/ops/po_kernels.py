@@ -11,7 +11,10 @@ code, and are what the CPU tests hold against the JAX package.
   :func:`fold_forward_tables` folds at the frame's wavelength, and
   :func:`po_forward_vjp` — K1v, its VJP on the same table (no TPU kernel:
   JAX differentiates its pure path), which :class:`ForwardFn` binds as
-  K1's gradient for the differentiable PO trace;
+  K1's gradient for the differentiable PO trace, and
+  :func:`po_forward_jvp` — K1j, K1's function with its Jacobian in the
+  sensor point (no TPU kernel: JAX takes ``jax.jvp`` of its pure path), for
+  the PO ray differentials;
 * :func:`expand` — K2, compact source table -> queue slots
   (``po_pallas.py::build_expand_kernel``), and :class:`ExpandFn`, K2 with
   the linear transpose JAX defines for it, for the differentiable splat;
@@ -50,6 +53,7 @@ from ..optics import samplers
 from ..optics.geometry import CHARTS
 from ..optics.polynomial import (
     PolyLens,
+    _solve2,
     aperture_solve_vjp,
     inner_pupil_ok,
     lt_sample_aperture,
@@ -834,19 +838,64 @@ def unfold_forward_grads(lens: PolyLens, G_ap, G_pt, lam_um: float):
 VJP_SUMS = (FWD_AP_ROWS + FWD_PT_ROWS) * len(BASIS)
 
 
+def _unfold_table(lens: PolyLens, lam_um: float, device) -> tuple:
+    """:func:`unfold_forward_grads` as K1v's finishing kernel reads it, on
+    ``device``: an int32 index (per polynomial, pt then ap, the offsets of
+    each monomial's terms in the term list that follows, ``len(BASIS) + 1``
+    each; then pt's term indices and ap's, each monomial's together in
+    term order) and each term's conditioned wavelength power (float64, pt's
+    then ap's).  :func:`po_forward_vjp` keeps it in the lens's fold cache
+    beside K1's table."""
+    starts, terms, pows = [], [], []
+    for pos, lam_pow in _unfold_index(lens, lam_um, device):
+        pos = pos.tolist()
+        counts = [0] * len(BASIS)
+        for p in pos:
+            counts[p] += 1
+        starts += [len(terms) + c for c in
+                   itertools.accumulate(counts, initial=0)]
+        terms += sorted(range(len(pos)), key=lambda t: (pos[t], t))
+        pows.append(lam_pow)
+    return (torch.tensor(starts + terms, dtype=torch.int32, device=device),
+            torch.cat(pows))
+
+
+# K1v's scratch per (device, stream): the queue of live candidates [>= M]
+# int32 and the blocks' partial rows [>= blocks, 882] f32, grown to the
+# largest launch and kept for the life of the process; launches on one
+# stream run in order, so they may share it
+_VJP_SCRATCH: dict = {}
+
+
+def _vjp_scratch(device, stream: int, m: int, blocks: int) -> tuple:
+    key = (str(device), stream)
+    queue, partials = _VJP_SCRATCH.get(key, (None, None))
+    if queue is None or queue.shape[0] < m:
+        queue = torch.empty((max(m, 1),), dtype=torch.int32, device=device)
+    if partials is None or partials.shape[0] < blocks:
+        partials = torch.empty((max(blocks, 1), VJP_SUMS),
+                               dtype=torch.float32, device=device)
+    _VJP_SCRATCH[key] = (queue, partials)
+    return queue, partials
+
+
 def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
                    g_dx, g_dy, lam_um: float, sensor_shift: float,
                    need_inputs: bool = False):
     """K1v wrapper: the VJP of K1 (:func:`po_forward`) at its solution
     ``dx, dy``, as :func:`po_forward_vjp_plain` takes and returns it; the
-    plain version on the CPU.  On the card the kernel
-    (``csrc/po_forward_vjp.cu``) reads K1's folded table, sums the
-    cotangents of the folded coefficients in a fixed order (two runs give
-    the same bits) and :func:`unfold_forward_grads` maps them onto the
-    fit's terms.  Rays, solution and cotangents f32 contiguous on the
-    lens's device (``g_out4`` [M, 4], the rest [M]); ``ax, ay`` enter
-    only their own cotangent (``l``), which the kernel writes without
-    reading them."""
+    plain version on the CPU.  On the card two kernels
+    (``csrc/po_forward_vjp.cu``) read K1's folded table, sum the
+    cotangents of the folded coefficients of the candidates that carry one
+    in a fixed order (two runs give the same bits) and write them onto the
+    fit's terms (:func:`unfold_forward_grads`' map, :func:`_unfold_table`);
+    the wrapper runs no torch op beyond allocating the outputs (the queue
+    of live candidates and the blocks' partial rows are scratch kept per
+    device and stream, :data:`_VJP_SCRATCH`, resident once allocated).
+    Rays, solution and cotangents f32 contiguous on the lens's device
+    (``g_out4`` [M, 4], 16-byte aligned, the rest [M]), the lens's
+    coefficients f32; ``ax, ay`` enter only their own cotangent (``l``),
+    which the kernel writes without reading them."""
     _refuse_grad("po_forward_vjp", x, y, ax, ay, dx, dy, g_out4, g_trans,
                  g_dx, g_dy, lens=lens)
     dev = x.device
@@ -864,28 +913,133 @@ def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
         return po_forward_vjp_plain(lens, x, y, ax, ay, dx, dy, g_out4,
                                     g_trans, g_dx, g_dy, lam_um,
                                     sensor_shift, need_inputs)
-    table = _folded_table(lens, "forward", (lam_um,), dev)
+    coeffs = (lens.pt.coeffs, lens.ap.coeffs)
+    if any(c.dtype != torch.float32 for c in coeffs):
+        raise TypeError("po_forward_vjp: the lens's coefficients must be "
+                        "float32 on the card")
+    if (coeffs[0].shape[0], coeffs[1].shape[0]) != (FWD_PT_ROWS,
+                                                    FWD_AP_ROWS):
+        raise ValueError("po_forward_vjp: pt and ap must have K1's rows "
+                         f"({FWD_PT_ROWS}, {FWD_AP_ROWS})")
+    if g_out4 is not None and g_out4.data_ptr() % 16:
+        raise ValueError("g_out4: must be 16-byte aligned")
+    # one look into the lens's cache a launch: K1's table and the unfold's
+    cache = _fold_cache(lens)
+    key = ("forward_vjp", float(lam_um), str(dev))
+    if key not in cache:
+        cache[key] = (_folded_table(lens, "forward", (lam_um,), dev),
+                      *_unfold_table(lens, lam_um, dev))
+    table, index, lam_pow = cache[key]
     lib = _build.lib()
     blocks = lib.pota_po_forward_vjp_blocks(m)
-    partials = torch.empty((max(blocks, 1), VJP_SUMS), dtype=torch.float32,
-                           device=dev)
-    folded = torch.zeros((FWD_AP_ROWS + FWD_PT_ROWS, len(BASIS)),
-                         dtype=torch.float64, device=dev)
+    g_pt, g_ap = (torch.empty(c.shape, dtype=torch.float32, device=dev)
+                  for c in coeffs)
     g_in = ([torch.empty((m,), dtype=torch.float32, device=dev)
              for _ in range(4)] if need_inputs else [])
+    stream = _stream(dev)
+    queue, partials = _vjp_scratch(dev, stream, m, blocks)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.pota_po_forward_vjp(
         x.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.data_ptr(),
         ptr(g_out4), ptr(g_trans), ptr(g_dx), ptr(g_dy), m,
-        table.data_ptr(), float(sensor_shift), partials.data_ptr(), blocks,
-        folded.data_ptr(), *(ptr(t) for t in (g_in or [None] * 4)),
-        _stream(dev))
+        table.data_ptr(), float(sensor_shift), queue.data_ptr(),
+        partials.data_ptr(), blocks, index.data_ptr(),
+        lam_pow.data_ptr(), g_pt.data_ptr(), g_pt.shape[1],
+        g_ap.data_ptr(), g_ap.shape[1],
+        *(ptr(t) for t in (g_in or [None] * 4)), stream)
     _build.check(err, "po_forward_vjp")
     _build.LAUNCHES["po_forward_vjp"] += 1
-    g_pt, g_ap = unfold_forward_grads(lens, folded[:FWD_AP_ROWS],
-                                      folded[FWD_AP_ROWS:], lam_um)
-    return (g_pt.to(lens.pt.coeffs.dtype), g_ap.to(lens.ap.coeffs.dtype),
-            *g_in)
+    return (g_pt, g_ap, *g_in)
+
+
+# ------------------------------------------ K1j: the JVP of K1's function
+
+
+def _basis_partials(u) -> list:
+    """The partials of every monomial of :data:`BASIS` along each of the
+    four conditioned variables ``u`` ([N] each): four [N, 126] tensors,
+    from the powers ``u_v ** e``."""
+    exps = torch.tensor(BASIS, device=u[0].device)
+    one, zero = torch.ones_like(u[0]), torch.zeros_like(u[0])
+    pw = [torch.stack([one] + [v ** e for e in range(1, BASIS_DEGREE + 1)],
+                      -1)[:, exps[:, i]] for i, v in enumerate(u)]
+    dpw = [torch.stack([zero, one] + [e * v ** (e - 1)
+                                      for e in range(2, BASIS_DEGREE + 1)],
+                       -1)[:, exps[:, i]] for i, v in enumerate(u)]
+    return [dpw[v] * math.prod(pw[w] for w in range(4) if w != v)
+            for v in range(4)]
+
+
+def po_forward_jvp_plain(lens: PolyLens, x, y, ax, ay, lam_um: float,
+                         sensor_shift: float, iterations: int = 3):
+    """Plain K1j: :func:`po_forward_plain`'s primal (K1's rounding, bit for
+    bit), then JAX's ``custom_root`` tangent at its solution on the same
+    folded table (:func:`fold_forward_tables` at ``lam_um``, um): ap's
+    Jacobian J in (x, y, dx, dy) at u = (x, y, dx, dy), ``D = d(dx, dy) /
+    d(x, y) = -J_d^-1 J_xy`` (``_solve2``: the determinant floored at
+    1e-12), the tangents of the shifted point ``(x + dx s, y + dy s, dx,
+    dy)`` along x and y, and pt's rows o0..o3 along them; the monomials'
+    partials from powers (:func:`_basis_partials`).  A fit outside the
+    basis raises ``ValueError`` (:func:`check_basis`), as on the card; its
+    differentials take the term trace's ``torch.func.jvp``.  Rays are f32
+    [M].  Returns (out4 [M, 4], trans [M] >= 0, dx [M], dy [M], jac [M,
+    4, 2]: d out4 / d (x, y))."""
+    check_basis(lens)
+    out4, trans, dx, dy = po_forward_plain(lens, x, y, ax, ay, lam_um,
+                                           sensor_shift, iterations)
+    t = _folded_table(lens, "forward", (lam_um,), x.device)
+    scale, shift = t[:4], t[4:8]
+    ap = t[FWD_AP:FWD_PT].view(-1, 2)
+    pt_o = t[FWD_PT:FWD_TRANS].view(-1, 4)
+    cond = lambda v, i: (v - shift[i]) * scale[i]
+    dm = _basis_partials([cond(x, 0), cond(y, 1), cond(dx, 2), cond(dy, 3)])
+    J = [[(dm[v] @ ap[:, i]) * scale[v] for v in range(4)] for i in range(2)]
+    s = torch.tensor(sensor_shift, dtype=x.dtype, device=x.device)
+    dmp = _basis_partials([cond(_fma(dx, s, x), 0), cond(_fma(dy, s, y), 1),
+                           cond(dx, 2), cond(dy, 3)])
+    P = [dmp[v] @ pt_o for v in range(4)]
+    cols = []
+    for c in range(2):
+        d0, d1 = _solve2(J[0][2], J[0][3], J[1][2], J[1][3], -J[0][c],
+                         -J[1][c])
+        raw = (d0 * s + (1.0 if c == 0 else 0.0),
+               d1 * s + (1.0 if c == 1 else 0.0), d0, d1)
+        cols.append(sum(P[v] * (raw[v] * scale[v])[:, None]
+                        for v in range(4)))
+    return out4, trans, dx, dy, torch.stack(cols, -1)
+
+
+def po_forward_jvp(lens: PolyLens, x, y, ax, ay, lam_um: float,
+                   sensor_shift: float, iterations: int = 3):
+    """K1j wrapper: :func:`po_forward_jvp_plain` on the CPU, the CUDA
+    kernel (``csrc/po_forward_jvp.cu``) on the card, one launch for both
+    screen axes.  Rays are f32 [M] contiguous on the lens's device (any
+    other dtype raises); ``lam_um`` is the frame's wavelength (um).
+    Returns K1's (out4, trans, dx, dy), bit for bit as :func:`po_forward`
+    gives them, and out4's Jacobian in (x, y) [M, 4, 2]."""
+    _refuse_grad("po_forward_jvp", x, y, ax, ay, lens=lens)
+    dev = x.device
+    m = x.shape[0]
+    for name, t in (("x", x), ("y", y), ("ax", ax), ("ay", ay)):
+        _check(name, t, torch.float32, dev, (m,))
+    if lens.device != dev:
+        raise ValueError(f"lens on {lens.device}, rays on {dev}")
+    if dev.type == "cpu":
+        return po_forward_jvp_plain(lens, x, y, ax, ay, lam_um,
+                                    sensor_shift, iterations)
+    table = _folded_table(lens, "forward", (lam_um,), dev)
+    out4 = torch.empty((m, 4), dtype=torch.float32, device=dev)
+    trans, dx, dy = (torch.empty((m,), dtype=torch.float32, device=dev)
+                     for _ in range(3))
+    jac = torch.empty((m, 4, 2), dtype=torch.float32, device=dev)
+    err = _build.lib().pota_po_forward_jvp(
+        x.data_ptr(), y.data_ptr(), ax.data_ptr(), ay.data_ptr(), m,
+        table.data_ptr(), 1.0 / lens.aperture_z, float(sensor_shift),
+        int(iterations), out4.data_ptr(), trans.data_ptr(), dx.data_ptr(),
+        dy.data_ptr(), jac.data_ptr(), _stream(dev))
+    _build.check(err, "po_forward_jvp")
+    _build.LAUNCHES["po_forward_jvp"] += 1
+    return out4, trans, dx, dy, jac
 
 
 class ForwardFn(torch.autograd.Function):

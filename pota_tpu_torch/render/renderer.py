@@ -95,13 +95,19 @@ def trace_camera_rays_with_derivs(cfg: CameraConfig, rc: RenderConfig,
     ``pota_tpu/render/renderer.py:80-137``).
 
     The primary rays come from :func:`trace_camera_rays` (K1 for the PO
-    lens).  The differentials are one ``torch.func.jvp`` per screen axis
-    over the deriv-ray path: one aperture candidate on the primary's
-    (r1, r2), no retries (``trace_fw_thinlens(deriv_ray=True)``, or the PO
-    camera's differentiable path through ``trace_fw_po(deriv_ray=True)``).
-    The reference finite-differences two extra rays; the jvp is exact.
-    The tangent is one pixel's screen step, (2/xres, 0) and (0, 2/yres),
-    so the outputs are dO/dpixel and dD/dpixel.
+    lens).  The differentials are the derivative of the deriv-ray path
+    (one aperture candidate on the primary's (r1, r2), no retries) along
+    one pixel's screen step, (2/xres, 0) and (0, 2/yres), so the outputs
+    are dO/dpixel and dD/dpixel; the reference finite-differences two extra
+    rays, this is exact.  A PO camera with depth of field takes K1j
+    (``ops.po_forward_jvp``, once for both axes:
+    :func:`~pota_tpu_torch.models.po_camera.trace_fw_po_jvp`) on the card;
+    on the CPU, without depth of field and for the thin lens, one
+    ``torch.func.jvp`` per axis over ``trace_fw_po(deriv_ray=True)`` (the
+    term trace, ``_ApertureSolve.jvp``) or
+    ``trace_fw_thinlens(deriv_ray=True)``, as JAX's ``jax.jvp``.  On the
+    CPU the term trace keeps JAX's rounding, to which the CPU tests hold
+    the deriv ray.
 
     Returns (origin, direction, weight, {"dOdx", "dOdy", "dDdx",
     "dDdy"}), each derivative [N, 3]."""
@@ -109,25 +115,33 @@ def trace_camera_rays_with_derivs(cfg: CameraConfig, rc: RenderConfig,
         cfg, samples, po_lens=po_lens, po_state=po_state, ops=ops,
         bokeh_cdf=bokeh_cdf)
     r1, r2 = samples["r1"], samples["r2"]
-
-    def deriv_trace(sx, sy):
-        if cfg.camera_type == CameraType.THIN_LENS:
-            o, d, _, _ = thinlens.trace_fw_thinlens(
-                cfg, sx, sy, r1, r2, deriv_ray=True, bokeh_cdf=bokeh_cdf)
-        else:
-            from ..models.po_camera import trace_fw_po
-
-            o, d, _, _ = trace_fw_po(cfg, po_lens, sx, sy, r1, r2, None,
-                                     po_state, ops=ops, bokeh_cdf=bokeh_cdf,
-                                     deriv_ray=True)
-        return o, d
-
     sx, sy = samples["sx"], samples["sy"]
     zeros = torch.zeros_like(sx)
-    _, (dOdx, dDdx) = torch.func.jvp(
-        deriv_trace, (sx, sy), (torch.full_like(sx, 2.0 / rc.xres), zeros))
-    _, (dOdy, dDdy) = torch.func.jvp(
-        deriv_trace, (sx, sy), (zeros, torch.full_like(sy, 2.0 / rc.yres)))
+    steps = ((torch.full_like(sx, 2.0 / rc.xres), zeros),
+             (zeros, torch.full_like(sy, 2.0 / rc.yres)))
+    po = cfg.camera_type != CameraType.THIN_LENS
+    if po and cfg.enable_dof and sx.device.type == "cuda":
+        from ..models.po_camera import trace_fw_po_jvp
+
+        (dOdx, dDdx), (dOdy, dDdy) = trace_fw_po_jvp(
+            cfg, po_lens, sx, sy, r1, r2, po_state, steps, ops=ops,
+            bokeh_cdf=bokeh_cdf)
+    else:
+        def deriv_trace(sx, sy):
+            if not po:
+                o, d, _, _ = thinlens.trace_fw_thinlens(
+                    cfg, sx, sy, r1, r2, deriv_ray=True, bokeh_cdf=bokeh_cdf)
+            else:
+                from ..models.po_camera import trace_fw_po
+
+                o, d, _, _ = trace_fw_po(cfg, po_lens, sx, sy, r1, r2, None,
+                                         po_state, ops=ops,
+                                         bokeh_cdf=bokeh_cdf,
+                                         deriv_ray=True)
+            return o, d
+
+        (dOdx, dDdx), (dOdy, dDdy) = (
+            torch.func.jvp(deriv_trace, (sx, sy), t)[1] for t in steps)
     return origin, direction, weight, {
         "dOdx": dOdx, "dOdy": dOdy, "dDdx": dDdx, "dDdy": dDdy}
 

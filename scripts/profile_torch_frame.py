@@ -61,7 +61,8 @@ sys.path.insert(0, ROOT)
 FLAGSHIP = "angenieux__double_gauss__1953__49mm"
 OWN = (("po_forward_kernel", "K1 po_forward"),
        ("po_forward_vjp_kernel", "K1v po_forward_vjp"),
-       ("po_forward_vjp_finish", "K1v po_forward_vjp (its float64 sums)"),
+       ("po_forward_vjp_finish", "K1v po_forward_vjp (sums, unfold)"),
+       ("po_forward_jvp_kernel", "K1j po_forward_jvp"),
        ("expand_kernel", "K2 expand"),
        ("po_splat_kernel", "K3/K3b po_splat"), ("po_backward_kernel",
                                                "K6 po_backward"),

@@ -15,8 +15,11 @@ up, then ``--runs`` times, each on the host clock around a synchronised
 frame: ``render_frame`` + ``resolve_aovs`` under ``no_grad`` (with the
 id-matte also ``resolve_crypto``); ``config5`` a differentiable 4K step,
 ``render_frame(differentiable=True)`` + ``loss.backward()``
-(``chip_smoke.Config5.step``).  Each cell also reports its peak allocated
-device memory over its runs.  Prints one JSON line.
+(``chip_smoke.Config5.step``); ``grad_mb_1080p`` and ``grad_aovs_1080p``
+a step of ``chip_smoke.grad_paths``'s routes; ``derivs_po``
+``trace_camera_rays_with_derivs`` of a 1080p frame with config 2's PO
+camera (``chip_smoke.py``'s derivs phase).  Each cell also reports its
+peak allocated device memory over its runs.  Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = ("flagship", "flagship_mb", "config1", "config3", "config3_no_bokeh",
-         "flagship_idmatte", "config5")
+         "flagship_idmatte", "config5", "grad_mb_1080p", "grad_aovs_1080p",
+         "derivs_po")
 
 
 def main() -> int:
@@ -55,7 +59,9 @@ def main() -> int:
     from pota_tpu_torch.render import scene as sc
     from pota_tpu_torch.render import splat
     from pota_tpu_torch.render.bokeh_image import build_bokeh_cdf
-    from pota_tpu_torch.render.renderer import look_at, render_frame
+    from pota_tpu_torch.render.renderer import (
+        look_at, render_frame, trace_camera_rays_with_derivs)
+    from pota_tpu_torch.render.sampling import frame_samples
 
     if not pt.__file__.startswith(root):
         print(f"FAIL: imported {pt.__file__}, not from {root}", flush=True)
@@ -103,6 +109,16 @@ def main() -> int:
         if cell == "config5":
             c5 = cs.Config5(dev, m)
             frame = c5.step
+        elif cell.startswith("grad_"):
+            frame = cs.grad_paths(dev, m, look_at([2.0, 0, 0], [2.0, 0, -1],
+                                                  device=dev))[cell].step
+        elif cell == "derivs_po":
+            cfg2 = dataclasses.replace(cfg, focus_distance=150.0)
+            kw2 = dict(po_lens=lens, po_state=setup_po_camera(lens, cfg2))
+            smp = frame_samples(rc, 0, device=dev)
+
+            def frame():
+                trace_camera_rays_with_derivs(cfg2, rc, smp, **kw2)
         elif (cell == "flagship_idmatte"
               and not hasattr(splat, "resolve_crypto")):
             out[cell] = "not rendered by this checkout"

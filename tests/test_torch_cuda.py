@@ -118,6 +118,50 @@ def test_po_forward_vjp_kernel_matches_plain(dev, name, full, n):
         assert float((g - w).norm() / w.norm()) < 1e-4
 
 
+@pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
+def test_po_forward_vjp_kernel_sparse_cotangents(dev, name):
+    """K1v with 6.4% of the candidates carrying a cotangent (config 5's
+    share, scattered: the live-candidate queue fills across strides) at a
+    config 5 chunk's count: within 1e-4 relative L2 of its plain version,
+    the same bits in two runs, the dead candidates' ray cotangents zero."""
+    n = 777_600
+    lens = load_poly_lens(name, device=dev)
+    args = list(_vjp_args(lens, dev, n, True, seed=3))
+    live = torch.as_tensor(np.random.default_rng(4).uniform(size=n) < 0.064,
+                           device=dev)
+    for i in range(7, 11):    # the cotangents
+        args[i] = torch.where(live[:, None] if i == 7 else live, args[i],
+                              0.0).contiguous()
+    with torch.no_grad():
+        got = pk.po_forward_vjp(*args)
+        again = pk.po_forward_vjp(*args)
+        want = pk.po_forward_vjp_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, want):
+        assert float((g - w).norm() / w.norm()) < 1e-4
+    assert not any(bool(g[~live].any()) for g in got[2:])
+
+
+def test_po_forward_vjp_kernel_on_two_streams(dev):
+    """K1v launched on two streams at once, each on its own chunk (its
+    scratch is kept per stream): each stream's result is the bits of the
+    same launch on the default stream."""
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    chunks = [_vjp_args(lens, dev, 777_600, True, seed=s) for s in (5, 6)]
+    with torch.no_grad():
+        want = [pk.po_forward_vjp(*a) for a in chunks]
+        torch.cuda.synchronize(dev)
+        streams = [torch.cuda.Stream(dev) for _ in chunks]
+        got = []
+        for st, a in zip(streams, chunks):
+            st.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(st):
+                got.append(pk.po_forward_vjp(*a))
+        torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
 def test_po_forward_vjp_kernel_takes_an_empty_queue(dev):
     lens = load_poly_lens(FLAGSHIP, device=dev)
     args = _vjp_args(lens, dev, 0, True)
@@ -127,6 +171,49 @@ def test_po_forward_vjp_kernel_takes_an_empty_queue(dev):
     assert ops.LAUNCHES["po_forward_vjp"] == 1
     assert got[0].shape == lens.pt.coeffs.shape
     assert not any(bool(t.any()) for t in got)
+
+
+@pytest.mark.parametrize("name", [FLAGSHIP, ANAMORPHIC])
+@pytest.mark.parametrize("n", [20000, 2_073_600])
+def test_po_forward_jvp_kernel_matches_plain(dev, name, n):
+    """K1j: its primal is K1's bit for bit on every ray; on the rays that
+    it and the plain version keep, the primal within 1e-5 (K1 and
+    ``po_forward_plain`` round alike but for rare float64 ties) and the
+    Jacobian within 1e-4 relative L2 of the plain version's."""
+    lens = load_poly_lens(name, device=dev)
+    rng = np.random.default_rng(5)
+    x, y = (rng.uniform(-14, 14, n).astype(np.float32) for _ in range(2))
+    r = lens.aperture_housing_radius * 0.6
+    ax, ay = (rng.uniform(-r, r, n).astype(np.float32) for _ in range(2))
+    args = (lens, *(_t(a, dev) for a in (x, y, ax, ay)), 0.55,
+            STATE.sensor_shift, 3)
+    ops.reset_launches()
+    with torch.no_grad():
+        got = pk.po_forward_jvp(*args)
+        k1 = pk.po_forward(*args)
+        ref = pk.po_forward_jvp_plain(*args)
+    assert ops.LAUNCHES["po_forward_jvp"] == 1
+    assert got[4].shape == (n, 4, 2)
+    for g, k in zip(got[:4], k1):
+        assert torch.equal(g, k)
+    both = (got[1] > 0) & (ref[1] > 0)
+    assert int(both.sum()) > n // 4
+    for g, p in zip(got[:4], ref[:4]):
+        assert float((g[both] - p[both]).abs().max()) < 1e-5
+    jg, jp = got[4][both].double(), ref[4][both].double()
+    assert bool(torch.isfinite(jg).all())
+    assert float((jg - jp).norm() / jp.norm()) < 1e-4
+
+
+def test_po_forward_jvp_kernel_takes_an_empty_queue(dev):
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    empty = torch.empty((0,), dtype=torch.float32, device=dev)
+    ops.reset_launches()
+    with torch.no_grad():
+        got = pk.po_forward_jvp(lens, empty, empty, empty, empty, 0.55,
+                                STATE.sensor_shift, 3)
+    assert ops.LAUNCHES["po_forward_jvp"] == 1
+    assert got[4].shape == (0, 4, 2)
 
 
 @pytest.mark.parametrize("n, s", [
@@ -475,7 +562,8 @@ def test_render_kernels_match_plain(dev):
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
     flagship = {"po_forward": 1, "expand": 1, "po_splat": 1,
                 "segment_accum": 1, "tl_splat": 0, "po_splat_lam": 0,
-                "po_splat_ext": 0, "po_backward": 0, "po_forward_vjp": 0}
+                "po_splat_ext": 0, "po_backward": 0, "po_forward_vjp": 0,
+                "po_forward_jvp": 0}
     ops.reset_launches()
     img_k, fb_k = render_frame(CFG, rc, scene, m, po_lens=lens,
                                po_state=STATE)
@@ -554,7 +642,8 @@ def test_render_motion_blur_kernels_match_plain(dev, chroma):
     assert ops.LAUNCHES == {
         "po_forward": 1, "expand": 1, "po_splat": 0, "segment_accum": 1,
         "tl_splat": 0, "po_splat_lam": 0, "po_splat_ext": 0,
-        "po_backward": 1, "po_forward_vjp": 0}, ops.LAUNCHES
+        "po_backward": 1, "po_forward_vjp": 0, "po_forward_jvp": 0}, \
+        ops.LAUNCHES
     img_p, _ = render_frame(cfg, rc, scene, m, po_lens=lens, po_state=STATE,
                             cam_to_world_end=end, ops=ops.PLAIN)
     npix = rc.xres * rc.yres
@@ -758,8 +847,11 @@ def test_fit_on_the_card_matches_the_cpu(dev):
 
 def test_derivs_on_the_card(dev):
     """Ray differentials of a 96x64 PO frame on the card: K1 once for the
-    primary rays, the differentials finite and within float32 rounding of
-    the CPU's on the same samples."""
+    primary rays and K1j once for both axes, the differentials finite and
+    within float32 rounding of the CPU's (the term trace's jvp) on the same
+    samples, and of the term trace's ``torch.func.jvp`` on the card; without
+    depth of field no K1j."""
+    from pota_tpu_torch.models.po_camera import trace_fw_po
     from pota_tpu_torch.optics.focus import setup_po_camera
     from pota_tpu_torch.render.renderer import trace_camera_rays_with_derivs
     from pota_tpu_torch.render.sampling import frame_samples
@@ -770,19 +862,38 @@ def test_derivs_on_the_card(dev):
     for d in (dev, torch.device("cpu")):
         lens = load_poly_lens(FLAGSHIP, device=d)
         state = setup_po_camera(lens, cfg)
+        smp = frame_samples(rc, 0, device=d)
         ops.reset_launches()
         out[d.type] = trace_camera_rays_with_derivs(
-            cfg, rc, frame_samples(rc, 0, device=d), po_lens=lens,
-            po_state=state)
+            cfg, rc, smp, po_lens=lens, po_state=state)
         if d.type == "cuda":
             assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
-                "po_forward": 1}
+                "po_forward": 1, "po_forward_jvp": 1}
+            ops.reset_launches()
+            trace_camera_rays_with_derivs(
+                dataclasses.replace(cfg, enable_dof=False), rc, smp,
+                po_lens=lens, po_state=state)
+            assert ops.LAUNCHES["po_forward_jvp"] == 0
+
+            def deriv_trace(sx, sy):
+                return trace_fw_po(cfg, lens, sx, sy, smp["r1"], smp["r2"],
+                                   None, state, deriv_ray=True)[:2]
+
+            zeros = torch.zeros_like(smp["sx"])
+            (dOdx, dDdx), (dOdy, dDdy) = (
+                torch.func.jvp(deriv_trace, (smp["sx"], smp["sy"]), t)[1]
+                for t in ((torch.full_like(zeros, 2.0 / rc.xres), zeros),
+                          (zeros, torch.full_like(zeros, 2.0 / rc.yres))))
+            out["terms"] = {"dOdx": dOdx, "dOdy": dOdy, "dDdx": dDdx,
+                            "dDdy": dDdy}
     live = (out["cuda"][2].cpu() > 0) & (out["cpu"][2] > 0)
     assert int(live.sum()) > 0.9 * live.numel()
     for k, want in out["cpu"][3].items():
         got = out["cuda"][3][k].cpu()
         assert bool(torch.isfinite(got[live]).all()), k
         assert float((got - want)[live].abs().max()) < 1e-5, k
+        terms = out["terms"][k].cpu()
+        assert float((got - terms)[live].abs().max()) < 1e-5, k
 
 
 @pytest.mark.parametrize("with_scene", [True, False],
