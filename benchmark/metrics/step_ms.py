@@ -1,0 +1,6 @@
+"""step_ms: the whole measured window over the fit steps completed in it."""
+from harness.readers import mean_unit_ms
+
+
+def read(rec):
+    return mean_unit_ms(rec, "step")

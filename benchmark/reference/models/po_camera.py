@@ -1,0 +1,191 @@
+"""Polynomial-optics forward camera (port of
+:mod:`pota_tpu.models.po_camera`).
+
+The reference's vignetting-retry loop becomes K = ``vignetting_retries + 1``
+candidate aperture samples per ray, all traced by the PO forward kernel
+(``ops.po_kernels.po_forward``), then a first-success select.  The
+differentiable route traces them through the same kernel with its VJP
+(``ops.po_kernels.ForwardFn``: K1 forward, K1v backward), the gradient JAX
+takes through its pure path (``use_pallas=False``).  The ray differentials
+take K1j on the card (:func:`trace_fw_po_jvp`: K1's function and its
+Jacobian in the sensor point, one launch) and, on the CPU and without
+depth of field, the deriv ray's torch trace (``trace_fw_po(deriv_ray=True)``,
+``_ApertureSolve``), which ``torch.func.jvp`` differentiates.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import CameraConfig
+
+from ..ops.po_kernels import ForwardFn
+from ..optics import geometry as geo
+from ..optics import samplers
+from ..optics.polynomial import (
+    PolyLens,
+    inner_pupil_ok,
+    pt_evaluate,
+    pt_sample_aperture,
+)
+from ..utils import rng as prng
+
+
+def po_sample_aperture_disk(cfg: CameraConfig, r1, r2, bokeh_cdf=None):
+    """PO aperture sampler: image bokeh (the CDF inversion), the plain
+    concentric disk, or the blade fan (ref src/lentil.h:312-324).  The PO
+    path takes no spherical-aberration bias or squircle: those are
+    thin-lens controls."""
+    if cfg.bokeh_enable_image and bokeh_cdf is not None:
+        from ..render.bokeh_image import bokeh_sample
+        return bokeh_sample(bokeh_cdf, r1, r2)
+    if cfg.aperture_blades < 2:
+        return samplers.concentric_disk_sample(r1, r2)
+    return samplers.triangular_aperture_sample(r1, r2, 1.0,
+                                               cfg.aperture_blades)
+
+
+def rays_from_chart(cfg: CameraConfig, lens: PolyLens, out4):
+    """The outer pupil's chart ``out4`` [N, 4] (mm) to camera-space rays in
+    scene units: ``chart_to_cs``, the scale (negative: it reverses the rays
+    and converts mm to units), the direction normalised.  Returns (origin
+    [N, 3], direction [N, 3])."""
+    R = lens.outer_pupil_curvature_radius
+    origin, direction = geo.chart_to_cs(out4[..., :2], out4[..., 2:4], -R, R,
+                                        lens.outer_chart)
+    scale = cfg.unit_scale_po
+    origin = origin * scale
+    direction = direction * scale
+    dir_n2 = torch.sum(direction * direction, -1, keepdim=True)
+    return origin, direction / torch.sqrt(torch.clamp(dir_n2, min=1e-24))
+
+
+def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
+                retry_key, po_state, newton_iterations: int = 3, ops=None,
+                bokeh_cdf=None, differentiable: bool = False,
+                deriv_ray: bool = False):
+    """Forward PO trace, batched over rays [N].  ``bokeh_cdf`` is the image
+    bokeh's :class:`~reference.render.bokeh_image.BokehImage`.
+
+    Returns (origin [N, 3], dir [N, 3], weight [N], tries [N]) scaled to
+    scene units, camera looking down -z.  ``ops`` selects the kernel set
+    (default: the kernel wrappers, :data:`reference.ops.KERNELS`).
+    ``differentiable`` traces the [N, K] candidates through
+    :class:`~reference.ops.po_kernels.ForwardFn` (``ops.po_forward``
+    forward, ``ops.po_forward_vjp`` backward: JAX's gradient of its pure
+    path, ``pota_tpu/models/po_camera.py:194-205``), so origin and
+    direction carry gradients to the lens coefficients.  ``deriv_ray``
+    traces one candidate on (r1, r2), draws no retry uniforms
+    (``retry_key`` may be None) and takes the torch trace
+    (``pt_sample_aperture``, ``pt_evaluate``: the term trace, whatever the
+    device and dtype), which ``torch.func.jvp`` differentiates (JAX's
+    ``pota_tpu/models/po_camera.py:140-151``): the ray differentials' path
+    on the CPU, and their float64 oracle; on the card they take
+    :func:`trace_fw_po_jvp`.
+    """
+    if ops is None:
+        from ..ops import KERNELS as ops
+    aperture_radius = po_state.aperture_radius
+    sensor_shift = po_state.sensor_shift
+    n_tries = 1 if deriv_ray else cfg.vignetting_retries + 1
+    n = sx.shape[0]
+    hsw = cfg.sensor_width * 0.5
+    x = sx * hsw
+    y = sy * hsw
+
+    if cfg.enable_dof:
+        if n_tries > 1:
+            tries_idx = torch.arange(1, n_tries, dtype=torch.int64,
+                                     device=x.device)
+            us = prng.uniforms(retry_key[:, None], tries_idx[None, :], 2)
+            r1k = torch.cat([r1[:, None], us[..., 0]], 1)
+            r2k = torch.cat([r2[:, None], us[..., 1]], 1)
+        else:
+            r1k, r2k = r1[:, None], r2[:, None]
+        aperture = (po_sample_aperture_disk(cfg, r1k, r2k, bokeh_cdf)
+                    * aperture_radius)
+    if cfg.enable_dof and deriv_ray:
+        zero = torch.zeros((n, n_tries), dtype=x.dtype, device=x.device)
+        sensor5 = pt_sample_aperture(
+            lens, torch.stack([x[:, None] + zero, y[:, None] + zero, zero,
+                               zero, zero + cfg.lambda_um], -1),
+            aperture, iterations=newton_iterations)
+        # move to the polynomial's sensor plane (ref src/lentil.h:349-350)
+        dx, dy = sensor5[..., 2], sensor5[..., 3]
+        xk = sensor5[..., 0] + dx * sensor_shift
+        yk = sensor5[..., 1] + dy * sensor_shift
+        out4, trans = pt_evaluate(
+            lens, torch.stack([xk, yk, dx, dy, sensor5[..., 4]], -1))
+    elif cfg.enable_dof:
+        rep = lambda a: a[:, None].expand(n, n_tries).reshape(-1)
+        rays = (rep(x), rep(y), aperture[..., 0].reshape(-1).contiguous(),
+                aperture[..., 1].reshape(-1).contiguous())
+        if differentiable:
+            out4, trans, dx, dy = ForwardFn.apply(
+                *rays, lens.pt.coeffs, lens.ap.coeffs, lens, cfg.lambda_um,
+                sensor_shift, newton_iterations, ops)
+        else:
+            out4, trans, dx, dy = ops.po_forward(
+                lens, *rays, cfg.lambda_um, sensor_shift, newton_iterations)
+        out4 = out4.reshape(n, n_tries, 4)
+        trans = trans.reshape(n, n_tries)
+        dx = dx.reshape(n, n_tries)
+        dy = dy.reshape(n, n_tries)
+        xk = x[:, None] + dx * sensor_shift
+        yk = y[:, None] + dy * sensor_shift
+    else:
+        # no depth of field: zero sensor directions, no aperture solve
+        zero = torch.zeros((n, n_tries), dtype=x.dtype, device=x.device)
+        dx = dy = zero
+        xk = x[:, None] + zero
+        yk = y[:, None] + zero
+        out4, trans = pt_evaluate(
+            lens, torch.stack([xk, yk, dx, dy, zero + cfg.lambda_um], -1))
+    shifted = torch.stack([xk, yk, dx, dy], -1)
+
+    ok = trans > 0.0
+    ok &= out4[..., 0] ** 2 + out4[..., 1] ** 2 <= lens.outer_pupil_radius ** 2
+    ok &= inner_pupil_ok(lens, shifted)
+
+    # first-success select over the K candidates
+    first = torch.argmax(ok.to(torch.int32), -1)
+    any_ok = ok.any(-1)
+    out_sel = torch.gather(out4, 1, first[:, None, None].expand(n, 1, 4))[:, 0]
+
+    origin, direction = rays_from_chart(cfg, lens, out_sel)
+
+    finite = torch.all(torch.isfinite(origin) & torch.isfinite(direction), -1)
+    weight = torch.where(any_ok & finite, 1.0, 0.0)
+    tries = torch.where(any_ok, first, n_tries).to(torch.int32)
+    return origin, direction, weight, tries
+
+
+def trace_fw_po_jvp(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
+                    po_state, tangents, newton_iterations: int = 3, ops=None,
+                    bokeh_cdf=None):
+    """The deriv ray's differentials (one candidate on (r1, r2), no
+    retries, depth of field on) by K1j: ``ops.po_forward_jvp`` once for
+    K1's function and its Jacobian in the sensor point (x, y), JAX's
+    ``custom_root`` tangent at the Newton's solution; then, per screen
+    tangent ``(t_sx, t_sy)`` of ``tangents`` ([N] each), the chart's
+    tangent ``J (t_sx, t_sy) hsw`` through :func:`rays_from_chart` by
+    ``torch.func.jvp`` (the torch tail alone).  What ``torch.func.jvp`` of
+    ``trace_fw_po(deriv_ray=True)`` computes, without its torch trace.
+    Returns [(d origin [N, 3], d direction [N, 3])], one pair a tangent."""
+    if ops is None:
+        from ..ops import KERNELS as ops
+    hsw = cfg.sensor_width * 0.5
+    aperture = (po_sample_aperture_disk(cfg, r1[:, None], r2[:, None],
+                                        bokeh_cdf)[:, 0]
+                * po_state.aperture_radius)
+    out4, _, _, _, jac = ops.po_forward_jvp(
+        lens, (sx * hsw).contiguous(), (sy * hsw).contiguous(),
+        aperture[:, 0].contiguous(), aperture[:, 1].contiguous(),
+        cfg.lambda_um, po_state.sensor_shift, newton_iterations)
+    out = []
+    for t_sx, t_sy in tangents:
+        t_out4 = (jac[..., 0] * (t_sx * hsw)[:, None]
+                  + jac[..., 1] * (t_sy * hsw)[:, None])
+        _, d = torch.func.jvp(lambda o: rays_from_chart(cfg, lens, o),
+                              (out4,), (t_out4,))
+        out.append(d)
+    return out

@@ -1,0 +1,862 @@
+"""The plain PyTorch versions of the port's PO and thin-lens kernels K1-K3,
+K5 and K6, and of K1v and K1j (a frozen copy; the kernels and their
+launchers are not copied).
+
+* :func:`po_forward_plain` — K1's function, the PO forward trace, with the
+  kernel's rounding on the table :func:`fold_forward_tables` folds at the
+  frame's wavelength; :func:`po_forward_vjp_plain` its VJP, which
+  :class:`ForwardFn` binds as its gradient; :func:`po_forward_jvp_plain`
+  its Jacobian in the sensor point;
+* :func:`expand_plain` — K2, compact source table -> queue slots, and
+  :class:`ExpandFn`, K2 with the linear transpose JAX defines for it;
+* :func:`po_splat_plain`, :func:`po_splat_lam_plain`,
+  :func:`po_splat_ext_plain` — K3 and K3b, the per-slot backward splat, on
+  the fit's own terms (``lt_sample_aperture``);
+* :func:`tl_splat_plain` — K5, the thin-lens backward splat;
+* :func:`po_backward_plain` — K6, the PO backward solve alone.
+
+The kernel sets that call them are :mod:`reference.ops`.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+import weakref
+
+import torch
+
+from ..optics import samplers
+from ..optics.geometry import CHARTS
+from ..optics.polynomial import (
+    PolyLens,
+    _solve2,
+    aperture_solve_vjp,
+    inner_pupil_ok,
+    lt_sample_aperture,
+    poly_eval,
+    pt_evaluate,
+    pt_sample_aperture,
+)
+from ..optics.thinlens import image_dist_focusdist
+from ..utils import rng as prng
+
+# ---------------------------------------------------------------- table rows
+# compact source table: f32 rows and int32 rows side by side
+TF_PCX, TF_PCY, TF_PCZ = 0, 1, 2
+TF_PWX, TF_PWY, TF_PWZ = 3, 4, 5
+TF_SKY = 6
+TF_R, TF_G, TF_B, TF_A = 7, 8, 9, 10
+TF_Z = 11
+TF_ROWS = 12
+TF_TIME = TF_ROWS   # the shutter time, a row only under motion blur
+TI_PX, TI_PY, TI_START, TI_SID = 0, 1, 2, 3
+TI_ROWS = 4
+
+# per-frame scalar layout of the splat kernel (po_pallas.py _SP_*)
+SPLAT_PARAM_COUNT = 32
+SP_ROT, SP_TRANS = 0, 9
+SP_XRES, SP_YRES, SP_RMINX, SP_RMINY = 12, 13, 14, 15
+SP_XRES_R, SP_YRES_R, SP_INV_UNIT, SP_SHIFT = 16, 17, 18, 19
+SP_HSW, SP_ASPECT, SP_AP_RADIUS, SP_LAMBDA = 20, 21, 22, 23
+SP_TL_APR, SP_TL_F, SP_TL_IDFD, SP_TL_ANAM = 27, 28, 29, 30
+
+
+def splat_kernel_params(cfg, rc, po_state, cam_to_world) -> torch.Tensor:
+    """The per-frame scalars the splat kernels read ([32] f32, the layout of
+    ``po_pallas.py::splat_kernel_params``); a thin-lens frame passes
+    ``po_state=None``."""
+    m = cam_to_world.to(torch.float32)
+    ca = cfg.abb_chromatic
+    if po_state is not None:
+        ap_radius, shift = po_state.aperture_radius, po_state.sensor_shift
+    else:
+        ap_radius = shift = 0.0
+    tail = torch.tensor([
+        rc.xres, rc.yres, rc.region_min_x, rc.region_min_y,
+        rc.xres_region, rc.yres_region,
+        1.0 / cfg.unit_scale_filter, shift,
+        cfg.sensor_width * 0.5, rc.xres / rc.yres,
+        ap_radius, cfg.lambda_um,
+        0.35 + (1.0 - ca) * 0.2, 0.55, 0.55 + ca * 0.3,
+        cfg.thinlens_aperture_radius, cfg.effective_focal_length,
+        image_dist_focusdist(cfg), cfg.effective_anamorphic, 0.0,
+    ], dtype=torch.float32, device=m.device)
+    return torch.cat([m[:3, :3].reshape(-1), m[:3, 3], tail])
+
+
+# ------------------------------------------------------------ argument checks
+
+
+def _check_shared_conditioning(lens: PolyLens) -> None:
+    """The folded tables condition every variable with one set of scales
+    and shifts, so pt and ap must share it."""
+    if not (torch.equal(lens.pt.in_scale, lens.ap.in_scale)
+            and torch.equal(lens.pt.in_shift, lens.ap.in_shift)):
+        raise ValueError(f"lens {lens.name!r}: pt and ap must share their "
+                         "input conditioning for the kernels")
+
+
+# the most folded solve tables K3b and K6 take at once: one wavelength a
+# frame, or the three chroma wavelengths (csrc/po_solve_basis.cuh
+# kMaxSolveTables)
+def _lam_per_item(lams, lam_idx, like) -> torch.Tensor:
+    """Item ``i``'s wavelength ``lams[lam_idx[i]]``, or ``lams[0]`` when
+    ``lam_idx`` is None, in ``like``'s dtype and on its device."""
+    lam_tab = torch.tensor(lams, dtype=like.dtype, device=like.device)
+    return lam_tab[0] if lam_idx is None else lam_tab[lam_idx.long()]
+
+
+# ------------------------------------------------------------- K2: expand
+
+
+def expand_plain(src, table_f, table_i):
+    """Plain K2: ``ex[r, s] = table[r, src[s]]`` for both tables."""
+    idx = src.to(torch.int64)
+    return table_f[:, idx], table_i[:, idx]
+
+
+class ExpandFn(torch.autograd.Function):
+    """K2 with a gradient for ``table_f``: ``ExpandFn.apply(table_f, src,
+    table_i, slot_on, expand_impl)`` returns ``expand_impl(src, table_f,
+    table_i)`` (a kernel set's ``expand``: the kernel on the card, the
+    plain version on the CPU).
+
+    The backward is JAX's transpose (``_expand_differentiable``,
+    ``pota_tpu/render/splat.py:282-325``): the gradient of a table column
+    is the sum of ``d_ex_f`` over the slots that read it, the source's
+    contiguous slot range, over the live slots only (``slot_on`` [S] bool;
+    a slot past the queue end, which reads the last source, contributes
+    nothing).  It is summed by ``index_add_`` in float32, not by JAX's
+    float32 prefix difference, which loses per-source totals once the
+    queue passes 2^24 slots.  ``src`` and ``table_i`` are indices and get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, table_f, src, table_i, slot_on, expand_impl):
+        ctx.save_for_backward(src, slot_on)
+        ctx.n_src = table_f.shape[1]
+        ex_f, ex_i = expand_impl(src, table_f.detach(), table_i)
+        ctx.mark_non_differentiable(ex_i)
+        return ex_f, ex_i
+
+    @staticmethod
+    def backward(ctx, d_ex_f, _d_ex_i):
+        src, slot_on = ctx.saved_tensors
+        n = ctx.n_src
+        # dead slots go to a spare column n, dropped below
+        col = torch.where(slot_on, src.to(torch.int64), n)
+        d_table = torch.zeros((d_ex_f.shape[0], n + 1), dtype=d_ex_f.dtype,
+                              device=d_ex_f.device)
+        d_table.index_add_(1, col, d_ex_f)
+        return d_table[:, :n], None, None, None, None
+
+
+# ------------------------------------------------------------- K3: PO splat
+
+
+def _occlude_spheres(pwx, pwy, pwz, cwx, cwy, cwz, spheres, t_min=1e-3):
+    """Segment occlusion of (world point -> world lens point) against the
+    sphere table [n, 4] (center, radius)."""
+    segx, segy, segz = cwx - pwx, cwy - pwy, cwz - pwz
+    dist = torch.sqrt(torch.clamp(segx * segx + segy * segy + segz * segz,
+                                  min=1e-24))
+    inv_d = 1.0 / dist
+    ddx, ddy, ddz = segx * inv_d, segy * inv_d, segz * inv_d
+    occ = torch.zeros_like(pwx, dtype=torch.bool)
+    for i in range(spheres.shape[0]):
+        ocx = pwx - spheres[i, 0]
+        ocy = pwy - spheres[i, 1]
+        ocz = pwz - spheres[i, 2]
+        r = spheres[i, 3]
+        b = ocx * ddx + ocy * ddy + ocz * ddz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+        disc = b * b - c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t0 = -b - sq
+        t1 = -b + sq
+        t = torch.where(t0 > t_min, t0, t1)
+        occ |= (disc > 0.0) & (t > t_min) & (t < dist - t_min)
+    return occ
+
+
+def _floor_clip(v, hi):
+    """floor then clip to [0, hi], keeping NaN (as jnp.clip does)."""
+    f = torch.floor(v)
+    f = torch.where(f < 0.0, 0.0, f)
+    return torch.where(f > hi, hi, f)
+
+
+def _pixel_lin(pixel_x, pixel_y, p):
+    """In-region test and linear pixel index of the splat kernels."""
+    xr, yr = p[SP_XRES_R], p[SP_YRES_R]
+    inside = ((pixel_x >= 0.0) & (pixel_x < xr) & (pixel_y >= 0.0)
+              & (pixel_y < yr))
+    lin = _floor_clip(pixel_y, yr - 1.0) * xr + _floor_clip(pixel_x, xr - 1.0)
+    lin = torch.where(torch.isfinite(lin), lin, 0.0).to(torch.int32)
+    return lin, inside
+
+
+def _lens_point_ws(lcx, lcy, p):
+    """Camera-space lens point (z = 0) -> world, by the params' matrix."""
+    return [p[SP_ROT + 3 * k] * lcx + p[SP_ROT + 3 * k + 1] * lcy
+            + p[SP_TRANS + k] for k in range(3)]
+
+
+def _disk_aperture(seed, ctr, radius):
+    """The (seed, counter) stream's concentric disk point times ``radius``
+    (``seed`` / ``ctr`` hold uint32 words in int32 or int64 tensors)."""
+    u = prng.uniforms(seed.to(torch.int64) & prng.MASK32,
+                      ctr.to(torch.int64) & prng.MASK32, 2)
+    disk = samplers.concentric_disk_sample(u[..., 0], u[..., 1]) * radius
+    return disk[..., 0], disk[..., 1]
+
+
+def po_splat_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
+                   sky, params, spheres, lam_um: float, iterations: int = 3):
+    """Plain K3: disk aperture from (seed, counter), the frame's one
+    wavelength ``lam_um`` (um).  Returns (lin int32 [S], ok bool [S])."""
+    ax, ay = _disk_aperture(seed, ctr, params[SP_AP_RADIUS])
+    return po_splat_ext_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
+                              (lam_um,), None, sky, params, spheres,
+                              iterations)
+
+
+def po_splat_lam_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed,
+                       ctr, lams, lam_idx, sky, params, spheres,
+                       iterations: int = 3):
+    """Plain K3b ``lam_input`` variant: disk aperture from (seed, counter),
+    slot ``i`` at the wavelength ``lams[lam_idx[i]]`` (um; ``lams[0]`` when
+    ``lam_idx`` is None)."""
+    ax, ay = _disk_aperture(seed, ctr, params[SP_AP_RADIUS])
+    return po_splat_ext_plain(lens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
+                              lams, lam_idx, sky, params, spheres, iterations)
+
+
+def po_splat_ext_plain(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay,
+                       lams, lam_idx, sky, params, spheres,
+                       iterations: int = 3):
+    """Plain K3b external-aperture variant: the PO splat for the aperture
+    point ``ax, ay`` (mm) of each slot at the wavelength ``lams[lam_idx[i]]``
+    (um; ``lams[0]`` when ``lam_idx`` is None), formed in the points' dtype,
+    composed of ``lt_sample_aperture`` on the fit's own terms, the pupil
+    crops, the pixel map and the occlusion probe (as JAX's decomposed path
+    is).  The other two plain variants draw the aperture point first and
+    call it.  Returns (lin int32 [S], ok bool [S])."""
+    p = params
+    target = torch.stack([pcx * -10.0, pcy * -10.0, pcz * -10.0], -1)
+    sensor5, _, trans = lt_sample_aperture(
+        lens, target, torch.stack([ax, ay], -1),
+        _lam_per_item(lams, lam_idx, pcx), iterations=iterations)
+    ok = (trans > 0.0) & inner_pupil_ok(lens, sensor5)
+    x, y, dx, dy = (sensor5[..., k] for k in range(4))
+    sx = (x + dx * -p[SP_SHIFT]) / p[SP_HSW]
+    sy = (y + dy * -p[SP_SHIFT]) / p[SP_HSW] * p[SP_ASPECT]
+    pixel_x = (sx + 1.0) * 0.5 * p[SP_XRES] - p[SP_RMINX]
+    pixel_y = (-sy + 1.0) * 0.5 * p[SP_YRES] - p[SP_RMINY]
+    lin, inside = _pixel_lin(pixel_x, pixel_y, p)
+    ok &= inside
+
+    inv_unit = p[SP_INV_UNIT]
+    cw = _lens_point_ws(-ax * 0.1 * inv_unit, -ay * 0.1 * inv_unit, p)
+    occ = _occlude_spheres(pwx, pwy, pwz, *cw, spheres)
+    ok &= ~(occ & (sky < 0.5))
+    return lin, ok
+
+
+# ------------------------------------ the folded solve table (K3, K3b, K6)
+# With one wavelength per frame, every term's lambda power folds into its
+# coefficient, and the solve's polynomial becomes one over the complete
+# degree-<=5 basis in the four unknowns (x, y, dx, dy): 126 monomials, known
+# at compile time, walked in this order by csrc/po_solve_basis.cuh (kExps).
+BASIS_DEGREE = 5
+BASIS = tuple((a, b, c, d)
+              for a in range(BASIS_DEGREE + 1)
+              for b in range(BASIS_DEGREE + 1 - a)
+              for c in range(BASIS_DEGREE + 1 - a - b)
+              for d in range(BASIS_DEGREE + 1 - a - b - c))
+_BASIS_POS = {m: i for i, m in enumerate(BASIS)}
+# the monomials of degree <= 4, whose Jacobian rows the table carries
+_LOW = [i for i, m in enumerate(BASIS) if sum(m) < BASIS_DEGREE]
+_HIGH = [i for i, m in enumerate(BASIS) if sum(m) == BASIS_DEGREE]
+# d/du_v of c[m + e_v] u^(m + e_v) is (m_v + 1) c[m + e_v] u^m
+_UP = [[_BASIS_POS[tuple(a + (k == v) for k, a in enumerate(BASIS[i]))]
+        for v in range(4)] for i in _LOW]
+_UP_MULT = [[BASIS[i][v] + 1.0 for v in range(4)] for i in _LOW]
+# Table layout (f32): a header of the unknowns' conditioning scale[4],
+# shift[4]; then per monomial, in basis order, a block of values in the slot
+# order FOLD_SLOTS (o0, o1, trans, apx, apy, o2, o3, 0: the final evaluation
+# reads the first four only), followed, for a monomial of degree <= 4, by
+# the derivatives d(row)/d(raw unknown v) at [8 + 4 * row + v] for the six
+# Newton rows apx, apy, o0..o3.  Blocks are 32 floats (degree <= 4) or 8,
+# so every block starts on a 16-byte boundary.
+FOLD_HEADER, FOLD_LOW_STRIDE, FOLD_HIGH_STRIDE = 8, 32, 8
+FOLD_SLOTS = (3, 4, 0, 1, 5, 6, 2)   # slot of apx, apy, o0..o3, trans
+_BLOCK_OFF = list(itertools.accumulate(
+    (FOLD_LOW_STRIDE if sum(m) < BASIS_DEGREE else FOLD_HIGH_STRIDE
+     for m in BASIS[:-1]), initial=FOLD_HEADER))
+FOLD_TABLE_FLOATS = _BLOCK_OFF[-1] + FOLD_HIGH_STRIDE   # the last is x^5
+
+
+def _basis_positions(lens: PolyLens, fn) -> list:
+    """Each term's index in :data:`BASIS` by its exponents of (x, y, dx,
+    dy), read to the host; ``ValueError`` for a term outside the basis."""
+    pos = [_BASIS_POS.get(tuple(e[:4])) for e in fn.exponents.cpu().tolist()]
+    if None in pos:
+        raise ValueError(
+            f"lens {lens.name!r}: a term's monomial in (x, y, dx, dy) lies "
+            f"outside the degree-{BASIS_DEGREE} basis of the folded kernels "
+            "(K1, K3, K3b, K6)")
+    return pos
+
+
+def _fold_conditioning(lens: PolyLens, lam_um: float, device):
+    """float64 scale [5] and shift [5] of the inputs (one set for ap and pt,
+    as the kernels take it) and the conditioned wavelength, on ``device``."""
+    _check_shared_conditioning(lens)
+    f64 = dict(device=device, dtype=torch.float64)
+    scale = lens.pt.in_scale.to(**f64)
+    shift = lens.pt.in_shift.to(**f64)
+    return scale, shift, (float(lam_um) - shift[4]) * scale[4]
+
+
+def _fold_rows(lens: PolyLens, fn, n_rows: int, ul) -> torch.Tensor:
+    """The first ``n_rows`` coefficient rows of ``fn`` with each term's
+    conditioned wavelength power ``ul ** e_4`` folded in, summed onto
+    :data:`BASIS` by the term's own exponents: float64 [n_rows, 126] on
+    ``ul``'s device."""
+    dev = ul.device
+    pos = torch.tensor(_basis_positions(lens, fn), device=dev)
+    lam_pow = ul ** fn.exponents[:, 4].to(dev, torch.float64)
+    rows = fn.coeffs[:n_rows].to(dev, torch.float64) * lam_pow
+    return torch.zeros((n_rows, len(BASIS)), dtype=torch.float64,
+                       device=dev).index_add_(1, pos, rows)
+
+
+def fold_solve_tables(lens: PolyLens, lam_um: float, device) -> torch.Tensor:
+    """The backward solve's tables for one wavelength ``lam_um`` (um), as
+    K3, K3b and K6 read them: f32 [FOLD_TABLE_FLOATS]
+    on ``device`` (layout above).
+
+    Folds the conditioned wavelength's power ``((lam - shift_4) * scale_4)
+    ** e_4`` into each coefficient of ap's rows apx, apy and pt's rows
+    o0..o3, trans, sums the terms onto :data:`BASIS` (:func:`_fold_rows`),
+    and forms the Newton rows' derivative tables ``(m_v + 1) * c[m + e_v]
+    * scale_v``.  Computes in float64 on ``device`` and casts to f32 at the
+    end.  Reads the exponents to the host.  Raises ``ValueError`` for a
+    lens whose folded monomials fall outside the basis."""
+    dev = torch.device(device)
+    scale, shift, ul = _fold_conditioning(lens, lam_um, dev)
+    folded = torch.cat([_fold_rows(lens, lens.ap, 2, ul),
+                        _fold_rows(lens, lens.pt, 5, ul)])
+    f64 = dict(device=dev, dtype=torch.float64)
+    slots = torch.tensor(FOLD_SLOTS, device=dev)
+    vals = torch.zeros((len(BASIS), 8), **f64)
+    vals[:, slots] = folded.T
+    low_i = torch.tensor(_LOW, device=dev)
+    # [70, 6 rows, 4 unknowns]
+    der = (folded[:6, torch.tensor(_UP, device=dev)].permute(1, 0, 2)
+           * torch.tensor(_UP_MULT, **f64)[:, None, :] * scale[:4])
+    low = torch.cat([vals[low_i], der.reshape(len(_LOW), 24)], 1)
+    off = torch.tensor(_BLOCK_OFF, device=dev)
+    table = torch.zeros((FOLD_TABLE_FLOATS,), **f64)
+    table[:4] = scale[:4]
+    table[4:8] = shift[:4]
+    table[off[low_i][:, None] + torch.arange(FOLD_LOW_STRIDE, device=dev)] = low
+    high_i = torch.tensor(_HIGH, device=dev)
+    table[off[high_i][:, None]
+          + torch.arange(FOLD_HIGH_STRIDE, device=dev)] = vals[high_i]
+    return table.to(torch.float32)
+
+
+# ------------------------------------------ the folded forward table (K1)
+# K1's two polynomials folded at the frame's wavelength onto BASIS, each by
+# its own term set, as csrc/po_forward_basis.cuh reads them (fwd::k*).
+# Table layout (f32): a header of the unknowns' conditioning scale[4],
+# shift[4]; ap's rows (apx, apy) per monomial in basis order; pt's rows
+# (o0, o1, o2, o3) per monomial; pt's trans per monomial, padded to a
+# multiple of 4.  Every section starts on 16 bytes.
+FWD_HEADER = 8
+FWD_AP = FWD_HEADER
+FWD_PT = FWD_AP + 2 * len(BASIS)
+FWD_TRANS = FWD_PT + 4 * len(BASIS)
+FWD_TABLE_FLOATS = FWD_TRANS + -(-len(BASIS) // 4) * 4
+# the rows of K1's polynomials, ap's (apx, apy) then pt's (o0..o3, trans):
+# the rows of K1v's folded cotangents (csrc/po_forward_vjp.cu kRows)
+FWD_AP_ROWS, FWD_PT_ROWS = 2, 5
+
+
+def _forward_rows(lens: PolyLens, lam_um: float, device):
+    """K1's two polynomials folded at ``lam_um`` (um) onto :data:`BASIS`,
+    float64 on ``device``: (scale [5], shift [5], ap [2, 126], pt [5,
+    126])."""
+    scale, shift, ul = _fold_conditioning(lens, lam_um, device)
+    return (scale, shift, _fold_rows(lens, lens.ap, FWD_AP_ROWS, ul),
+            _fold_rows(lens, lens.pt, FWD_PT_ROWS, ul))
+
+
+def fold_forward_tables(lens: PolyLens, lam_um: float,
+                        device) -> torch.Tensor:
+    """K1's table for one wavelength ``lam_um`` (um): f32
+    [FWD_TABLE_FLOATS] on ``device`` (layout above).  Folds the conditioned
+    wavelength's power into each coefficient of ap's two rows and pt's five
+    and sums each polynomial's terms onto :data:`BASIS` by its own term set
+    (:func:`_fold_rows`).  Computes in float64 on ``device`` and casts to
+    f32 at the end.  Reads the exponents to the host.  Raises
+    ``ValueError`` for a lens whose folded monomials fall outside the
+    basis.  K1v (:func:`po_forward_vjp`) reads the same table."""
+    dev = torch.device(device)
+    scale, shift, ap, pt = _forward_rows(lens, lam_um, dev)
+    table = torch.zeros((FWD_TABLE_FLOATS,), dtype=torch.float64, device=dev)
+    table[:4] = scale[:4]
+    table[4:8] = shift[:4]
+    table[FWD_AP:FWD_PT] = ap.T.reshape(-1)
+    table[FWD_PT:FWD_TRANS] = pt[:4].T.reshape(-1)
+    table[FWD_TRANS:FWD_TRANS + len(BASIS)] = pt[4]
+    return table.to(torch.float32)
+
+
+# ------------------------------------------------- the fold cache, the check
+_FOLDS = {"solve": fold_solve_tables, "forward": fold_forward_tables}
+# per lens: (the fit's buffer versions, {key: folded tables, or the basis
+# check's verdict})
+_FOLD_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _fold_cache(lens: PolyLens) -> dict:
+    """The lens's cache, emptied when a buffer of the fit is replaced or
+    changed in place."""
+    sig = tuple((t.data_ptr(), t._version) for t in (
+        lens.ap.coeffs, lens.pt.coeffs, lens.pt.exponents, lens.ap.exponents,
+        lens.pt.in_scale, lens.pt.in_shift, lens.ap.in_scale,
+        lens.ap.in_shift))
+    hit = _FOLD_CACHE.get(lens)
+    if hit is None or hit[0] != sig:
+        hit = _FOLD_CACHE[lens] = (sig, {})
+    return hit[1]
+
+
+def _folded_table(lens: PolyLens, kind: str, lams, device,
+                  on_fold=None) -> torch.Tensor:
+    """The ``kind`` tables of ``lens`` (``"solve"``:
+    :func:`fold_solve_tables`, ``"forward"``: :func:`fold_forward_tables`)
+    at each wavelength of ``lams`` (um), one after another, on ``device``.
+    Folded once per lens, kind, wavelengths and device (and again when a
+    buffer of the fit changes), so a frame reads nothing back from the card
+    after the first; K3, K3b and K6 share the solve tables.  The tables
+    are folded without a graph, from the coefficients' values: an in-place
+    update of coefficients that require grad (a gradient step under
+    ``no_grad``) bumps their version, so the next frame folds again.
+    ``on_fold``, if given, runs before a fold."""
+    cache = _fold_cache(lens)
+    key = (kind, tuple(float(lam) for lam in lams), str(device))
+    if key not in cache:
+        if on_fold is not None:
+            on_fold()
+        with torch.no_grad():
+            cache[key] = torch.cat([_FOLDS[kind](lens, lam, device)
+                                    for lam in key[1]])
+    return cache[key]
+
+
+def check_basis(lens: PolyLens) -> None:
+    """Raise ``ValueError`` (the folds' message) unless every term of the
+    fit's ``ap`` and ``pt`` is a monomial of :data:`BASIS` in (x, y, dx,
+    dy): the fits the card's PO kernels K1, K3, K3b and K6 take.
+    Reads the exponents to the host once per lens and buffer version."""
+    cache = _fold_cache(lens)
+    if "basis" not in cache:
+        for fn in (lens.ap, lens.pt):
+            _basis_positions(lens, fn)
+        cache["basis"] = True
+
+
+# ------------------------------------------------------- K1: PO forward trace
+
+
+def _fma(a, b, c):
+    """``fmaf(a, b, c)`` of float32 tensors: the product is exact in
+    float64, so the sum is rounded once (to float64, then to float32: the
+    two roundings differ from one only on float32 ties)."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def _basis_walk(u):
+    """Yield (k, c, d, value) for every monomial x^a y^b dx^c dy^d of
+    :data:`BASIS` in order, the value formed by running products as
+    ``basis::for_each_monomial`` forms it; a None in ``u`` is the literal
+    1, which the kernel multiplies away."""
+    mul = lambda p, v: p if v is None else p * v
+    k = 0
+    pa = torch.ones_like(u[0])
+    for a in range(BASIS_DEGREE + 1):
+        pb = pa
+        for b in range(BASIS_DEGREE + 1 - a):
+            pc = pb
+            for c in range(BASIS_DEGREE + 1 - a - b):
+                pd = pc
+                for d in range(BASIS_DEGREE + 1 - a - b - c):
+                    yield k, c, d, pd
+                    k += 1
+                    pd = mul(pd, u[3])
+                pc = mul(pc, u[2])
+            pb = mul(pb, u[1])
+        pa = mul(pa, u[0])
+
+
+# the 21 monomials dx^c dy^d of K1's collapsed ap rows (fwd::pair_index)
+_PAIR = {(c, d): j for j, (c, d) in enumerate(
+    (c, d) for c in range(BASIS_DEGREE + 1)
+    for d in range(BASIS_DEGREE + 1 - c))}
+
+
+def _pair_poly(A, u, v):
+    """``fwd::pair_poly``: the value of sum A[pair(c, d)] u^c v^d and its
+    partials along u and v, by nested Horner (A: [N, rows] per pair)."""
+    top_d = BASIS_DEGREE
+    p = A[_PAIR[(0, top_d)]]
+    pu = pv = None
+    for d in range(top_d - 1, -1, -1):
+        top = top_d - d
+        q, qu = A[_PAIR[(top, d)]], None
+        for c in range(top - 1, -1, -1):
+            qu = q if c == top - 1 else _fma(qu, u, q)
+            q = _fma(q, u, A[_PAIR[(c, d)]])
+        pv = p if d == top_d - 1 else _fma(pv, v, p)
+        pu = qu if d == top_d - 1 else _fma(pu, v, qu)
+        p = _fma(p, v, q)
+    return p, pu, pv
+
+
+def _po_forward_terms(lens: PolyLens, x, y, ax, ay, lam_um: float,
+                      sensor_shift: float, iterations: int = 3):
+    """K1's function on the fit's own term set: ``pt_sample_aperture`` for
+    (dx, dy), the sensor shift, ``pt_evaluate``.  Returns (out4, trans,
+    dx, dy) as :func:`po_forward_plain` does."""
+    zero = torch.zeros_like(x)
+    lam = torch.full_like(x, lam_um)
+    solved = pt_sample_aperture(lens, torch.stack([x, y, zero, zero, lam], -1),
+                                torch.stack([ax, ay], -1),
+                                iterations=iterations)
+    dx, dy = solved[..., 2], solved[..., 3]
+    out4, trans = pt_evaluate(lens, torch.stack(
+        [x + dx * sensor_shift, y + dy * sensor_shift, dx, dy, lam], -1))
+    return out4.contiguous(), trans, dx.contiguous(), dy.contiguous()
+
+
+def po_forward_plain(lens: PolyLens, x, y, ax, ay, lam_um: float,
+                     sensor_shift: float, iterations: int = 3):
+    """Plain K1: the kernel's arithmetic (``po_forward_trace`` of
+    ``csrc/po_forward_basis.cuh``) in PyTorch, on the same table
+    (:func:`fold_forward_tables` at the frame's wavelength ``lam_um``, um):
+    ap collapsed to its 21 (dx, dy) coefficients, the 2x2 Newton on their
+    Horner rows, the sensor shift, pt's rows over the basis, every float32
+    operation in the kernel's order with its fused multiply-adds rounded
+    once.  It computes what ``pt_sample_aperture`` then ``pt_evaluate``
+    compute, with the kernel's rounding: a forward trace that rounds
+    otherwise, even an exact one, moves grazing sphere hits and so the
+    splats of whole highlight sources, which no frame parity absorbs.
+    A fit outside the basis, which the card refuses, takes
+    :func:`_po_forward_terms`.  Rays are f32 [M].
+    Returns (out4 [M, 4], trans [M] >= 0, dx [M], dy [M])."""
+    try:
+        check_basis(lens)
+    except ValueError:
+        return _po_forward_terms(lens, x, y, ax, ay, lam_um, sensor_shift,
+                                 iterations)
+    t = _folded_table(lens, "forward", (lam_um,), x.device)
+    s0, s1, s2, s3, h0, h1, h2, h3 = t[:FWD_HEADER]
+    ap = t[FWD_AP:FWD_PT].view(-1, 2)
+    A = [torch.zeros(x.shape + (2,), dtype=x.dtype, device=x.device)
+         for _ in _PAIR]
+    for k, c, d, xy in _basis_walk(((x - h0) * s0, (y - h1) * s1, None,
+                                    None)):
+        A[_PAIR[(c, d)]] = _fma(ap[k], xy[:, None], A[_PAIR[(c, d)]])
+    inv_ap_z = torch.tensor(1.0 / lens.aperture_z, dtype=x.dtype,
+                            device=x.device)
+    dx = (ax - x) * inv_ap_z
+    dy = (ay - y) * inv_ap_z
+    for _ in range(iterations):
+        p, pu, pv = _pair_poly(A, ((dx - h2) * s2)[:, None],
+                               ((dy - h3) * s3)[:, None])
+        j00, j10 = pu[:, 0] * s2, pu[:, 1] * s2
+        j01, j11 = pv[:, 0] * s3, pv[:, 1] * s3
+        r0, r1 = p[:, 0] - ax, p[:, 1] - ay
+        det = _fma(j00, j11, -(j01 * j10))
+        det = torch.where(det.abs() < 1e-12, 1e-12, det)
+        dx = dx - _fma(j11, r0, -(j01 * r1)) / det
+        dy = dy - _fma(-j10, r0, j00 * r1) / det
+    shift = torch.tensor(sensor_shift, dtype=x.dtype, device=x.device)
+    u = ((_fma(dx, shift, x) - h0) * s0, (_fma(dy, shift, y) - h1) * s1,
+         (dx - h2) * s2, (dy - h3) * s3)
+    pt_o = t[FWD_PT:FWD_TRANS].view(-1, 4)
+    pt_t = t[FWD_TRANS:FWD_TRANS + len(BASIS)]
+    out4 = torch.zeros(x.shape + (4,), dtype=x.dtype, device=x.device)
+    trans = torch.zeros_like(x)
+    for k, _, _, mono in _basis_walk(u):
+        out4 = _fma(pt_o[k], mono[:, None], out4)
+        trans = _fma(pt_t[k], mono, trans)
+    return out4, torch.clamp(trans, min=0.0), dx, dy
+
+
+# -------------------------------------------- K1v: the VJP of K1's function
+
+
+def _grads(out, wrt, ct=None) -> list:
+    """``torch.autograd.grad`` of ``out`` (cotangent ``ct``) with zeros
+    for the tensors of ``wrt`` it does not reach."""
+    got = torch.autograd.grad(out, wrt, grad_outputs=ct, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(got, wrt)]
+
+
+def po_forward_vjp_plain(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4,
+                         g_trans, g_dx, g_dy, lam_um: float,
+                         sensor_shift: float, need_inputs: bool = False):
+    """Plain K1v: the VJP of K1's function at its solution ``dx, dy``, on
+    the fit's own term set, by autograd of ``pt_evaluate`` and
+    :func:`~reference.optics.polynomial.aperture_solve_vjp` (the
+    aperture solve's backward, without its recompute).
+
+    Rays and solution are [M] in one dtype (the coefficients are taken in
+    it: float64 inputs give a float64 oracle); the cotangents of K1's
+    outputs are ``g_out4`` [M, 4], ``g_trans``, ``g_dx``, ``g_dy`` [M], any
+    of them None for zero.  JAX's ``custom_root`` rule: the cotangent of
+    the shifted sensor point ``(x + dx s, y + dy s, dx, dy)`` through pt
+    (trans's where its raw value is <= 0 masked, as ``relu_nan``'s),
+    carried with ``g_dx, g_dy`` onto the direction ``h``; ``J^T l = h``
+    with ap's 2x2 Jacobian in (dx, dy) at the solution (the determinant
+    floored at 1e-12); ``-l^T d ap / d theta`` for ap's coefficients and
+    the rays, ``l`` for the aperture point.  The Newton's start gets no
+    gradient, as in JAX.
+
+    Returns (d pt.coeffs, d ap.coeffs) in the rays' dtype and, with
+    ``need_inputs``, the cotangents of ``x, y, ax, ay`` after them."""
+    dt = x.dtype
+    if all(g is None for g in (g_out4, g_trans, g_dx, g_dy)):
+        zeros = [torch.zeros(c.shape, dtype=dt, device=x.device)
+                 for c in (lens.pt.coeffs, lens.ap.coeffs)]
+        return (*zeros, *([torch.zeros_like(x)] * 4 if need_inputs else []))
+    with torch.enable_grad():
+        pt_c = lens.pt.coeffs.detach().to(dt).requires_grad_(True)
+        xy = [t.detach().requires_grad_(need_inputs) for t in (x, y)]
+        d = torch.stack([dx, dy], -1).detach().requires_grad_(True)
+        lam = torch.full_like(x, lam_um)
+        out = poly_eval(lens.pt, torch.stack(
+            [xy[0] + d[:, 0] * sensor_shift, xy[1] + d[:, 1] * sensor_shift,
+             d[:, 0], d[:, 1], lam], -1), pt_c)
+        raw = out[:, 4]
+        terms = [(g_out4, out[:, :4]),
+                 (g_trans, torch.where(raw > 0.0, raw, 0.0)),
+                 (g_dx, d[:, 0]), (g_dy, d[:, 1])]
+        loss = sum((g * v).sum() for g, v in terms if g is not None)
+        h, g_pt, *g_direct = _grads(loss, [d, pt_c,
+                                           *(xy if need_inputs else [])])
+    zero = torch.zeros_like(x)
+    g_s5, g_target, g_ap = aperture_solve_vjp(
+        lens.ap, lens.ap.coeffs.detach().to(dt),
+        torch.stack([x, y, zero, zero, lam], -1), torch.stack([ax, ay], -1),
+        d.detach(), h, (need_inputs, need_inputs, True))
+    if not need_inputs:
+        return g_pt, g_ap
+    return (g_pt, g_ap, g_s5[:, 0] + g_direct[0], g_s5[:, 1] + g_direct[1],
+            g_target[:, 0], g_target[:, 1])
+
+
+# K1v's folded cotangent rows (ap's two, then pt's five) and sums
+# K1v's scratch per (device, stream): the queue of live candidates [>= M]
+# int32 and the blocks' partial rows [>= blocks, 882] f32, grown to the
+# largest launch and kept for the life of the process; launches on one
+# stream run in order, so they may share it
+_VJP_SCRATCH: dict = {}
+
+
+# ------------------------------------------ K1j: the JVP of K1's function
+
+
+def _basis_partials(u) -> list:
+    """The partials of every monomial of :data:`BASIS` along each of the
+    four conditioned variables ``u`` ([N] each): four [N, 126] tensors,
+    from the powers ``u_v ** e``."""
+    exps = torch.tensor(BASIS, device=u[0].device)
+    one, zero = torch.ones_like(u[0]), torch.zeros_like(u[0])
+    pw = [torch.stack([one] + [v ** e for e in range(1, BASIS_DEGREE + 1)],
+                      -1)[:, exps[:, i]] for i, v in enumerate(u)]
+    dpw = [torch.stack([zero, one] + [e * v ** (e - 1)
+                                      for e in range(2, BASIS_DEGREE + 1)],
+                       -1)[:, exps[:, i]] for i, v in enumerate(u)]
+    return [dpw[v] * math.prod(pw[w] for w in range(4) if w != v)
+            for v in range(4)]
+
+
+def po_forward_jvp_plain(lens: PolyLens, x, y, ax, ay, lam_um: float,
+                         sensor_shift: float, iterations: int = 3):
+    """Plain K1j: :func:`po_forward_plain`'s primal (K1's rounding, bit for
+    bit), then JAX's ``custom_root`` tangent at its solution on the same
+    folded table (:func:`fold_forward_tables` at ``lam_um``, um): ap's
+    Jacobian J in (x, y, dx, dy) at u = (x, y, dx, dy), ``D = d(dx, dy) /
+    d(x, y) = -J_d^-1 J_xy`` (``_solve2``: the determinant floored at
+    1e-12), the tangents of the shifted point ``(x + dx s, y + dy s, dx,
+    dy)`` along x and y, and pt's rows o0..o3 along them; the monomials'
+    partials from powers (:func:`_basis_partials`).  A fit outside the
+    basis raises ``ValueError`` (:func:`check_basis`), as on the card; its
+    differentials take the term trace's ``torch.func.jvp``.  Rays are f32
+    [M].  Returns (out4 [M, 4], trans [M] >= 0, dx [M], dy [M], jac [M,
+    4, 2]: d out4 / d (x, y))."""
+    check_basis(lens)
+    out4, trans, dx, dy = po_forward_plain(lens, x, y, ax, ay, lam_um,
+                                           sensor_shift, iterations)
+    t = _folded_table(lens, "forward", (lam_um,), x.device)
+    scale, shift = t[:4], t[4:8]
+    ap = t[FWD_AP:FWD_PT].view(-1, 2)
+    pt_o = t[FWD_PT:FWD_TRANS].view(-1, 4)
+    cond = lambda v, i: (v - shift[i]) * scale[i]
+    dm = _basis_partials([cond(x, 0), cond(y, 1), cond(dx, 2), cond(dy, 3)])
+    J = [[(dm[v] @ ap[:, i]) * scale[v] for v in range(4)] for i in range(2)]
+    s = torch.tensor(sensor_shift, dtype=x.dtype, device=x.device)
+    dmp = _basis_partials([cond(_fma(dx, s, x), 0), cond(_fma(dy, s, y), 1),
+                           cond(dx, 2), cond(dy, 3)])
+    P = [dmp[v] @ pt_o for v in range(4)]
+    cols = []
+    for c in range(2):
+        d0, d1 = _solve2(J[0][2], J[0][3], J[1][2], J[1][3], -J[0][c],
+                         -J[1][c])
+        raw = (d0 * s + (1.0 if c == 0 else 0.0),
+               d1 * s + (1.0 if c == 1 else 0.0), d0, d1)
+        cols.append(sum(P[v] * (raw[v] * scale[v])[:, None]
+                        for v in range(4)))
+    return out4, trans, dx, dy, torch.stack(cols, -1)
+
+
+class ForwardFn(torch.autograd.Function):
+    """K1 with a gradient: ``ForwardFn.apply(x, y, ax, ay, pt_coeffs,
+    ap_coeffs, lens, lam_um, sensor_shift, iterations, ops)`` returns
+    K1's (out4, trans, dx, dy), with ``pt_coeffs`` / ``ap_coeffs`` the
+    lens's own coefficient tensors, passed so that they get their
+    gradients.  On the card the forward is ``ops.po_forward`` (K1, or in
+    :data:`~reference.ops.PLAIN` its plain version, K1's rounding);
+    on the CPU it is K1's function on the fit's term set
+    (:func:`_po_forward_terms`), the rounding of JAX's pure path, to which
+    the CPU tests hold the differentiable frame (K1's rounding moves the
+    splat decisions of a few sources, and so the loss's differences).
+
+    It saves the rays and the solution ``dx, dy`` only.  The backward is
+    ``ops.po_forward_vjp`` (K1v on the card), JAX's ``custom_root`` rule
+    for the aperture solve (``pota_tpu/optics/polynomial.py:256-324``)
+    through pt; JAX differentiates its pure path, since a ``pallas_call``
+    has no VJP.  Inputs that require grad get their cotangents; the
+    Newton's start gets none, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, y, ax, ay, pt_coeffs, ap_coeffs, lens, lam_um,
+                sensor_shift, iterations, ops):
+        forward = (_po_forward_terms if x.device.type == "cpu"
+                   else ops.po_forward)
+        out4, trans, dx, dy = forward(lens, x, y, ax, ay, lam_um,
+                                      sensor_shift, iterations)
+        ctx.save_for_backward(x, y, ax, ay, dx, dy)
+        ctx.args = (lens, lam_um, sensor_shift, ops)
+        ctx.set_materialize_grads(False)
+        return out4, trans, dx, dy
+
+    @staticmethod
+    def backward(ctx, g_out4, g_trans, g_dx, g_dy):
+        lens, lam_um, sensor_shift, ops = ctx.args
+        need = ctx.needs_input_grad
+        cts = [None if g is None else g.contiguous()
+               for g in (g_out4, g_trans, g_dx, g_dy)]
+        if all(g is None for g in cts) or not any(need[:6]):
+            return (None,) * 11
+        need_inputs = any(need[:4])
+        g_pt, g_ap, *g_rays = ops.po_forward_vjp(
+            lens, *ctx.saved_tensors, *cts, lam_um, sensor_shift,
+            need_inputs)
+        if not need_inputs:
+            g_rays = [None] * 4
+        grads = [g if n else None for g, n in zip((*g_rays, g_pt, g_ap),
+                                                  need)]
+        return (*grads, None, None, None, None, None)
+
+
+# ---------------------------------------------------- K6: PO backward solve
+
+
+def po_backward_plain(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
+                      iterations: int = 3):
+    """Plain K6: ``lt_sample_aperture`` (which carries the kernel's
+    chief-ray guard) for targets ``(px, py, pz)`` in lens-space mm
+    (-10 * p_cam) and aperture points ``(ax, ay)`` (mm), f32 [S].  Item
+    ``i`` has the wavelength ``lams[lam_idx[i]]`` (um), or ``lams[0]``
+    when ``lam_idx`` is None, formed in the targets' dtype.
+    Returns (sx, sy, sdx, sdy, trans); ``trans`` is >= 0 and cropped by the
+    outer pupil."""
+    sensor5, _, trans = lt_sample_aperture(
+        lens, torch.stack([px, py, pz], -1), torch.stack([ax, ay], -1),
+        _lam_per_item(lams, lam_idx, px), iterations=iterations)
+    return (*(sensor5[..., k].contiguous() for k in range(4)), trans)
+
+
+# ------------------------------------------------------- K5: thin-lens splat
+
+
+def _aberrated_disk(seed, ctr, abb_spherical: float, circle_to_square: float):
+    """Concentric disk point of the (seed, counter) stream with the
+    spherical-aberration bias and the squircle lerp, in the closed form of
+    ``po_pallas.py::_tea_concentric_disk_aberrated``."""
+    u = prng.uniforms(seed.to(torch.int64) & prng.MASK32,
+                      ctr.to(torch.int64) & prng.MASK32, 2)
+    r, phi, a, b = samplers.concentric_polar(u[..., 0], u[..., 1])
+    if abb_spherical != 0.5:
+        expo = math.log(abb_spherical) / math.log(0.5)
+        r = torch.sign(r) * torch.exp(
+            torch.log(torch.clamp(torch.abs(r), min=1e-30)) * expo)
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    if circle_to_square > 0.0:
+        x = x + circle_to_square * (a - x)
+        y = y + circle_to_square * (b - y)
+    both_zero = (a == 0.0) & (b == 0.0)
+    return torch.where(both_zero, 0.0, x), torch.where(both_zero, 0.0, y)
+
+
+def tl_splat_plain(pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params,
+                   spheres, abb_spherical: float = 0.5,
+                   circle_to_square: float = 0.01):
+    """Plain K5: aberrated disk sample, anamorphic squeeze, thin-lens
+    backward projection to the sensor, pixel map and occlusion probe from
+    the world lens point.  Returns (lin int32 [S], ok bool [S])."""
+    p = params
+    ux, uy = _aberrated_disk(seed, ctr, abb_spherical, circle_to_square)
+    ux = ux * p[SP_TL_ANAM]
+    lx = ux * p[SP_TL_APR]
+    ly = uy * p[SP_TL_APR]
+
+    f, idfd = p[SP_TL_F], p[SP_TL_IDFD]
+    # image distance of the sample depth (ref src/lentil.h:665-671)
+    ids = (-f * pcz) / (-f + pcz)
+    pn = torch.sqrt(torch.clamp(pcx * pcx + pcy * pcy + pcz * pcz,
+                                min=1e-24))
+    dfcz = pcz / pn
+    t_sp = torch.abs(ids / dfcz)
+    dlx = (pcx / pn) * t_sp - lx
+    dly = (pcy / pn) * t_sp - ly
+    dlz = dfcz * t_sp
+    # focus-plane point lens + dl * |idfd / dlz| (the norms of dl cancel)
+    s = torch.abs(idfd / torch.where(torch.abs(dlz) < 1e-12, 1e-12, dlz))
+    fipx = lx + dlx * s
+    fipy = ly + dly * s
+    fipz = dlz * s
+    sens = -f / p[SP_HSW]
+    fipz_safe = torch.where(torch.abs(fipz) < 1e-12, 1e-12, fipz)
+    sx = fipx / fipz_safe * sens
+    sy = fipy / fipz_safe * sens * p[SP_ASPECT]
+    pixel_x = (sx + 1.0) * 0.5 * p[SP_XRES] - p[SP_RMINX]
+    pixel_y = (-sy + 1.0) * 0.5 * p[SP_YRES] - p[SP_RMINY]
+    lin, ok = _pixel_lin(pixel_x, pixel_y, p)
+
+    inv_unit = p[SP_INV_UNIT]
+    cw = _lens_point_ws(lx * inv_unit, ly * inv_unit, p)
+    occ = _occlude_spheres(pwx, pwy, pwz, *cw, spheres)
+    ok &= ~(occ & (sky < 0.5))
+    return lin, ok
+
+
