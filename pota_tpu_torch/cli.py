@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
 import time
@@ -69,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar=("MINX", "MINY", "MAXX", "MAXY"),
                    help="render region (inclusive pixel bounds)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the render to DIR")
+                   help="write a torch.profiler trace of the render to DIR "
+                        "(render_trace.json, with the port's pota.* spans) "
+                        "and the port's counters over it "
+                        "(render_counters.json)")
     p.add_argument("--list-lenses", action="store_true",
                    help="list the lens catalog and exit")
     return p
@@ -91,6 +95,7 @@ def main(argv=None) -> int:
     from .io.exr import write_exr, write_ppm
     from .render import scene as sc
     from .render.renderer import look_at, render_frame
+    from .utils import trace as counters
 
     dev = torch.device("cpu") if args.cpu else default_device()
     cfg = CameraConfig(
@@ -145,6 +150,7 @@ def main(argv=None) -> int:
 
     prof = contextlib.nullcontext()
     if args.profile:
+        counters.reset()
         activities = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -168,7 +174,11 @@ def main(argv=None) -> int:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "render_trace.json")
         prof.export_chrome_trace(trace)
-        print(f"[pota] profile trace {trace}", file=sys.stderr)
+        counts = os.path.join(args.profile, "render_counters.json")
+        with open(counts, "w") as f:
+            json.dump(counters.snapshot(), f, indent=1, sort_keys=True)
+        print(f"[pota] profile trace {trace}, counters {counts}",
+              file=sys.stderr)
     rays = rc.xres_region * rc.yres_region * args.spp
     print(f"[pota] rendered {rc.xres_region}x{rc.yres_region}@{args.spp}spp "
           f"in {dt:.2f}s ({rays / dt:.0f} rays/s) on {dev}", file=sys.stderr)

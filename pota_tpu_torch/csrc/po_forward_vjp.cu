@@ -310,7 +310,7 @@ po_forward_vjp_kernel(const float* __restrict__ xs,
                       int* __restrict__ queue,
                       float* __restrict__ partials, float* __restrict__ g_x,
                       float* __restrict__ g_y, float* __restrict__ g_ax,
-                      float* __restrict__ g_ay) {
+                      float* __restrict__ g_ay, int* __restrict__ live_count) {
   using namespace vjp;
   __shared__ __align__(16) float s_tab[fwd::kTableFloats];
   __shared__ float s_stage[kWarps * 32 * kStage];
@@ -355,6 +355,8 @@ po_forward_vjp_kernel(const float* __restrict__ xs,
       count += __popc(mask);
     }
   }
+  // the live candidates counted (a traced run): one add a warp
+  if (live_count && lane == 0 && count > 0) atomicAdd(live_count, count);
   __syncwarp();
   // Pass 2: batches of 32 queued candidates, one a lane, the last partial
   for (int b = 0; b < count; b += 32) {
@@ -456,7 +458,8 @@ extern "C" int pota_po_forward_vjp_blocks(int n) {
 // fit's term index (po_forward_vjp_finish); g_pt [5][t_pt], g_ap
 // [2][t_ap]: the coefficients' cotangents, written whole (zero when n is
 // 0).  A null cotangent is zero; g_out4 is 16-byte aligned; g_x, g_y,
-// g_ax, g_ay are all null or all written.
+// g_ax, g_ay are all null or all written.  live_count, if not null, is set
+// to the count of live candidates (one int, zeroed here by a memset).
 extern "C" int pota_po_forward_vjp(const float* x, const float* y,
                                    const float* dx, const float* dy,
                                    const float* g_out4, const float* g_trans,
@@ -468,13 +471,19 @@ extern "C" int pota_po_forward_vjp(const float* x, const float* y,
                                    const double* lam_pow, float* g_pt,
                                    int t_pt, float* g_ap, int t_ap,
                                    float* g_x, float* g_y, float* g_ax,
-                                   float* g_ay, cudaStream_t stream) {
+                                   float* g_ay, int* live_count,
+                                   cudaStream_t stream) {
   if (blocks != pota_po_forward_vjp_blocks(n))
     return (int)cudaErrorInvalidValue;
+  if (live_count) {
+    const cudaError_t err =
+        cudaMemsetAsync(live_count, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (n > 0) {
     pota::po_forward_vjp_kernel<<<blocks, pota::vjp::kThreads, 0, stream>>>(
         x, y, dx, dy, g_out4, g_trans, g_dx, g_dy, n, table, sensor_shift,
-        queue, partials, g_x, g_y, g_ax, g_ay);
+        queue, partials, g_x, g_y, g_ax, g_ay, live_count);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -54,7 +54,7 @@ SIGNATURES = {
     "pota_tl_splat_blocks_per_sm": [_i],
     "pota_po_backward": [_p] * 6 + [_i, _p, _i, _p, _i, _i] + [_p] * 6,
     "pota_po_forward_vjp": [_p] * 8 + [_i, _p, _f, _p, _p, _i, _p, _p, _p,
-                                       _i, _p, _i] + [_p] * 5,
+                                       _i, _p, _i] + [_p] * 6,
     "pota_po_forward_vjp_blocks": [_i],
     "pota_po_forward_vjp_blocks_per_sm": [],
     "pota_po_forward_jvp": [_p] * 4 + [_i, _p, _f, _f, _i] + [_p] * 6,

@@ -63,6 +63,8 @@ from ..optics.polynomial import (
 )
 from ..optics.thinlens import image_dist_focusdist
 from ..utils import rng as prng
+from ..utils import trace
+from ..utils.trace import span
 from . import _build
 
 # ---------------------------------------------------------------- table rows
@@ -96,6 +98,7 @@ def splat_kernel_params(cfg, rc, po_state, cam_to_world) -> torch.Tensor:
         ap_radius, shift = po_state.aperture_radius, po_state.sensor_shift
     else:
         ap_radius = shift = 0.0
+    trace.host_write(m.device)
     tail = torch.tensor([
         rc.xres, rc.yres, rc.region_min_x, rc.region_min_y,
         rc.xres_region, rc.yres_region,
@@ -147,10 +150,12 @@ def _stream(device) -> int:
 def _check_shared_conditioning(lens: PolyLens) -> None:
     """The folded tables condition every variable with one set of scales
     and shifts, so pt and ap must share it."""
-    if not (torch.equal(lens.pt.in_scale, lens.ap.in_scale)
-            and torch.equal(lens.pt.in_shift, lens.ap.in_shift)):
-        raise ValueError(f"lens {lens.name!r}: pt and ap must share their "
-                         "input conditioning for the kernels")
+    for a, b in ((lens.pt.in_scale, lens.ap.in_scale),
+                 (lens.pt.in_shift, lens.ap.in_shift)):
+        trace.host_read(a)
+        if not torch.equal(a, b):
+            raise ValueError(f"lens {lens.name!r}: pt and ap must share "
+                             "their input conditioning for the kernels")
 
 
 # the most folded solve tables K3b and K6 take at once: one wavelength a
@@ -190,6 +195,7 @@ def expand_plain(src, table_f, table_i):
     return table_f[:, idx], table_i[:, idx]
 
 
+@span("pota.k2")
 def expand(src, table_f, table_i):
     """K2 wrapper.  ``src`` int32 [S] indexes the columns of ``table_f`` f32
     [Rf, N] and ``table_i`` int32 [Ri, N]; returns ([Rf, S], [Ri, S])."""
@@ -238,6 +244,7 @@ class ExpandFn(torch.autograd.Function):
         return ex_f, ex_i
 
     @staticmethod
+    @span("pota.expand.vjp")
     def backward(ctx, d_ex_f, _d_ex_i):
         src, slot_on = ctx.saved_tensors
         n = ctx.n_src
@@ -365,6 +372,7 @@ def _splat_lens_consts(lens: PolyLens, device) -> torch.Tensor:
     """[8] f32 lens constants of the splat kernel, formed in double on the
     host as the TPU kernel's baked immediates were."""
     R = lens.outer_pupil_curvature_radius
+    trace.host_write(device)
     return torch.tensor([
         R, R * R, abs(R), lens.outer_pupil_radius ** 2,
         lens.back_focal_length + lens.lens_length, lens.back_focal_length,
@@ -409,6 +417,7 @@ FOLD_TABLE_FLOATS = _BLOCK_OFF[-1] + FOLD_HIGH_STRIDE   # the last is x^5
 def _basis_positions(lens: PolyLens, fn) -> list:
     """Each term's index in :data:`BASIS` by its exponents of (x, y, dx,
     dy), read to the host; ``ValueError`` for a term outside the basis."""
+    trace.host_read(fn.exponents)
     pos = [_BASIS_POS.get(tuple(e[:4])) for e in fn.exponents.cpu().tolist()]
     if None in pos:
         raise ValueError(
@@ -434,7 +443,9 @@ def _fold_rows(lens: PolyLens, fn, n_rows: int, ul) -> torch.Tensor:
     :data:`BASIS` by the term's own exponents: float64 [n_rows, 126] on
     ``ul``'s device."""
     dev = ul.device
-    pos = torch.tensor(_basis_positions(lens, fn), device=dev)
+    pos = _basis_positions(lens, fn)
+    trace.host_write(dev)
+    pos = torch.tensor(pos, device=dev)
     lam_pow = ul ** fn.exponents[:, 4].to(dev, torch.float64)
     rows = fn.coeffs[:n_rows].to(dev, torch.float64) * lam_pow
     return torch.zeros((n_rows, len(BASIS)), dtype=torch.float64,
@@ -458,6 +469,8 @@ def fold_solve_tables(lens: PolyLens, lam_um: float, device) -> torch.Tensor:
     folded = torch.cat([_fold_rows(lens, lens.ap, 2, ul),
                         _fold_rows(lens, lens.pt, 5, ul)])
     f64 = dict(device=dev, dtype=torch.float64)
+    # the six index tables below, each copied to the device
+    trace.host_write(dev, 6)
     slots = torch.tensor(FOLD_SLOTS, device=dev)
     vals = torch.zeros((len(BASIS), 8), **f64)
     vals[:, slots] = folded.T
@@ -544,6 +557,20 @@ def _fold_cache(lens: PolyLens) -> dict:
     return hit[1]
 
 
+def _cached(lens: PolyLens, key: tuple, make):
+    """The value under ``key`` in the lens's fold cache (looked up through
+    the module's :func:`_fold_cache`), made by ``make()`` without a graph
+    where the cache lacks it.  ``key[0]`` names the look-up (``basis``,
+    ``forward``, ``solve``, ``unfold``, ``forward_vjp``); a miss runs in a
+    ``pota.fold`` span and counts in the counter ``folds.<key[0]>``."""
+    cache = _fold_cache(lens)
+    if key not in cache:
+        trace.count(f"folds.{key[0]}")
+        with span("pota.fold"), torch.no_grad():
+            cache[key] = make()
+    return cache[key]
+
+
 def _folded_table(lens: PolyLens, kind: str, lams, device,
                   on_fold=None) -> torch.Tensor:
     """The ``kind`` tables of ``lens`` (``"solve"``:
@@ -556,15 +583,13 @@ def _folded_table(lens: PolyLens, kind: str, lams, device,
     update of coefficients that require grad (a gradient step under
     ``no_grad``) bumps their version, so the next frame folds again.
     ``on_fold``, if given, runs before a fold."""
-    cache = _fold_cache(lens)
     key = (kind, tuple(float(lam) for lam in lams), str(device))
-    if key not in cache:
+
+    def fold():
         if on_fold is not None:
             on_fold()
-        with torch.no_grad():
-            cache[key] = torch.cat([_FOLDS[kind](lens, lam, device)
-                                    for lam in key[1]])
-    return cache[key]
+        return torch.cat([_FOLDS[kind](lens, lam, device) for lam in key[1]])
+    return _cached(lens, key, fold)
 
 
 def check_basis(lens: PolyLens) -> None:
@@ -572,11 +597,11 @@ def check_basis(lens: PolyLens) -> None:
     fit's ``ap`` and ``pt`` is a monomial of :data:`BASIS` in (x, y, dx,
     dy): the fits the card's PO kernels K1, K3, K3b and K6 take.
     Reads the exponents to the host once per lens and buffer version."""
-    cache = _fold_cache(lens)
-    if "basis" not in cache:
+    def check():
         for fn in (lens.ap, lens.pt):
             _basis_positions(lens, fn)
-        cache["basis"] = True
+        return True
+    _cached(lens, ("basis",), check)
 
 
 # ------------------------------------------------------- K1: PO forward trace
@@ -707,6 +732,7 @@ def po_forward_plain(lens: PolyLens, x, y, ax, ay, lam_um: float,
     return out4, torch.clamp(trans, min=0.0), dx, dy
 
 
+@span("pota.k1")
 def po_forward(lens: PolyLens, x, y, ax, ay, lam_um: float,
                sensor_shift: float, iterations: int = 3):
     """K1 wrapper: plain version on the CPU, the CUDA kernel on the card.
@@ -806,15 +832,16 @@ def _unfold_index(lens: PolyLens, lam_um: float, device) -> list:
     conditioned wavelength power ``ul ** e_4`` (float64), on ``device``;
     kept in the lens's fold cache, so a backward pass reads nothing from
     the card after the first."""
-    cache = _fold_cache(lens)
-    key = ("unfold", float(lam_um), str(device))
-    if key not in cache:
+    def index():
         _, _, ul = _fold_conditioning(lens, lam_um, device)
-        cache[key] = [
-            (torch.tensor(_basis_positions(lens, fn), device=device),
-             ul ** fn.exponents[:, 4].to(device, torch.float64))
-            for fn in (lens.pt, lens.ap)]
-    return cache[key]
+        out = []
+        for fn in (lens.pt, lens.ap):
+            pos = _basis_positions(lens, fn)
+            trace.host_write(device)
+            out.append((torch.tensor(pos, device=device),
+                        ul ** fn.exponents[:, 4].to(device, torch.float64)))
+        return out
+    return _cached(lens, ("unfold", float(lam_um), str(device)), index)
 
 
 def unfold_forward_grads(lens: PolyLens, G_ap, G_pt, lam_um: float):
@@ -848,6 +875,7 @@ def _unfold_table(lens: PolyLens, lam_um: float, device) -> tuple:
     beside K1's table."""
     starts, terms, pows = [], [], []
     for pos, lam_pow in _unfold_index(lens, lam_um, device):
+        trace.host_read(pos)
         pos = pos.tolist()
         counts = [0] * len(BASIS)
         for p in pos:
@@ -856,8 +884,18 @@ def _unfold_table(lens: PolyLens, lam_um: float, device) -> tuple:
                    itertools.accumulate(counts, initial=0)]
         terms += sorted(range(len(pos)), key=lambda t: (pos[t], t))
         pows.append(lam_pow)
+    trace.host_write(device)
     return (torch.tensor(starts + terms, dtype=torch.int32, device=device),
             torch.cat(pows))
+
+
+def _vjp_tables(lens: PolyLens, lam_um: float, device) -> tuple:
+    """K1v's tables at ``lam_um`` (um) on ``device``: K1's folded table
+    (:func:`fold_forward_tables`) and :func:`_unfold_table`'s index and
+    powers, one look into the lens's fold cache a launch."""
+    return _cached(lens, ("forward_vjp", float(lam_um), str(device)),
+                   lambda: (_folded_table(lens, "forward", (lam_um,), device),
+                            *_unfold_table(lens, lam_um, device)))
 
 
 # K1v's scratch per (device, stream): the queue of live candidates [>= M]
@@ -879,6 +917,7 @@ def _vjp_scratch(device, stream: int, m: int, blocks: int) -> tuple:
     return queue, partials
 
 
+@span("pota.k1v")
 def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
                    g_dx, g_dy, lam_um: float, sensor_shift: float,
                    need_inputs: bool = False):
@@ -923,13 +962,7 @@ def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
                          f"({FWD_PT_ROWS}, {FWD_AP_ROWS})")
     if g_out4 is not None and g_out4.data_ptr() % 16:
         raise ValueError("g_out4: must be 16-byte aligned")
-    # one look into the lens's cache a launch: K1's table and the unfold's
-    cache = _fold_cache(lens)
-    key = ("forward_vjp", float(lam_um), str(dev))
-    if key not in cache:
-        cache[key] = (_folded_table(lens, "forward", (lam_um,), dev),
-                      *_unfold_table(lens, lam_um, dev))
-    table, index, lam_pow = cache[key]
+    table, index, lam_pow = _vjp_tables(lens, lam_um, dev)
     lib = _build.lib()
     blocks = lib.pota_po_forward_vjp_blocks(m)
     g_pt, g_ap = (torch.empty(c.shape, dtype=torch.float32, device=dev)
@@ -938,6 +971,9 @@ def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
              for _ in range(4)] if need_inputs else [])
     stream = _stream(dev)
     queue, partials = _vjp_scratch(dev, stream, m, blocks)
+    # the live candidates' count, made only while a profiler records
+    live = (torch.empty((1,), dtype=torch.int32, device=dev)
+            if trace.recording() else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.pota_po_forward_vjp(
         x.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.data_ptr(),
@@ -946,9 +982,12 @@ def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
         partials.data_ptr(), blocks, index.data_ptr(),
         lam_pow.data_ptr(), g_pt.data_ptr(), g_pt.shape[1],
         g_ap.data_ptr(), g_ap.shape[1],
-        *(ptr(t) for t in (g_in or [None] * 4)), stream)
+        *(ptr(t) for t in (g_in or [None] * 4)), ptr(live), stream)
     _build.check(err, "po_forward_vjp")
     _build.LAUNCHES["po_forward_vjp"] += 1
+    if live is not None:
+        trace.count("k1v.candidates", m)
+        trace.count("k1v.live", live)
     return (g_pt, g_ap, *g_in)
 
 
@@ -1009,6 +1048,7 @@ def po_forward_jvp_plain(lens: PolyLens, x, y, ax, ay, lam_um: float,
     return out4, trans, dx, dy, torch.stack(cols, -1)
 
 
+@span("pota.k1j")
 def po_forward_jvp(lens: PolyLens, x, y, ax, ay, lam_um: float,
                    sensor_shift: float, iterations: int = 3):
     """K1j wrapper: :func:`po_forward_jvp_plain` on the CPU, the CUDA
@@ -1134,6 +1174,7 @@ def _launch_po_splat(name, lens, slots, lam_idx, tables, n_tables, params,
     return lin, ok
 
 
+@span("pota.k3")
 def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
              params, spheres, lam_um: float, iterations: int = 3):
     """K3 wrapper.  Per-slot inputs are f32 [S] (camera-space point, world
@@ -1151,6 +1192,7 @@ def po_splat(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky,
 
     def check_lambda():
         lam_f32 = torch.tensor(float(lam_um), dtype=torch.float32).item()
+        trace.host_read(params)
         if float(params[SP_LAMBDA]) != lam_f32:
             raise ValueError(
                 f"lam_um {lam_um} is not the wavelength of params "
@@ -1182,6 +1224,7 @@ def _po_splat_k3b(name, plain, lens, slots, lams, lam_idx, params, spheres,
                             len(lams), params, spheres, iterations)
 
 
+@span("pota.k3b")
 def po_splat_lam(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
                  lams, lam_idx, sky, params, spheres, iterations: int = 3):
     """K3b ``lam_input`` wrapper (the chromatic splat): as :func:`po_splat`,
@@ -1195,6 +1238,7 @@ def po_splat_lam(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr,
         params, spheres, iterations)
 
 
+@span("pota.k3b")
 def po_splat_ext(lens: PolyLens, pcx, pcy, pcz, pwx, pwy, pwz, ax, ay, lams,
                  lam_idx, sky, params, spheres, iterations: int = 3):
     """K3b external-aperture wrapper (image bokeh, blade apertures): the
@@ -1224,6 +1268,7 @@ def po_backward_plain(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
     return (*(sensor5[..., k].contiguous() for k in range(4)), trans)
 
 
+@span("pota.k6")
 def po_backward(lens: PolyLens, px, py, pz, ax, ay, lams, lam_idx,
                 iterations: int = 3):
     """K6 wrapper: the PO backward solve of JAX's decomposed splat branch
@@ -1326,6 +1371,7 @@ def tl_splat_plain(pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params,
     return lin, ok
 
 
+@span("pota.k5")
 def tl_splat(pcx, pcy, pcz, pwx, pwy, pwz, seed, ctr, sky, params, spheres,
              abb_spherical: float = 0.5, circle_to_square: float = 0.01):
     """K5 wrapper.  Per-slot inputs as :func:`po_splat` takes them;

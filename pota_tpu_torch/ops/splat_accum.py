@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 from .po_kernels import _check, _refuse_grad, _stream
 
@@ -36,6 +37,7 @@ def writer_keys(pix, depth):
     return (pix.to(torch.int64) << 32) | bits.to(torch.int64)
 
 
+@span("pota.splat.sort")
 def sort_writers(pix, depth):
     """The shared stable (pixel, depth) sort.  Returns (sorted keys, perm)."""
     return torch.sort(writer_keys(pix, depth), stable=True)
@@ -66,6 +68,7 @@ def segment_accum_plain(keys_sorted, perm, payload, sample_id, npix: int):
     return acc[:npix], winner_depth, winner_sample, has_winner
 
 
+@span("pota.k4")
 def segment_accum(keys_sorted, perm, payload, sample_id, npix: int):
     """K4 wrapper.  ``keys_sorted`` int64 [W] (from :func:`sort_writers`),
     ``perm`` int64 [W], ``payload`` f32 [W, K] and ``sample_id`` int32 [W]
@@ -129,6 +132,7 @@ class AccumFn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @span("pota.accum.vjp")
     def backward(ctx, d_accum, *_):
         (pix,) = ctx.saved_tensors
         live = pix < ctx.npix
@@ -137,6 +141,7 @@ class AccumFn(torch.autograd.Function):
                 None, None)
 
 
+@span("pota.splat.accum")
 def accumulate_sorted(pix, depth, payload, sample_id, npix: int, ops=None):
     """Segment sum + closest winner over a writer stream (the counterpart of
     ``pota_tpu.ops.splat_accum.accumulate_sorted``).

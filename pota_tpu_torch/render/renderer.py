@@ -20,6 +20,7 @@ from ..config import (
     require_port_configs,
 )
 from ..optics import thinlens
+from ..utils.trace import span
 from . import sampling
 
 
@@ -65,6 +66,7 @@ def _transform_rays_mb(m_per_sample, origins, dirs):
     return o, _unit(torch.einsum("nij,nj->ni", rot, dirs))
 
 
+@span("pota.trace")
 def trace_camera_rays(cfg: CameraConfig, samples: dict, po_lens=None,
                       po_state=None, ops=None, bokeh_cdf=None,
                       differentiable: bool = False):
@@ -182,13 +184,16 @@ def _trace_chunked(cfg: CameraConfig, samples: dict, n_chunks: int,
     keys = ("sx", "sy", "r1", "r2", "key")
 
     def trace(*cols):
-        return trace_camera_rays(cfg, dict(zip(keys, cols)), **kw)
+        # also around the chunk's recompute, inside the backward pass
+        with span("pota.trace.chunk"):
+            return trace_camera_rays(cfg, dict(zip(keys, cols)), **kw)
 
     parts = [checkpoint(trace, *cols, use_reentrant=False)
              for cols in zip(*(samples[k].chunk(n_chunks) for k in keys))]
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+@span("pota.sample_stream")
 def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
                          cam_to_world, seed: int = 0, po_lens=None,
                          po_state=None, ops=None, bokeh_cdf=None,
@@ -219,7 +224,8 @@ def render_sample_stream(cfg: CameraConfig, rc: RenderConfig, scene,
         origin_ws, dir_ws = _transform_rays_mb(m, origin_cs, dir_cs)
     else:
         origin_ws, dir_ws = _transform_rays(cam_to_world, origin_cs, dir_cs)
-    shaded = scene.shade(origin_ws, dir_ws)
+    with span("pota.shade"):
+        shaded = scene.shade(origin_ws, dir_ws)
     stream = {
         **samples,
         "rgba": shaded["rgba"] * weight[:, None],
@@ -290,6 +296,7 @@ def render_frame_simple(cfg: CameraConfig, rc: RenderConfig, scene,
         return resolve_gaussian(rc, stream)
 
 
+@span("pota.frame")
 def render_frame(cfg: CameraConfig, rc: RenderConfig, scene, cam_to_world,
                  seed: int = 0, po_lens=None, po_state=None, bokeh_cdf=None,
                  cam_to_world_end=None, differentiable: bool = False,

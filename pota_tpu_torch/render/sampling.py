@@ -8,6 +8,7 @@ from .. import resolve_device
 from ..config import RenderConfig
 
 from ..utils import rng as prng
+from ..utils.trace import span
 
 
 def screen_coords(rc: RenderConfig, px, py, jx, jy):
@@ -24,6 +25,7 @@ def pixel_to_linear(rc: RenderConfig, px, py):
     return py * rc.xres + px
 
 
+@span("pota.samples")
 def frame_samples(rc: RenderConfig, seed: int, device=None) -> dict:
     """The frame's sample coordinates, flattened to N = H_region * W_region
     * spp, on ``device`` (default: the card).  Integer fields (px, py, sid,

@@ -36,6 +36,8 @@ from ..optics.polynomial import inner_pupil_ok
 from ..ops import po_kernels as pk
 from ..ops.splat_accum import accumulate_sorted
 from ..utils import rng as prng
+from ..utils import trace
+from ..utils.trace import span
 from .aov import CLOSEST, DEFAULT_AOVS, GAUSSIAN, aov_value_rgba
 from .bokeh_image import bokeh_sample_alias
 from .renderer import check_supported, interp_camera_matrix
@@ -66,6 +68,7 @@ def _luminance(rgb):
     return (rgb[..., 0] + rgb[..., 1] + rgb[..., 2]) / 3.0
 
 
+@span("pota.splat.gates")
 def compute_gates_and_budget(cfg: CameraConfig, rc: RenderConfig, stream,
                              cam_space_pos, po_lens=None, po_state=None):
     """The redistribute-or-not gate chain and the per-sample backward budget
@@ -147,6 +150,8 @@ def _slot_sources(starts, marked, queue_size: int, n: int):
     inside the queue, then a prefix sum."""
     marks = torch.zeros((queue_size,), dtype=torch.int64, device=starts.device)
     claim = marked & (starts < queue_size)
+    # each boolean index reads the count of its True entries
+    trace.host_read(claim, 2)
     marks.index_add_(0, starts[claim], torch.ones_like(starts[claim]))
     return torch.clamp(torch.cumsum(marks, 0) - 1, 0, n - 1)
 
@@ -168,6 +173,7 @@ def splat_queue(budget, redistribute, rays_per_count: int, queue_size: int):
     return src, lane, slot_on, slots
 
 
+@span("pota.splat.queue")
 def splat_queue_compact(budget, redistribute, queue_size: int,
                         rays_per_count: int = 1):
     """Slot -> compact source mapping of the splat queue.
@@ -182,6 +188,7 @@ def splat_queue_compact(budget, redistribute, queue_size: int,
     return src, slot_on, slots
 
 
+@span("pota.splat.source_table")
 def _source_table(stream, p_cam_safe, p_ws, sky, slot_vals, depth, starts,
                   has, time=None):
     """The compact source table: one column per slot-owning sample (in
@@ -206,6 +213,7 @@ def _source_table(stream, p_cam_safe, p_ws, sky, slot_vals, depth, starts,
     return cols_f[:, order].contiguous(), cols_i[:, order].contiguous()
 
 
+@span("pota.splat.camera_space")
 def _camera_space(cfg: CameraConfig, stream, cam_to_world, cam_to_world_end):
     """Camera-space positions (unit-scaled) of the samples, their world
     positions with the skydome synthesised, and the sky mask.  With
@@ -288,6 +296,7 @@ def _po_aperture(cfg: CameraConfig, po_state, seeds, counter,
     return unit_disk * po_state.aperture_radius
 
 
+@span("pota.splat.project")
 def po_backward_project(cfg: CameraConfig, rc: RenderConfig, lens, po_state,
                         p_cam, seeds, counter, channel=None, bokeh_cdf=None,
                         ops=None):
@@ -332,6 +341,7 @@ def _unit(v):
     return v / torch.sqrt(torch.sum(v * v, -1, keepdim=True))
 
 
+@span("pota.splat.project")
 def thinlens_backward_project(cfg: CameraConfig, rc: RenderConfig, p_cam,
                               seeds, k_idx, bokeh_cdf=None):
     """One backward thin-lens sample per slot: scene point -> pixel, with
@@ -412,6 +422,7 @@ def thinlens_backward_project(cfg: CameraConfig, rc: RenderConfig, p_cam,
             "rgb_weight": rgb_weight, "ov_ok": ov_ok}
 
 
+@span("pota.splat.occlusion")
 def _occluded_through_camera(scene, p_ws_q, lens_cs, sky_q, cam_to_world,
                              cam_to_world_end=None, time_q=None):
     """The decomposed branch's occlusion probe (``splat.py:979-999``): from
@@ -436,6 +447,7 @@ def _occluded_through_camera(scene, p_ws_q, lens_cs, sky_q, cam_to_world,
     return occ & (sky_q < 0.5)
 
 
+@span("pota.splat")
 def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
                 cam_to_world, po_lens=None, po_state=None, aovs=None,
                 bokeh_cdf=None, n_crypto_ids: int = 0,
@@ -521,6 +533,7 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
     with torch.no_grad():
         # gated-out samples can hold degenerate positions: give their
         # (unused) table columns a benign point
+        trace.host_write(dev)
         p_cam_safe = torch.where(
             redistribute[:, None], p_cam,
             torch.tensor([0.0, 0.0, -100.0], dtype=p_cam.dtype, device=dev))
@@ -531,6 +544,9 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
         depth_src = torch.abs(stream["z"])
         offs = torch.cumsum(granted, 0)
         starts = offs - granted
+        trace.count("splat.queue_slots", s_cap)
+        trace.count("splat.issued_slots", offs[-1], most=s_cap)
+    trace.host_write(dev)
     slot_vals = stream["rgba"] + add_energy[:, None] * torch.tensor(
         [1.0, 1.0, 1.0, 0.0], dtype=dtype, device=dev)
     table_f, table_i = _source_table(
@@ -637,8 +653,10 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
         valid = slot_on & ok
         oid = ex_i[pk.TI_SID].to(torch.int64)
 
-        # ---- per-source success counts (slots are source-contiguous) --------
+    # ---- per-source success counts (slots are source-contiguous) --------
+    with torch.no_grad(), span("pota.splat.weights"):
         csum_valid = torch.cumsum(valid.to(torch.int64), 0)
+        trace.count("splat.valid_splats", csum_valid[-1])
         end_i = torch.clamp(offs, 0, s_cap) - 1
         start_i = torch.clamp(starts, 0, s_cap) - 1
 
@@ -670,27 +688,29 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
             "time": stream.get("time", torch.zeros_like(depth_src)),
         }
     # ---- payload: every gaussian AOV (splat.py:1071-1092, 1200-1227) ---
-    gauss_specs = [s for s in aovs if s.filter == GAUSSIAN]
-    cols = []
-    for spec in gauss_specs:
-        values = aov_value_rgba(stream, spec)
-        if spec.name == "RGBA":
-            # the expanded rows carry the slot rgba with the additional
-            # energy folded in; the chromatic channel weight rides rgb
-            k_rgb = [ex_f[pk.TF_R], ex_f[pk.TF_G], ex_f[pk.TF_B]]
-            if rgb_weight is not None:
-                k_rgb = [k * rgb_weight[:, c] for c, k in enumerate(k_rgb)]
-            k_all = k_rgb + [ex_f[pk.TF_A]]
-            cols += [torch.cat([k_all[c] * w_slot, values[:, c] * w_src])
-                     for c in range(4)]
-            cols.append(torch.cat([w_slot, w_src]))
-        else:
-            slot_v = values[oid]
-            cols += [torch.cat([slot_v[:, c] * w_slot, values[:, c] * w_src])
-                     for c in range(4)]
-    if not cols:  # closest-only AOV list: one empty payload column
-        cols = [torch.zeros((s_cap + n,), dtype=dtype, device=dev)]
-    payload = torch.stack(cols, 1)
+    with span("pota.splat.payload"):
+        gauss_specs = [s for s in aovs if s.filter == GAUSSIAN]
+        cols = []
+        for spec in gauss_specs:
+            values = aov_value_rgba(stream, spec)
+            if spec.name == "RGBA":
+                # the expanded rows carry the slot rgba with the additional
+                # energy folded in; the chromatic channel weight rides rgb
+                k_rgb = [ex_f[pk.TF_R], ex_f[pk.TF_G], ex_f[pk.TF_B]]
+                if rgb_weight is not None:
+                    k_rgb = [k * rgb_weight[:, c]
+                             for c, k in enumerate(k_rgb)]
+                k_all = k_rgb + [ex_f[pk.TF_A]]
+                cols += [torch.cat([k_all[c] * w_slot, values[:, c] * w_src])
+                         for c in range(4)]
+                cols.append(torch.cat([w_slot, w_src]))
+            else:
+                slot_v = values[oid]
+                cols += [torch.cat([slot_v[:, c] * w_slot,
+                                    values[:, c] * w_src]) for c in range(4)]
+        if not cols:  # closest-only AOV list: one empty payload column
+            cols = [torch.zeros((s_cap + n,), dtype=dtype, device=dev)]
+        payload = torch.stack(cols, 1)
 
     # ---- sort + segment accumulate (K4) ---------------------------------
     accum, winner_depth, winner_sample, has_winner = accumulate_sorted(
@@ -781,12 +801,14 @@ def resolve_crypto(fb: dict, ranks: int = 3, id_hashes=None) -> list:
     return [layer.reshape(h, w, 4) for layer in layers]
 
 
+@span("pota.resolve")
 def resolve_imager(rc: RenderConfig, fb: dict) -> torch.Tensor:
     """Beauty resolve: RGBA normalized by the accumulated filter weight
     (ref src/lentil_imager.cpp:169-179)."""
     return fb["RGBA"] / torch.clamp(fb["filter_weight"], min=1e-12)[..., None]
 
 
+@span("pota.resolve")
 def resolve_aovs(rc: RenderConfig, fb: dict, aovs=None) -> dict:
     """Resolve every AOV plane: gaussian-class divide by the filter weight;
     closest-class pass through (ref src/lentil_imager.cpp:164-186)."""

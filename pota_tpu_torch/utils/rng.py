@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from . import trace
+
 MASK32 = 0xFFFFFFFF
 _TEA_DELTA = 0x9E3779B9
 _LCG_MUL = 1664525
@@ -18,6 +20,8 @@ _LCG_ADD = 1013904223
 
 def as_u32(value, device=None) -> torch.Tensor:
     """A uint32 word (or tensor of words) as an int64 tensor in [0, 2**32)."""
+    if device is not None and not isinstance(value, torch.Tensor):
+        trace.host_write(device)
     t = torch.as_tensor(value, device=device)
     return t.to(torch.int64) & MASK32
 

@@ -27,9 +27,9 @@ spp, ``render_frame(differentiable=True)``, the mean-RGB loss and
 ``loss.backward()``, whose kernels are also charged to the step's forward
 and backward halves (the kernels launched inside ``loss.backward()``:
 the checkpointed trace's recompute, its VJPs (K1v), the shade's, K4's
-and K2's; the backward is also split by part, the splat's and shade's
-VJPs, the recomputes and the trace's VJPs, and by autograd node:
-:func:`backward_parts`); ``grad_mb_1080p``,
+and K2's; the backward is also split by the port's span that launched
+each kernel, the recompute, K1v, K2's and K4's VJPs and autograd's own
+nodes, and by autograd node: :func:`backward_parts`); ``grad_mb_1080p``,
 ``grad_aovs_1080p`` and ``grad_config1`` the differentiable routes'
 steps of chip_smoke.py's :func:`grad_paths`, split the same way.  For each
 cell it
@@ -41,11 +41,11 @@ tl_splat / K6 po_backward, K4 segment_accum's tile and carry kernels)
 and at the first radix-sort kernel after the splat: device busy ms, wall
 span ms and kernel count per stage, and the device's idle share of the
 frame's kernel span.  It then charges each kernel to the innermost of the
-port's functions (:data:`FUNCTIONS`, wrapped in ``record_function`` ranges
-by this script only) whose range holds the kernel's launch, and prints
-the device busy ms per function, and the registers, launch shape and the
-profiler's occupancy estimate of the port's own kernels.  The traces go to
-``chiprun_out/``.
+port's own ``pota.*`` spans (``pota_tpu_torch/utils/trace.py``) whose range
+holds the kernel's launch, and each idle gap to the innermost span open
+where it begins, and prints the device busy ms and idle ms per span, and
+the registers, launch shape and the profiler's occupancy estimate of the
+port's own kernels.  The traces go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
@@ -71,102 +71,81 @@ OWN = (("po_forward_kernel", "K1 po_forward"),
        ("segment_carry_kernel", "K4 segment_accum carries"))
 # the differentiable routes' steps (chip_smoke.py's grad_paths)
 GRAD_CELLS = ("grad_mb_1080p", "grad_aovs_1080p", "grad_config1")
-# the port's functions whose device time is reported, innermost first
-# when ranges nest: (module, function)
-FUNCTIONS = (
-    ("render.renderer", "render_sample_stream"),
-    ("render.splat", "splat_frame"),
-    ("render.splat", "_camera_space"),
-    ("render.splat", "compute_gates_and_budget"),
-    ("render.splat", "splat_queue_compact"),
-    ("render.splat", "_source_table"),
-    ("render.splat", "po_backward_project"),
-    ("render.splat", "thinlens_backward_project"),
-    ("render.splat", "_occluded_through_camera"),
-    ("render.splat", "accumulate_sorted"),
-    ("render.splat", "resolve_aovs"),
-    ("render.renderer", "trace_camera_rays"),
-    ("render.splat", "id_matte_records"),
-    ("render.crypto", "crypto_topk"),
-    ("render.splat", "resolve_crypto"),
-)
+# the port's own spans (pota_tpu_torch/utils/trace.py) and this script's
+# halves of a step
+PREFIX = "pota."
+HALVES = ("forward", "loss.backward")
 
 
-def annotate_functions():
-    """Wrap each of :data:`FUNCTIONS` in a ``record_function`` range named
-    after it (module globals, so the callers in the package see the
-    wrappers).  Returns a function that puts the originals back."""
-    import functools
-    import importlib
-
-    import torch
-
-    originals = []
-    for mod_name, fn_name in FUNCTIONS:
-        mod = importlib.import_module(f"pota_tpu_torch.{mod_name}")
-        fn = getattr(mod, fn_name)
-        originals.append((mod, fn_name, fn))
-
-        def wrapped(*a, _fn=fn, _name=fn_name, **k):
-            with torch.profiler.record_function(_name):
-                return _fn(*a, **k)
-
-        setattr(mod, fn_name, functools.wraps(fn)(wrapped))
-
-    def restore():
-        for mod, fn_name, fn in originals:
-            setattr(mod, fn_name, fn)
-    return restore
+def _ranges(events, keep):
+    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+            for e in events if e.get("cat") == "user_annotation"
+            and keep(e["name"])]
 
 
-def function_busy(events, exclude=()):
-    """Device busy ms per annotated function: each kernel goes to the
-    innermost ``record_function`` range holding its launch call (ranges
-    named in ``exclude`` are not counted as functions)."""
-    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-              for e in events if e.get("cat") == "user_annotation"
-              and e["name"] not in exclude]
-    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
-                 if e.get("cat") == "cuda_runtime"
-                 and "correlation" in e.get("args", {})}
+def _launch_ts(events):
+    return {e["args"]["correlation"]: float(e["ts"]) for e in events
+            if e.get("cat") == "cuda_runtime"
+            and "correlation" in e.get("args", {})}
+
+
+def _innermost(ranges, t, outside):
+    inside = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
+    return min(inside, key=lambda r: r[1] - r[0])[2] if inside else outside
+
+
+def span_busy(events, keep=lambda n: n.startswith(PREFIX),
+              outside="(outside the port's spans)"):
+    """Device busy ms and kernels per range: each kernel goes to the
+    innermost range that ``keep`` accepts (by default the port's ``pota.*``
+    spans) holding its launch call."""
+    ranges = _ranges(events, keep)
+    launch_ts = _launch_ts(events)
     busy = {}
     for e in events:
         if e.get("cat") != "kernel":
             continue
         t = launch_ts.get(e["args"].get("correlation"))
-        inside = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
-        name = (min(inside, key=lambda r: r[1] - r[0])[2] if inside
-                else "(outside the named functions)")
+        name = _innermost(ranges, t, outside)
         n, ms = busy.get(name, (0, 0.0))
         busy[name] = (n + 1, ms + float(e["dur"]) / 1e3)
     return busy
 
 
+def span_idle(events):
+    """Device idle ms of the frame's kernel span by the innermost
+    ``pota.*`` span open on the host where each gap begins."""
+    ranges = _ranges(events, lambda n: n.startswith(PREFIX))
+    ops = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                     "gpu_memset"))
+    gaps, end = {}, None
+    for a, b in ops:
+        if end is not None and a > end:
+            name = _innermost(ranges, end, "(outside the port's spans)")
+            gaps[name] = gaps.get(name, 0.0) + (a - end) / 1e3
+        end = b if end is None else max(end, b)
+    return gaps
+
+
 def backward_parts(events):
-    """Device busy ms of a step's ``loss.backward`` by part, in the order
-    the autograd engine runs them: the kernels launched before the first
-    recompute of a checkpointed trace chunk (the splat's and the shade's
-    VJPs: the trace's nodes were created first, so they run last), the
-    recomputes (``trace_camera_rays`` ranges inside the backward), and
-    the kernels launched after the first recompute outside them (the
-    trace's VJPs); then the autograd nodes that launched the most device
-    time.  Returns ([(part, kernels, ms)], [(node, kernels, ms)])."""
-    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-             for e in events if e.get("cat") == "user_annotation"]
-    back = [r for r in spans if r[2] == "loss.backward"]
+    """Device busy ms of a step's ``loss.backward`` by the port's span that
+    launched it: the trace chunks' recompute (``pota.trace.chunk``), K1v
+    (``pota.k1v``), K2's and K4's VJPs (``pota.expand.vjp``,
+    ``pota.accum.vjp``), and autograd's own nodes outside every span; then
+    the autograd nodes that launched the most device time.  Returns
+    ([(part, kernels, ms)], [(node, kernels, ms)])."""
+    back = _ranges(events, lambda n: n == "loss.backward")
     if not back:
         return [], []
     b0, b1 = back[0][:2]
-    recompute = [r for r in spans if r[2] == "trace_camera_rays"
-                 and b0 <= r[0] <= b1]
-    first = min((r[0] for r in recompute), default=b1)
+    ours = _ranges(events, lambda n: n.startswith(PREFIX))
+    chunks = [r for r in ours if r[2] == "pota.trace.chunk"]
     nodes = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
               e["name"].split(": ", 1)[-1]) for e in events
              if e.get("cat") == "cpu_op"
              and e["name"].startswith("autograd::engine::evaluate_function")]
-    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
-                 if e.get("cat") == "cuda_runtime"
-                 and "correlation" in e.get("args", {})}
+    launch_ts = _launch_ts(events)
     parts, by_node = {}, {}
     for e in events:
         if e.get("cat") != "kernel":
@@ -175,17 +154,12 @@ def backward_parts(events):
         if t is None or not b0 <= t <= b1:
             continue
         ms = float(e["dur"]) / 1e3
-        if any(r[0] <= t <= r[1] for r in recompute):
-            part = "the trace chunks' recompute"
-        elif t < first:
-            part = "before the first recompute: the splat's and shade's VJPs"
-        else:
-            part = "after it, outside the recomputes: the trace's VJPs"
+        part = ("pota.trace.chunk (the recompute)"
+                if any(r[0] <= t <= r[1] for r in chunks)
+                else _innermost(ours, t, "autograd's own nodes"))
         n, b = parts.get(part, (0, 0.0))
         parts[part] = (n + 1, b + ms)
-        inside = [r for r in nodes if r[0] <= t <= r[1]]
-        node = (min(inside, key=lambda r: r[1] - r[0])[2] if inside
-                else "(no autograd node)")
+        node = _innermost(nodes, t, "(no autograd node)")
         n, b = by_node.get(node, (0, 0.0))
         by_node[node] = (n + 1, b + ms)
     return ([(k, n, b) for k, (n, b) in parts.items()],
@@ -339,13 +313,11 @@ def main() -> int:
             walls.append((time.perf_counter() - t0) * 1e3)
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        restore = annotate_functions()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             frame()
             torch.cuda.synchronize()
             wall_prof = (time.perf_counter() - t0) * 1e3
-        restore()
         path = os.path.join(out_dir, f"trace_{cell}.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
@@ -390,16 +362,20 @@ def main() -> int:
                 sp = (ks[-1][1] + ks[-1][2] - ks[0][1]) / 1e3
                 print(f"| {label} | {b:.2f} | {sp:.2f} | {len(ks)} |",
                       flush=True)
-        print("| function (innermost range) | device busy ms | kernels |",
+        print("| the port's span (innermost) | device busy ms | kernels |",
               flush=True)
-        for name, (n, ms) in sorted(function_busy(events).items(),
+        for name, (n, ms) in sorted(span_busy(events).items(),
                                     key=lambda kv: -kv[1][1]):
             print(f"| {name} | {ms:.2f} | {n} |", flush=True)
+        print("| idle gap, by the port's span open | idle ms |", flush=True)
+        for name, ms in sorted(span_idle(events).items(),
+                               key=lambda kv: -kv[1]):
+            print(f"| {name} | {ms:.2f} |", flush=True)
         if cell in steps:
             print("| half of the step | device busy ms | kernels |",
                   flush=True)
-            halves = function_busy(events, exclude=tuple(
-                f for _, f in FUNCTIONS))
+            halves = span_busy(events, keep=lambda n: n in HALVES,
+                               outside="(outside the halves)")
             for name, (n, ms) in sorted(halves.items(),
                                         key=lambda kv: -kv[1][1]):
                 print(f"| {name} | {ms:.2f} | {n} |", flush=True)
