@@ -1064,46 +1064,85 @@ def _config5_vjp_checks(fn_args, accum_args) -> dict:
     return out
 
 
-def k1_record(a1, ptxas, tag, path=None) -> dict:
-    """K1 against its plain version on the captured arguments ``a1`` (the
-    plain version in 1M-ray chunks): ``trans > 0`` agreement and the
-    largest error on the rays both keep; its record (``path`` None: the
-    flagship's)."""
+def drawn_candidates(a) -> tuple:
+    """K1's arguments in its candidate mode (``po_forward``) on the
+    candidates that the draw-mode call ``a`` (``po_forward_drawn``'s
+    arguments) draws, drawn in torch (``drawn_rays``): the route the draw
+    mode replaced."""
     from pota_tpu_torch.ops import po_kernels as pk
 
-    lens = a1[0]
-    got = pk.po_forward(*a1)
+    lens, lam_um, shift, iterations = a[0], a[9], a[10], a[11]
+    return (lens, *pk.drawn_rays(*a[1:9]), lam_um, shift, iterations)
+
+
+def k1_record(a, ptxas, tag, path=None) -> dict:
+    """K1 in its draw mode on the captured arguments ``a`` of the path's
+    ``po_forward_drawn`` call: the candidates' rays and K1's outputs bit for
+    bit those of the torch draw and K1's candidate mode on its candidates
+    (the route it replaced); its outputs against the plain version on those
+    candidates (in 1M-ray chunks): ``trans > 0`` agreement and the largest
+    error on the rays both keep; its record (``path`` None: the
+    flagship's), timed as the path calls it, beside the torch draw and K1
+    (``chain_ms``) and K1's candidate mode alone (``candidate_ms``)."""
+    import torch
+
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    lens, x, tries = a[0], a[1], a[6]
+    a1 = drawn_candidates(a)
+    got = pk.po_forward_drawn(*a[:12], True)
+    chain = (*pk.po_forward(*a1), *a1[1:5])
+    if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, chain)):
+        fail("K1's draw mode and the torch draw with K1 differ")
+    del chain
+    got = got[:4]
     ref = plain_chunked(pk.po_forward_plain, a1, slice(1, 5))
     ok_g, ok_p = got[1] > 0, ref[1] > 0
     agree = float((ok_g == ok_p).double().mean())
     both = ok_g & ok_p
     err = max(float((g[both] - r[both]).abs().max())
               for g, r in zip(got, ref))
-    n1 = int(a1[1].shape[0])
+    n_rays, n1 = int(x.shape[0]), int(a1[1].shape[0])
     where = f" ({path})" if path else ""
-    print(f"K1 po_forward{where} M={n1} trans>0 agree={agree:.6f} "
-          f"max_abs_err(valid rays)={err:.3e} mm", flush=True)
+    print(f"K1 po_forward_drawn{where} N={n_rays} K={tries} M={n1} "
+          f"candidates and outputs the torch draw's bits; trans>0 "
+          f"agree={agree:.6f} max_abs_err(valid rays)={err:.3e} mm",
+          flush=True)
     if agree < MASK_AGREE or err > 1e-3:
-        fail(f"K1 po_forward{where} disagrees with its plain version")
+        fail(f"K1 po_forward_drawn{where} disagrees with its plain version")
     del got, ref, ok_g, ok_p, both
+    # 24 bytes a ray in (x, y, r1, r2, the key); 28 a candidate out, 16
+    # more where the path asks for the candidates' rays
+    rays_out = len(a) > 12 and bool(a[12])
+    n_bytes = 24.0 * n_rays + (44.0 if rays_out else 28.0) * n1
     rec = dict(
-        name="po_forward", route="cuda",
+        name="po_forward", mode="draw", route="cuda",
         source="pota_tpu_torch/csrc/po_forward.cu",
         replaces=f"{TPU_KERNELS}:83", max_abs_err=err,
-        ms=median_ms(lambda: pk.po_forward(*a1)),
+        ms=median_ms(lambda: pk.po_forward_drawn(*a)),
+        chain_ms=median_ms(
+            lambda: pk.po_forward(*drawn_candidates(a))),
+        candidate_ms=median_ms(lambda: pk.po_forward(*a1)),
         plain_ms=median_ms(
             lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 5)), 3),
-        **bound(48.0 * n1, n1 * basis_forward_flops(a1[7])),
-        runtime_term_bound_ms=bound(48.0 * n1, n1 * forward_flops(
+        **bound(n_bytes, n1 * basis_forward_flops(a1[7])),
+        runtime_term_bound_ms=bound(n_bytes, n1 * forward_flops(
             lens.ap.exponents, lens.pt.exponents, a1[7]))["bound_ms"],
-        **ptxas["po_forward"], library_ms=None, n=n1, mask_agree=agree)
+        **ptxas["po_forward_drawn"],
+        candidate_registers=ptxas["po_forward"]["registers"],
+        library_ms=None, n=n1, rays=n_rays, rays_out=rays_out,
+        mask_agree=agree)
     if path:
         rec["path"] = path
-    print(f"po_forward{where} (folded forward): {rec['ms']:.3f} ms, bound "
+    print(f"po_forward_drawn{where} (the draw mode): {rec['ms']:.3f} ms, "
+          f"the torch draw and K1 {rec['chain_ms']:.3f} ms, K1 on the "
+          f"candidates {rec['candidate_ms']:.3f} ms, bound "
           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), runtime-term "
           f"bound {rec['runtime_term_bound_ms']:.3f} ms, "
-          f"{rec['registers']} registers, {rec['spill_bytes']} spill "
-          f"bytes {tag}", flush=True)
+          f"{rec['registers']} registers ({rec['candidate_registers']} in "
+          f"the candidate mode), {rec['spill_bytes']} spill bytes {tag}",
+          flush=True)
     return rec
 
 
@@ -1370,7 +1409,8 @@ class Config5:
         if len(vjp_calls) != chunks:
             fail(f"config 5: K1v ran {len(vjp_calls)} times, not once a "
                  f"chunk ({chunks})")
-        records = [k1_record(rec.args["po_forward"], ptxas, tag, "config5"),
+        records = [k1_record(rec.args["po_forward_drawn"], ptxas, tag,
+                             "config5"),
                    forward_vjp_record(vjp_calls, ptxas, tag, "config5")]
         vjp_calls.clear()
         torch.cuda.empty_cache()
@@ -1426,14 +1466,16 @@ class Config5:
 
         def recording_k1(*a):
             k1_calls.append(a)
-            return ops.KERNELS.po_forward(*a)
+            return ops.KERNELS.po_forward_drawn(*a)
 
-        sets = (("kernels", ops.KERNELS._replace(po_forward=recording_k1)),
+        sets = (("kernels",
+                 ops.KERNELS._replace(po_forward_drawn=recording_k1)),
                 ("plain", ops.PLAIN),
                 ("K1 with plain K1v", ops.KERNELS._replace(
                     po_forward_vjp=ops.PLAIN.po_forward_vjp)),
                 ("plain K1 with K1v", ops.KERNELS._replace(
-                    po_forward=ops.PLAIN.po_forward)),
+                    po_forward=ops.PLAIN.po_forward,
+                    po_forward_drawn=ops.PLAIN.po_forward_drawn)),
                 ("K3 alone", ops.PLAIN._replace(
                     po_splat=ops.KERNELS.po_splat)))
         res = {}
@@ -1460,7 +1502,8 @@ class Config5:
         d_err = 0.0
         for a in k1_calls[:chunks]:
             with torch.no_grad():
-                got, ref = pk.po_forward(*a), pk.po_forward_plain(*a)
+                got = pk.po_forward_drawn(*a[:12])
+                ref = pk.po_forward_plain(*drawn_candidates(a))
             ok_g, ok_p = got[1] > 0, ref[1] > 0
             both = ok_g & ok_p
             flips += int((ok_g != ok_p).sum())
@@ -2648,7 +2691,10 @@ def main() -> int:
     # every kernel's registers and spills
     ptxas = {}
     for name, key, label in (
-            ("po_forward", "po_forward_kernel", "K1 (the folded forward)"),
+            ("po_forward", "po_forward_kernelILb0E",
+             "K1 (the folded forward)"),
+            ("po_forward_drawn", "po_forward_kernelILb1E",
+             "K1's draw mode (it draws its aperture candidates)"),
             ("po_splat", "po_splat_kernelILi0E",
              "K3 flagship instantiation (SPLAT_DISK, the basis solve)"),
             ("po_splat_lam", "po_splat_kernelILi1E",
@@ -2735,9 +2781,8 @@ def main() -> int:
     splat_extra = 60 + 20 * n_sph        # pixel map, lens point, occlusion
 
     with torch.no_grad():
-        # K1: PO forward, M = N * K rays
-        a1 = rec["po_forward"]
-        records.append(k1_record(a1, ptxas, tag))
+        # K1: PO forward in its draw mode, M = N * K candidates
+        records.append(k1_record(rec["po_forward_drawn"], ptxas, tag))
 
         # K2: expand, S slots; the library yardstick is index_select
         a2 = rec["expand"]
@@ -2834,7 +2879,7 @@ def main() -> int:
               f"{k4rec['registers']} registers, {k4rec['spill_bytes']} spill "
               f"bytes {tag}", flush=True)
         records.append(k4rec)
-        del rec, a1, a2, a4
+        del rec, a2, a4
         torch.cuda.empty_cache()
 
         # K4 on a piled-up stream at the flagship's shape (half of the live

@@ -1,27 +1,48 @@
-// PO forward kernel (K1).
+// PO forward kernel (K1), with a draw mode.
 //
 // Replaces: pota_tpu/ops/po_pallas.py::build_po_forward_kernel, the fused
 // per-lens forward trace behind models/po_camera.py::trace_fw_po.
 //
-// Per ray: a fixed-iteration 2x2 Newton on the aperture polynomial `ap` for
-// the sensor directions (dx, dy) that reach the aperture sample, the sensor
-// shift, then pt_evaluate of the outer-pupil chart + transmittance.
+// Per candidate: a fixed-iteration 2x2 Newton on the aperture polynomial
+// `ap` for the sensor directions (dx, dy) that reach the aperture sample,
+// the sensor shift, then pt_evaluate of the outer-pupil chart +
+// transmittance.
+//
+// Two modes, one body (po_forward_kernel<kDraw>):
+// - candidates (pota_po_forward): the caller hands every candidate's sensor
+//   point and aperture point, [M] each;
+// - draw (pota_po_forward_drawn): the caller hands each ray's sensor point,
+//   its (r1, r2) and its uint32 retry key, and the kernel draws the ray's K
+//   aperture candidates itself, as po_kernels.py po_forward_drawn_plain
+//   does in torch: candidate 0 on (r1, r2), candidate k >= 1 on two LCG
+//   steps after TEA-8(key, k), the concentric disk (fewer than 2 blades) or
+//   the blade fan, times the aperture radius.  Thread i traces candidate
+//   i % K of ray i / K, the layout the candidate mode reads.  Every float
+//   operation of the draw is the torch chain's, in its order, rounded alone
+//   (__fmul_rn / __fadd_rn / __fdiv_rn, cosf / sinf as torch's kernels
+//   call them), so the candidates are those of the torch chain bit for
+//   bit.  It writes the candidates' rays (x, y, ax, ay) [M] where asked:
+//   the differentiable route saves them for K1v.
 //
 // What bounds it on the H100: arithmetic.  On the folded table about 1,100
-// FMAs a ray (the collapse of `ap` to (dx, dy), 3 Newton iterations of 76,
-// pt's five rows over the 126-monomial basis) and 221 broadcast 16-byte
-// shared loads, against 20 bytes in and 28 bytes out.
+// FMAs a candidate (the collapse of `ap` to (dx, dy), 3 Newton iterations
+// of 76, pt's five rows over the 126-monomial basis) and 221 broadcast
+// 16-byte shared loads, against 20 bytes in and 28 bytes out; the draw adds
+// about 200 integer operations (TEA's 8 rounds, two LCG steps) and one
+// sine and cosine a candidate, and reads 24 bytes a ray (x, y, r1, r2, the
+// key) in place of 16 a candidate.
 //
 // Design: every ray of a frame has the frame's wavelength, so the kernel
 // runs po_forward_trace (po_forward_basis.cuh) on the table
 // po_kernels.py fold_forward_tables folds at that wavelength: exponents
 // known at compile time (no runtime powers, no loop over a term list, no
-// per-ray wavelength), `ap` collapsed once per ray to its 21 coefficients in
-// (dx, dy).  One thread per ray, a grid-stride loop; the 3.5 KB table is
-// copied into shared memory once per block and read with volatile 16-byte
-// loads (basis::ld4), which the compiler cannot hoist out of the ray loop.
-// On an H100 (sm_90a, CUDA 12.8) it takes 87 registers and spills nothing.
-// One build serves every lens (the TPU kernel baked each lens into
+// per-ray wavelength), `ap` collapsed once per candidate to its 21
+// coefficients in (dx, dy).  One thread per candidate, a grid-stride loop;
+// the 3.5 KB table is copied into shared memory once per block and read
+// with volatile 16-byte loads (basis::ld4), which the compiler cannot hoist
+// out of the loop.  On an H100 (sm_90a, CUDA 12.8) each mode takes 87
+// registers and spills nothing (the draw mode keeps a 32-byte stack
+// frame).  One build serves every lens (the TPU kernel baked each lens into
 // immediates).
 #include "po_forward_basis.cuh"
 
@@ -29,23 +50,119 @@ namespace pota {
 
 constexpr int kForwardThreads = 256;
 
+// The draw mode's inputs (per ray) and its optional outputs (per candidate,
+// null when not asked for).
+struct ForwardDraw {
+  const float* r1;
+  const float* r2;
+  const long long* key;  // the uint32 retry key in an int64 word
+  int tries;             // K candidates a ray
+  int blades;            // < 2: the concentric disk; else the blade fan
+  float radius;          // the aperture radius (mm)
+  float blade_angle;     // float32 of 2 pi / blades (a double in torch)
+  float *x, *y, *ax, *ay;
+};
+
+// samplers.concentric_disk_sample, each torch op rounded alone.  It is
+// common.cuh's concentric_polar and tea_concentric_disk but for that
+// rounding: there nvcc contracts phi's kPi2 - kPi4 * q into one FMA, which
+// K3's splat disk keeps (rounded alone, K3's frames would change bits),
+// while the draw mode must round as torch does to give the torch chain's
+// candidates bit for bit.
+__device__ __forceinline__ void drawn_disk(float r1, float r2, float& x,
+                                           float& y) {
+  const float kPi4 = static_cast<float>(3.141592653589793 / 4.0);
+  const float kPi2 = static_cast<float>(3.141592653589793 / 2.0);
+  const float a = __fadd_rn(__fmul_rn(2.0f, r1), -1.0f);
+  const float b = __fadd_rn(__fmul_rn(2.0f, r2), -1.0f);
+  const bool use_a = __fmul_rn(a, a) > __fmul_rn(b, b);
+  const float safe_a = (a == 0.0f) ? 1.0f : a;
+  const float safe_b = (b == 0.0f) ? 1.0f : b;
+  const float r = use_a ? a : b;
+  const float phi = use_a ? __fmul_rn(kPi4, __fdiv_rn(b, safe_a))
+                          : __fsub_rn(kPi2, __fmul_rn(kPi4,
+                                                      __fdiv_rn(a, safe_b)));
+  const bool both_zero = (a == 0.0f) && (b == 0.0f);
+  x = both_zero ? 0.0f : __fmul_rn(r, cosf(phi));
+  y = both_zero ? 0.0f : __fmul_rn(r, sinf(phi));
+}
+
+// samplers.triangular_aperture_sample at radius 1, each torch op rounded
+// alone (its `radius *` is a multiplication by 1.0, exact).
+__device__ __forceinline__ void drawn_fan(float r1, float r2, int blades,
+                                          float blade_angle, float& x,
+                                          float& y) {
+  const float scaled = __fmul_rn(r1, static_cast<float>(blades));
+  const float tri = floorf(scaled);
+  const float a = __fsqrt_rn(__fsub_rn(scaled, tri));
+  const float b = __fmul_rn(__fsub_rn(1.0f, r2), a);
+  const float c = __fmul_rn(r2, a);
+  const float ang1 = __fmul_rn(blade_angle, __fadd_rn(tri, 1.0f));
+  const float ang2 = __fmul_rn(blade_angle, tri);
+  x = __fadd_rn(__fmul_rn(b, cosf(ang1)), __fmul_rn(c, cosf(ang2)));
+  y = __fadd_rn(__fmul_rn(b, sinf(ang1)), __fmul_rn(c, sinf(ang2)));
+}
+
+// Candidate k of ray `ray`: its aperture point (mm).
+__device__ __forceinline__ void drawn_aperture(const ForwardDraw& d, int ray,
+                                               int k, float& ax, float& ay) {
+  float u1, u2;
+  if (k == 0) {
+    u1 = d.r1[ray];
+    u2 = d.r2[ray];
+  } else {
+    uint32_t state = tea8(static_cast<uint32_t>(d.key[ray]),
+                          static_cast<uint32_t>(k));
+    u1 = lcg_uniform(state);  // exact: a 24-bit integer times 2^-24
+    u2 = lcg_uniform(state);
+  }
+  float px, py;
+  if (d.blades < 2) {
+    drawn_disk(u1, u2, px, py);
+  } else {
+    drawn_fan(u1, u2, d.blades, d.blade_angle, px, py);
+  }
+  ax = __fmul_rn(px, d.radius);
+  ay = __fmul_rn(py, d.radius);
+}
+
+// n candidates.  Candidate mode: xs, ys, axs, ays [n].  Draw mode: xs, ys
+// [n / tries] (one a ray), axs and ays unread, the rest in `draw`.
+template <bool kDraw>
 __global__ void __launch_bounds__(kForwardThreads)
 po_forward_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                   const float* __restrict__ axs, const float* __restrict__ ays,
                   int n, const float* __restrict__ g_tab, float inv_ap_z,
                   float sensor_shift, int iterations, float* __restrict__ out4,
                   float* __restrict__ trans_out, float* __restrict__ dx_out,
-                  float* __restrict__ dy_out) {
+                  float* __restrict__ dy_out, const ForwardDraw draw) {
   __shared__ __align__(16) float s_tab[fwd::kTableFloats];
   block_load(s_tab, g_tab, fwd::kTableFloats);
   __syncthreads();
 
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
+    float x, y, ax, ay;
+    if constexpr (kDraw) {
+      const int ray = i / draw.tries;
+      x = xs[ray];
+      y = ys[ray];
+      drawn_aperture(draw, ray, i - ray * draw.tries, ax, ay);
+      if (draw.x != nullptr) {
+        draw.x[i] = x;
+        draw.y[i] = y;
+        draw.ax[i] = ax;
+        draw.ay[i] = ay;
+      }
+    } else {
+      x = xs[i];
+      y = ys[i];
+      ax = axs[i];
+      ay = ays[i];
+    }
     float dx, dy, o[4];
     const float tr = po_forward_trace(s_tab, inv_ap_z, sensor_shift,
-                                      iterations, xs[i], ys[i], axs[i],
-                                      ays[i], dx, dy, o);
+                                      iterations, x, y, ax, ay, dx, dy, o);
     reinterpret_cast<float4*>(out4)[i] = make_float4(o[0], o[1], o[2], o[3]);
     trans_out[i] = relu_nan(tr);
     dx_out[i] = dx;
@@ -64,9 +181,31 @@ extern "C" int pota_po_forward(const float* x, const float* y, const float* ax,
                                float* dx, float* dy, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
   constexpr int threads = pota::kForwardThreads;
-  pota::po_forward_kernel<<<pota::grid_for(n, threads), threads, 0,
-                            stream>>>(x, y, ax, ay, n, table, inv_ap_z,
-                                      sensor_shift, iterations, out4, trans,
-                                      dx, dy);
+  pota::po_forward_kernel<false>
+      <<<pota::grid_for(n, threads), threads, 0, stream>>>(
+          x, y, ax, ay, n, table, inv_ap_z, sensor_shift, iterations, out4,
+          trans, dx, dy, pota::ForwardDraw{});
+  return (int)cudaGetLastError();
+}
+
+// The draw mode: n_rays rays of `tries` candidates each; x, y, r1, r2
+// (f32) and key (int64) [n_rays]; out4 [n, 4], trans, dx, dy [n] with n =
+// n_rays * tries (< 2^31); the candidates' rays xk, yk, axk, ayk [n] are
+// written when xk is not null (then all four are given).
+extern "C" int pota_po_forward_drawn(
+    const float* x, const float* y, const float* r1, const float* r2,
+    const long long* key, int n_rays, int tries, float radius, int blades,
+    float blade_angle, const float* table, float inv_ap_z, float sensor_shift,
+    int iterations, float* out4, float* trans, float* dx, float* dy,
+    float* xk, float* yk, float* axk, float* ayk, cudaStream_t stream) {
+  const long long n = (long long)n_rays * tries;
+  if (n <= 0) return (int)cudaSuccess;
+  const pota::ForwardDraw draw{r1, r2, key, tries, blades, radius,
+                               blade_angle, xk, yk, axk, ayk};
+  constexpr int threads = pota::kForwardThreads;
+  pota::po_forward_kernel<true>
+      <<<pota::grid_for(n, threads), threads, 0, stream>>>(
+          x, y, nullptr, nullptr, (int)n, table, inv_ap_z, sensor_shift,
+          iterations, out4, trans, dx, dy, draw);
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,14 @@
 :mod:`pota_tpu.models.po_camera`).
 
 The reference's vignetting-retry loop becomes K = ``vignetting_retries + 1``
-candidate aperture samples per ray, all traced by the PO forward kernel
-(``ops.po_kernels.po_forward``), then a first-success select.  The
-differentiable route traces them through the same kernel with its VJP
-(``ops.po_kernels.ForwardFn``: K1 forward, K1v backward), the gradient JAX
-takes through its pure path (``use_pallas=False``).  The ray differentials
+candidate aperture samples per ray, all traced by the PO forward kernel,
+then a first-success select.  K1 draws the candidates itself
+(``ops.po_kernels.po_forward_drawn``, its draw mode), except for the image
+bokeh, whose CDF's candidates are drawn in torch and handed to K1
+(``ops.po_kernels.po_forward``).  The differentiable route traces them
+through the same kernel with its VJP (``ops.po_kernels.DrawnForwardFn`` or
+``ForwardFn``: K1 forward, K1v backward), the gradient JAX takes through
+its pure path (``use_pallas=False``).  The ray differentials
 take K1j on the card (:func:`trace_fw_po_jvp`: K1's function and its
 Jacobian in the sensor point, one launch) and, on the CPU and without
 depth of field, the deriv ray's torch trace (``trace_fw_po(deriv_ray=True)``,
@@ -18,9 +21,13 @@ import torch
 
 from ..config import CameraConfig
 
-from ..ops.po_kernels import ForwardFn
+from ..ops.po_kernels import (
+    DrawnForwardFn,
+    ForwardFn,
+    aperture_sample,
+    candidate_rays,
+)
 from ..optics import geometry as geo
-from ..optics import samplers
 from ..optics.polynomial import (
     PolyLens,
     inner_pupil_ok,
@@ -38,10 +45,7 @@ def po_sample_aperture_disk(cfg: CameraConfig, r1, r2, bokeh_cdf=None):
     if cfg.bokeh_enable_image and bokeh_cdf is not None:
         from ..render.bokeh_image import bokeh_sample
         return bokeh_sample(bokeh_cdf, r1, r2)
-    if cfg.aperture_blades < 2:
-        return samplers.concentric_disk_sample(r1, r2)
-    return samplers.triangular_aperture_sample(r1, r2, 1.0,
-                                               cfg.aperture_blades)
+    return aperture_sample(r1, r2, cfg.aperture_blades)
 
 
 def rays_from_chart(cfg: CameraConfig, lens: PolyLens, out4):
@@ -69,11 +73,15 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     Returns (origin [N, 3], dir [N, 3], weight [N], tries [N]) scaled to
     scene units, camera looking down -z.  ``ops`` selects the kernel set
     (default: the kernel wrappers, :data:`pota_tpu_torch.ops.KERNELS`).
-    ``differentiable`` traces the [N, K] candidates through
-    :class:`~pota_tpu_torch.ops.po_kernels.ForwardFn` (``ops.po_forward``
-    forward, ``ops.po_forward_vjp`` backward: JAX's gradient of its pure
-    path, ``pota_tpu/models/po_camera.py:194-205``), so origin and
-    direction carry gradients to the lens coefficients.  ``deriv_ray``
+    With depth of field K1 draws the [N, K] candidates itself
+    (``ops.po_forward_drawn``); the image bokeh's are drawn in torch from
+    its CDF and handed to ``ops.po_forward``.  ``differentiable`` traces
+    the candidates through
+    :class:`~pota_tpu_torch.ops.po_kernels.DrawnForwardFn` (or, with the
+    image bokeh, ``ForwardFn``: K1 forward, ``ops.po_forward_vjp``
+    backward: JAX's gradient of its pure path,
+    ``pota_tpu/models/po_camera.py:194-205``), so origin and direction
+    carry gradients to the lens coefficients.  ``deriv_ray``
     traces one candidate on (r1, r2), draws no retry uniforms
     (``retry_key`` may be None) and takes the torch trace
     (``pt_sample_aperture``, ``pt_evaluate``: the term trace, whatever the
@@ -92,17 +100,11 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     x = sx * hsw
     y = sy * hsw
 
-    if cfg.enable_dof:
-        if n_tries > 1:
-            tries_idx = torch.arange(1, n_tries, dtype=torch.int64,
-                                     device=x.device)
-            us = prng.uniforms(retry_key[:, None], tries_idx[None, :], 2)
-            r1k = torch.cat([r1[:, None], us[..., 0]], 1)
-            r2k = torch.cat([r2[:, None], us[..., 1]], 1)
-        else:
-            r1k, r2k = r1[:, None], r2[:, None]
-        aperture = (po_sample_aperture_disk(cfg, r1k, r2k, bokeh_cdf)
-                    * aperture_radius)
+    image_bokeh = cfg.bokeh_enable_image and bokeh_cdf is not None
+    if cfg.enable_dof and (deriv_ray or image_bokeh):
+        aperture = (po_sample_aperture_disk(
+            cfg, *prng.retry_uniforms(r1, r2, retry_key, n_tries), bokeh_cdf)
+            * aperture_radius)
     if cfg.enable_dof and deriv_ray:
         zero = torch.zeros((n, n_tries), dtype=x.dtype, device=x.device)
         sensor5 = pt_sample_aperture(
@@ -116,16 +118,29 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
         out4, trans = pt_evaluate(
             lens, torch.stack([xk, yk, dx, dy, sensor5[..., 4]], -1))
     elif cfg.enable_dof:
-        rep = lambda a: a[:, None].expand(n, n_tries).reshape(-1)
-        rays = (rep(x), rep(y), aperture[..., 0].reshape(-1).contiguous(),
-                aperture[..., 1].reshape(-1).contiguous())
-        if differentiable:
-            out4, trans, dx, dy = ForwardFn.apply(
-                *rays, lens.pt.coeffs, lens.ap.coeffs, lens, cfg.lambda_um,
-                sensor_shift, newton_iterations, ops)
+        lam, its = cfg.lambda_um, newton_iterations
+        if image_bokeh:
+            # the CDF's candidates, drawn in torch, into K1's candidate mode
+            rays = candidate_rays(x, y, aperture)
+            if differentiable:
+                out4, trans, dx, dy = ForwardFn.apply(
+                    *rays, lens.pt.coeffs, lens.ap.coeffs, lens, lam,
+                    sensor_shift, its, ops)
+            else:
+                out4, trans, dx, dy = ops.po_forward(lens, *rays, lam,
+                                                     sensor_shift, its)
         else:
-            out4, trans, dx, dy = ops.po_forward(
-                lens, *rays, cfg.lambda_um, sensor_shift, newton_iterations)
+            # K1 draws the candidates itself (its draw mode)
+            rays = (x, y, r1.contiguous(), r2.contiguous(),
+                    None if retry_key is None else retry_key.contiguous())
+            draw = (n_tries, aperture_radius, cfg.aperture_blades)
+            if differentiable:
+                out4, trans, dx, dy = DrawnForwardFn.apply(
+                    *rays, lens.pt.coeffs, lens.ap.coeffs, lens, draw, lam,
+                    sensor_shift, its, ops)
+            else:
+                out4, trans, dx, dy = ops.po_forward_drawn(
+                    lens, *rays, *draw, lam, sensor_shift, its)
         out4 = out4.reshape(n, n_tries, 4)
         trans = trans.reshape(n, n_tries)
         dx = dx.reshape(n, n_tries)

@@ -56,15 +56,8 @@ def trace_fw_thinlens(cfg: CameraConfig, sx, sy, r1, r2, retry_key=None,
     dir_from_center = p / _norm(p)
 
     if cfg.enable_dof:
-        if n_tries > 1:
-            tries_idx = torch.arange(1, n_tries, dtype=torch.int64,
-                                     device=dev)
-            us = prng.uniforms(retry_key[:, None], tries_idx[None, :], 2)
-            r1k = torch.cat([r1[:, None], us[..., 0]], 1)
-            r2k = torch.cat([r2[:, None], us[..., 1]], 1)
-        else:
-            r1k, r2k = r1[:, None], r2[:, None]
-        unit_disk = sample_aperture(cfg, r1k, r2k, bokeh_cdf)
+        unit_disk = sample_aperture(
+            cfg, *prng.retry_uniforms(r1, r2, retry_key, n_tries), bokeh_cdf)
     else:
         unit_disk = torch.zeros(sx.shape + (n_tries, 2), dtype=dtype,
                                 device=dev)

@@ -72,3 +72,16 @@ def hash_uniform(key0, key1) -> torch.Tensor:
     """One uniform in [0, 1) per (key, counter) pair: TEA and one LCG
     step."""
     return uniforms(key0, key1, 1)[..., 0]
+
+
+def retry_uniforms(r1, r2, key, tries: int):
+    """A camera's ``tries`` = K aperture candidates' uniform pairs (r1k,
+    r2k), [N, K] each: candidate 0 on the ray's own (r1, r2) [N], candidate
+    k >= 1 on two LCG steps after TEA-8(key, k), ``key`` [N] the rays'
+    uint32 retry keys (unread when K is 1: it may be None)."""
+    if tries == 1:
+        return r1[:, None], r2[:, None]
+    tries_idx = torch.arange(1, tries, dtype=torch.int64, device=r1.device)
+    us = uniforms(key[:, None], tries_idx[None, :], 2)
+    return (torch.cat([r1[:, None], us[..., 0]], 1),
+            torch.cat([r2[:, None], us[..., 1]], 1))

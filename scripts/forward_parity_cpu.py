@@ -61,13 +61,22 @@ def main() -> None:
                                    iterations)
         return tuple(t.float() for t in out)
 
+    def drawn(trace):
+        """K1's draw mode, called as ``po_forward_drawn``, with ``trace``
+        in place of plain K1 on the candidates drawn in torch."""
+        def fn(lens_, x, y, r1, r2, key, tries, radius, blades, *rest):
+            return trace(lens_, *pk.drawn_rays(x, y, r1, r2, key, tries,
+                                               radius, blades), *rest)
+        return fn
+
     traces = {"term32": pk._po_forward_terms, "folded": pk.po_forward_plain,
               "term64": term64}
     images = {}
     for name, trace in traces.items():
         images[name], _ = render_frame(
             cfg, rc, scene, m, po_lens=lens, po_state=state,
-            ops=ops.PLAIN._replace(po_forward=trace))
+            ops=ops.PLAIN._replace(po_forward=trace,
+                                   po_forward_drawn=drawn(trace)))
 
     def off(a, b):
         scale = max(float(b.abs().max()), 1.0)

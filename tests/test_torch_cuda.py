@@ -76,6 +76,140 @@ def test_po_forward_kernel_matches_plain(dev, name, degree, lam_um):
         assert float((g[both] - r_[both]).abs().max()) < 1e-3
 
 
+def _drawn_rays(dev, n, seed=0):
+    """Sensor points (mm), aperture uniforms and retry keys of ``n`` rays,
+    with the edges: keys 0, 1, 2^32 - 2, 2^32 - 1; (r1, r2) on (0.5, 0.5)
+    (the disk's both-zero branch), with one of them 0.5 (a zero square
+    side), on 0 and just under 1."""
+    rng = np.random.default_rng(seed)
+    x, y = (rng.uniform(-14, 14, n).astype(np.float32) for _ in range(2))
+    r1, r2 = (rng.uniform(0, 1, n).astype(np.float32) for _ in range(2))
+    for i, (a, b) in enumerate([(0.5, 0.5), (0.5, 0.2), (0.8, 0.5),
+                                (0.0, 0.0), (0.0, 0.9999999)]):
+        r1[i], r2[i] = a, b
+    key = rng.integers(0, 2 ** 32, n, dtype=np.int64)
+    key[:4] = (0, 1, 2 ** 32 - 2, 2 ** 32 - 1)
+    return [_t(a, dev) for a in (x, y, r1, r2, key)]
+
+
+def _same_bits(a, b) -> bool:
+    """Equal shapes and bits (a NaN equals a NaN of the same bits)."""
+    if a.is_floating_point():
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+        a, b = a.view(bits[a.dtype]), b.view(bits[b.dtype])
+    return torch.equal(a, b)
+
+
+def _torch_chain(lens, x, y, r1, r2, key, tries, radius, blades, lam_um,
+                 sensor_shift, iterations=3, need_rays=False):
+    """The route K1's draw mode replaced, called as ``po_forward_drawn``:
+    the candidates drawn in torch on the card, then K1 in its candidate
+    mode on them."""
+    rays = pk.drawn_rays(x, y, r1, r2, key, tries, radius, blades)
+    out = pk.po_forward(lens, *rays, lam_um, sensor_shift, iterations)
+    return out + rays if need_rays else out
+
+
+def _torch_chain_ops():
+    """The card's kernels with K1's draw mode replaced by the route it
+    replaced (:func:`_torch_chain`)."""
+    return ops.KERNELS._replace(po_forward_drawn=_torch_chain)
+
+
+@pytest.mark.parametrize("blades", [0, 5])
+@pytest.mark.parametrize("tries", [1, 3, 4])
+def test_po_forward_drawn_kernel_is_the_torch_chain(dev, tries, blades):
+    """K1's draw mode against the torch chain it replaces (the candidates
+    drawn in torch on the card, K1 on them): the same bits of the
+    candidates' rays (x, y, ax, ay) and of K1's out4, trans, dx, dy, with
+    and without the rays asked for; one ``po_forward`` launch a call."""
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    args = (lens, *_drawn_rays(dev, 200_003), tries, STATE.aperture_radius,
+            blades, 0.55, STATE.sensor_shift, 3)
+    want = _torch_chain(*args, True)
+    ops.reset_launches()
+    got = pk.po_forward_drawn(*args, True)
+    short = pk.po_forward_drawn(*args)
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {"po_forward": 2}
+    assert len(got) == 8 and len(short) == 4
+    names = ("out4", "trans", "dx", "dy", "x", "y", "ax", "ay")
+    for name, g, w in zip(names, got, want):
+        assert g.shape[0] == 200_003 * tries
+        assert _same_bits(g, w), name
+    for name, g, w in zip(names, short, want):
+        assert _same_bits(g, w), name
+    assert float((got[1] > 0).double().mean()) > 0.5
+
+
+@pytest.mark.parametrize("blades", [0, 5])
+def test_drawn_frames_are_the_torch_chains_bits(dev, blades):
+    """Frames with K1 drawing its candidates against the same frames with
+    the torch chain's candidates (the route before the draw mode).  A
+    64x48 differentiable teapot frame in 4 checkpointed chunks: the same
+    image bits; K1v handed the same rays and solution a chunk, bit for bit,
+    so that on one cotangent it gives the same gradient bits of pt and
+    ap; the frame's gradients within 1e-5 relative L2 (the splat's
+    backward adds with atomics: two runs of one route differ as much).
+    A 96x64 light-grid frame under ``no_grad``: RGBA and every AOV the same
+    bits.  The same launches (K1 twice a chunk and once a frame)."""
+    cfg = dataclasses.replace(CFG, vignetting_retries=2, splat_queue_mult=4,
+                              trace_chunks=4, aperture_blades=blades)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    coeffs = (lens.pt.coeffs, lens.ap.coeffs)
+    res, launches, vjps = [], [], []
+    for kernel_set in (ops.KERNELS, _torch_chain_ops()):
+        calls = []
+
+        def recording_vjp(*a):
+            calls.append(a)
+            return pk.po_forward_vjp(*a)
+
+        for c in coeffs:
+            c.requires_grad_(True)
+            c.grad = None
+        ops.reset_launches()
+        img, _ = render_frame(cfg, pt.RenderConfig(xres=64, yres=48, spp=1),
+                              sc.teapot_scene(device=dev), m, po_lens=lens,
+                              po_state=STATE, differentiable=True,
+                              ops=kernel_set._replace(
+                                  po_forward_vjp=recording_vjp))
+        img[..., :3].mean().backward()
+        grads = [c.grad.clone() for c in coeffs]
+        for c in coeffs:
+            c.requires_grad_(False)
+            c.grad = None
+        with torch.no_grad():
+            _, fb = render_frame(
+                dataclasses.replace(cfg, vignetting_retries=3),
+                pt.RenderConfig(xres=96, yres=64, spp=1),
+                sc.lightgrid_scene(n=3, spacing=12.0, z=-150.0, radius=0.8,
+                                   intensity=40.0, device=dev), m,
+                po_lens=lens, po_state=STATE, ops=kernel_set)
+        launches.append(dict(ops.LAUNCHES))
+        res.append((img.detach(), *grads, fb))
+        vjps.append(calls)
+    assert launches[0] == launches[1]
+    assert launches[0]["po_forward"] == 8 + 1
+    (img, g_pt, g_ap, fb), (img_c, g_pt_c, g_ap_c, fb_c) = res
+    assert _same_bits(img, img_c)
+    assert len(vjps[0]) == len(vjps[1]) == 4
+    with torch.no_grad():
+        for a, a_c in zip(*vjps):
+            assert all(_same_bits(t, t_c) for t, t_c in zip(a[1:7],
+                                                             a_c[1:7]))
+            got = pk.po_forward_vjp(*a)
+            want = pk.po_forward_vjp(*a_c[:7], *a[7:])
+            assert all(_same_bits(g, w) for g, w in zip(got, want))
+    for g, g_c in ((g_pt, g_pt_c), (g_ap, g_ap_c)):
+        assert float(g_c.norm()) > 0
+        assert float((g - g_c).norm() / g_c.norm()) < 1e-5
+    tensors = [k for k, v in fb.items() if isinstance(v, torch.Tensor)]
+    assert "RGBA" in tensors
+    for k in tensors:
+        assert _same_bits(fb[k], fb_c[k]), k
+
+
 def _vjp_args(lens, dev, n, full, seed=0):
     """K1v's arguments on ``n`` seeded candidates at K1's solution: the
     frame's cotangent (out4 only, two rows in three zero, as the
