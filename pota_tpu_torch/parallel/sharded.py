@@ -27,6 +27,12 @@ The all-reduce is likewise an all-gather and the same ordered sum (it
 moves ``n - 1`` frames a rank, against a ring all-reduce's ``2 (n - 1) /
 n``; it serves only frames whose rows do not divide).
 
+While a profiler records, the frame runs inside the span ``pota.shard``
+and its merge inside ``pota.merge`` (stages ``pota.merge.zmin``,
+``pota.merge.exchange``, ``pota.merge.sum``; the backward
+``pota.merge.vjp``), and every collective call counts ``collectives`` and
+the bytes this rank sends in it, ``merge.bytes`` (:func:`_sent`).
+
 JAX's ``shard_map`` and its ``use_pallas`` switch are not ported: each rank
 runs the port's kernels as :func:`render_frame` does.  NCCL joins ranks on
 the card and gloo on the CPU; rank ``r`` takes ``cuda:(r % device
@@ -48,6 +54,7 @@ from ..render import sampling
 from ..render.aov import CLOSEST, DEFAULT_AOVS
 from ..render.renderer import check_supported, render_sample_stream
 from ..render.splat import resolve_imager, splat_frame
+from ..utils.trace import count, span
 
 # the closest fold's "no candidate yet" depth
 _NO_DEPTH = float("inf")
@@ -147,18 +154,46 @@ def merge_traffic_bytes(rc: RenderConfig, n_shards: int, n_channels: int,
 # ----------------------------------------------------------- collectives
 
 
+def _sent(nbytes: float) -> None:
+    """Count one collective call and the bytes this rank sends in it
+    (``collectives``, ``merge.bytes``), while a profiler records."""
+    count("collectives")
+    count("merge.bytes", int(nbytes))
+
+
 def _all_gather_single(out, x, group):
+    n = out.numel() // max(x.numel(), 1)
+    _sent((n - 1) * x.numel() * x.element_size())
     fn = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     fn(out, x, group=group)
 
 
+def _all_reduce(x, mesh, op=dist.ReduceOp.SUM):
+    """``dist.all_reduce`` in place, counted as a ring all-reduce sends:
+    ``2 (n - 1) / n`` of the tensor."""
+    n = mesh.size
+    _sent(2 * (n - 1) * x.numel() * x.element_size() / n)
+    dist.all_reduce(x, op=op, group=mesh.group)
+
+
+@span("pota.merge.sum")
 def _rank_sum(parts):
     """Sum of ``parts`` [n, ...] in ascending rank order, from zero."""
     acc = torch.zeros_like(parts[0])
     for p in parts:
         acc = acc + p
     return acc
+
+
+def gather_rows(tile, mesh: Mesh):
+    """The whole frame on every rank from each rank's band of rows (an
+    all-gather in rank order): the [H, ...] tensor whose rows ``[r * h,
+    (r + 1) * h)`` are rank ``r``'s ``tile`` of ``h`` rows."""
+    tile = tile.contiguous()
+    full = tile.new_empty((tile.shape[0] * mesh.size,) + tuple(tile.shape[1:]))
+    _all_gather_single(full, tile, mesh.group)
+    return full
 
 
 class _RowReduceScatter(torch.autograd.Function):
@@ -172,16 +207,16 @@ class _RowReduceScatter(torch.autograd.Function):
         ctx.mesh = mesh
         x = x.contiguous()
         bands = torch.empty_like(x)
-        dist.all_to_all_single(bands, x, group=mesh.group)
+        with span("pota.merge.exchange"):
+            n = mesh.size
+            _sent((n - 1) * x.numel() * x.element_size() / n)
+            dist.all_to_all_single(bands, x, group=mesh.group)
         return _rank_sum(bands.view(mesh.size, -1, *x.shape[1:]))
 
     @staticmethod
+    @span("pota.merge.vjp")
     def backward(ctx, g):
-        mesh = ctx.mesh
-        g = g.contiguous()
-        full = g.new_empty((g.shape[0] * mesh.size,) + tuple(g.shape[1:]))
-        _all_gather_single(full, g, mesh.group)
-        return full, None
+        return gather_rows(g, ctx.mesh), None
 
 
 def _ordered_all_reduce(x, mesh):
@@ -189,7 +224,8 @@ def _ordered_all_reduce(x, mesh):
     (an all-gather, then the sum)."""
     x = x.contiguous()
     parts = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
-    _all_gather_single(parts, x, mesh.group)
+    with span("pota.merge.exchange"):
+        _all_gather_single(parts, x, mesh.group)
     return _rank_sum(parts.view(mesh.size, *x.shape))
 
 
@@ -203,6 +239,7 @@ class _AllReduceSum(torch.autograd.Function):
         return _ordered_all_reduce(x, mesh)
 
     @staticmethod
+    @span("pota.merge.vjp")
     def backward(ctx, g):
         return _ordered_all_reduce(g, ctx.mesh), None
 
@@ -239,6 +276,7 @@ def _plane_names(fb: dict, specs):
     return gauss, [k for k in fb if k in closest]
 
 
+@span("pota.merge")
 def _merge(fb: dict, specs, rc: RenderConfig, mesh: Mesh, tiled: bool):
     """JAX's reduce-scatter merge (``sharded.py:153-200``): gaussian planes
     summed, closest planes kept from the rank holding the global minimum
@@ -247,13 +285,13 @@ def _merge(fb: dict, specs, rc: RenderConfig, mesh: Mesh, tiled: bool):
     gauss, closest = _plane_names(fb, specs)
     merged = {}
     if "zmin" in fb:
-        with torch.no_grad():
+        with torch.no_grad(), span("pota.merge.zmin"):
             local_z = fb["zmin"]
             global_z = local_z.clone()
-            dist.all_reduce(global_z, op=dist.ReduceOp.MIN, group=mesh.group)
+            _all_reduce(global_z, mesh, dist.ReduceOp.MIN)
             has_min = local_z <= global_z
             winner = torch.where(has_min, mesh.rank, 1 << 30).to(torch.int32)
-            dist.all_reduce(winner, op=dist.ReduceOp.MIN, group=mesh.group)
+            _all_reduce(winner, mesh, dist.ReduceOp.MIN)
             keep = (has_min & (winner == mesh.rank)).to(local_z.dtype)
             fb = {**fb, **{k: fb[k] * keep[..., None] for k in closest}}
         if tiled:
@@ -270,6 +308,7 @@ def _merge(fb: dict, specs, rc: RenderConfig, mesh: Mesh, tiled: bool):
     return {k: merged[k] for k in fb}
 
 
+@span("pota.merge")
 def _halo_merge(fb: dict, specs, rc: RenderConfig, mesh: Mesh, halo: int):
     """The tile-sharded merge from the halo bands alone (JAX's
     ``_halo_merge``, ``sharded.py:230-366``).  Rank ``i``'s partial is zero
@@ -312,8 +351,11 @@ def _halo_merge(fb: dict, specs, rc: RenderConfig, mesh: Mesh, halo: int):
             ops.append(dist.P2POp(dist.irecv, from_lower[k], idx - k,
                                   mesh.group))
     if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        with span("pota.merge.exchange"):
+            _sent(sum(op.tensor.numel() * op.tensor.element_size()
+                      for op in ops if op.op is dist.isend))
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
 
     # the candidates of each row band, in ascending rank order: (rows of
     # my tile, band)
@@ -324,18 +366,19 @@ def _halo_merge(fb: dict, specs, rc: RenderConfig, mesh: Mesh, halo: int):
              + [(slice(tile_h - sizes[k - 1], tile_h), from_upper[k])
                 for k in range(1, n_hops + 1) if k in from_upper])
 
-    acc = torch.zeros_like(own[..., :ng])
-    for rows, band in cands:
-        acc[rows] = acc[rows] + band[..., :ng]
-    out = [acc]
-    if "zmin" in fb:
-        run = torch.zeros_like(own[..., ng:])
-        run[..., -1] = _NO_DEPTH
+    with span("pota.merge.sum"):
+        acc = torch.zeros_like(own[..., :ng])
         for rows, band in cands:
-            cur = run[rows]
-            take = band[..., -1] < cur[..., -1]
-            run[rows] = torch.where(take[..., None], band[..., ng:], cur)
-        out.append(run)
+            acc[rows] = acc[rows] + band[..., :ng]
+        out = [acc]
+        if "zmin" in fb:
+            run = torch.zeros_like(own[..., ng:])
+            run[..., -1] = _NO_DEPTH
+            for rows, band in cands:
+                cur = run[rows]
+                take = band[..., -1] < cur[..., -1]
+                run[rows] = torch.where(take[..., None], band[..., ng:], cur)
+            out.append(run)
     merged = _unpack(torch.cat(out, -1), names, widths)
     return {k: merged[k] for k in fb}
 
@@ -343,6 +386,7 @@ def _halo_merge(fb: dict, specs, rc: RenderConfig, mesh: Mesh, halo: int):
 # ------------------------------------------------------------------ frames
 
 
+@span("pota.shard")
 def render_frame_sharded(cfg: CameraConfig, rc: RenderConfig, scene,
                          cam_to_world, mesh: Mesh, seed: int = 0,
                          po_lens=None, po_state=None, aovs=None,
@@ -399,7 +443,8 @@ def render_frame_sharded(cfg: CameraConfig, rc: RenderConfig, scene,
 
 def train_step_sharded(cfg: CameraConfig, rc: RenderConfig, scene,
                        cam_to_world, mesh: Mesh, target_image, po_lens,
-                       po_state, seed: int = 0, aovs=None):
+                       po_state, seed: int = 0, aovs=None,
+                       return_image: bool = False):
     """One lens-fitting step of BASELINE config 5 over ``mesh`` (JAX's
     ``train_step_sharded``, ``sharded.py:369``): the differentiable sharded
     frame, JAX's L2 loss ``mean((img - target)^2)`` over the whole frame,
@@ -409,7 +454,12 @@ def train_step_sharded(cfg: CameraConfig, rc: RenderConfig, scene,
     the rows do not divide); the loss and the gradients are summed over the
     ranks.  ``target_image`` is the whole [H, W, 4] frame.  The lens's
     coefficients keep their ``requires_grad`` and ``grad``.  Returns
-    ``(loss, (g_pt, g_ap))``, the same on every rank."""
+    ``(loss, (g_pt, g_ap))``, the same on every rank, and with
+    ``return_image`` also this rank's rendered beauty (detached; its band,
+    as :func:`render_frame_sharded` returns it).
+
+    While a profiler records, the backward runs inside ``pota.shard.backward``
+    and the loss's and gradients' all-reduces inside ``pota.shard.grads``."""
     coeffs = (po_lens.pt.coeffs, po_lens.ap.coeffs)
     was = [c.requires_grad for c in coeffs]
     try:
@@ -426,11 +476,15 @@ def train_step_sharded(cfg: CameraConfig, rc: RenderConfig, scene,
         else:
             share = 1.0 / mesh.size
         local = ((img - target) ** 2).sum() * (share / target_image.numel())
-        grads = torch.autograd.grad(local, coeffs)
+        with span("pota.shard.backward"):
+            grads = torch.autograd.grad(local, coeffs)
     finally:
         for c, w in zip(coeffs, was):
             c.requires_grad_(w)
     loss = local.detach().clone()
-    for t in (loss, *grads):
-        dist.all_reduce(t, group=mesh.group)
+    with span("pota.shard.grads"):
+        for t in (loss, *grads):
+            _all_reduce(t, mesh)
+    if return_image:
+        return loss, grads, img.detach()
     return loss, grads
