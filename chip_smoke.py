@@ -60,7 +60,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                ``trace_chunks`` 32, 3 candidates a ray), loss
                ``mean(img[..., :3])``, ``loss.backward()`` to the flagship
                fit's ``pt`` and ``ap`` coefficients; launch counts (K2, K3,
-               K4 once each; the trace through ``ForwardFn``, K1 twice and
+               K4 once each; the trace through ``SelectFn`` (K1 and K1v in
+               their select modes), K1 twice and
                K1v once in each of its 32 checkpointed chunks:
                :func:`want_launches`), one warm-up and three timed steps
                (``config5_step_s``, the median), peak memory, the
@@ -148,7 +149,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                gaussian transmission plane beside RGBA: K2, K3, K4, K4 over
                nine payload columns), ``grad_config1`` (BASELINE config
                1's thin lens: K2, K5, K4) and ``grad_config1_coma`` (coma
-               0.5: K2, K4); the PO routes' traces through ``ForwardFn``
+               0.5: K2, K4); the PO routes' traces through ``SelectFn``
                (K1 twice and K1v once in each of 8 chunks); K2 on three of
                those steps' arguments, K3, K6, K4 and K5 again on them
                (records with ``path``)
@@ -252,6 +253,10 @@ PLAIN_VJP_CHUNK = 1 << 20
 # relative L2 of K1v's coefficient cotangents against its plain version
 # (float32, and float64 on the leading candidates)
 VJP_TOL = 1e-4
+# f32 operations of K1v's select mode beyond K1v's walk, a live ray: the
+# chart again (~50) and its VJP (three normalisations' VJPs, two cross
+# products, the dot products and the guards: ~130)
+CHART_VJP_FLOPS = 180.0
 # relative L2 of K1j's Jacobian against its plain version on the rays both
 # keep (its primal: K1's bits, and within 1e-5 of the plain version's)
 JVP_TOL = 1e-4
@@ -389,10 +394,12 @@ def basis_forward_jvp_flops(iterations: int) -> float:
                  + 20 + 24 + 875 + 16 * 126)
 
 
-def device_ms(fn, names, reps: int = 3) -> dict:
+def device_ms(fn, names, reps: int = 3, tries: int = 3) -> dict:
     """Device time a call of ``fn`` of the kernels whose names hold each of
     ``names``, from a ``torch.profiler`` trace of ``reps`` calls (the
-    trace's ``kernel`` events; None where it shows none)."""
+    trace's ``kernel`` events; None where it shows none).  A trace that
+    shows none of a name's kernels is taken again, up to ``tries`` traces
+    (the card's tracer now and then returns a trace without them)."""
     import os
     import tempfile
 
@@ -401,22 +408,26 @@ def device_ms(fn, names, reps: int = 3) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [(e["name"], float(e["dur"])) for e in events
-               if e.get("cat") == "kernel"]
     out = {}
-    for n in names:
-        durs = [d for k, d in kernels if n in k]
-        out[n] = sum(durs) / 1e3 / reps if durs else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [(e["name"], float(e["dur"])) for e in events
+                   if e.get("cat") == "kernel"]
+        for n in names:
+            durs = [d for k, d in kernels if n in k]
+            if out.get(n) is None:
+                out[n] = sum(durs) / 1e3 / reps if durs else None
+        if None not in out.values():
+            break
     return out
 
 
@@ -1066,83 +1077,122 @@ def _config5_vjp_checks(fn_args, accum_args) -> dict:
 
 def drawn_candidates(a) -> tuple:
     """K1's arguments in its candidate mode (``po_forward``) on the
-    candidates that the draw-mode call ``a`` (``po_forward_drawn``'s
-    arguments) draws, drawn in torch (``drawn_rays``): the route the draw
-    mode replaced."""
+    candidates that the select-mode call ``a`` (``po_forward_selected``'s
+    arguments) draws, drawn in torch (``drawn_rays``) at the sensor points
+    ``sx * hsw, sy * hsw``: the route the draw mode replaced."""
     from pota_tpu_torch.ops import po_kernels as pk
 
-    lens, lam_um, shift, iterations = a[0], a[9], a[10], a[11]
-    return (lens, *pk.drawn_rays(*a[1:9]), lam_um, shift, iterations)
+    lens, sx, sy, hsw = a[:4]
+    return (lens, *pk.drawn_rays(sx * hsw, sy * hsw, *a[4:10]), *a[10:12],
+            a[13])
+
+
+def draw_and_select(a, need_rays=False) -> tuple:
+    """The route K1's select mode replaced, on the select-mode call ``a``:
+    K1's draw mode on the sensor points, then the torch epilogue
+    (``select_rays``)."""
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    lens, sx, sy, hsw, tries, shift, scale = a[0], a[1], a[2], a[3], a[7], \
+        a[11], a[12]
+    x, y = sx * hsw, sy * hsw
+    cand = pk.po_forward_drawn(lens, x, y, *a[4:12], a[13])
+    return pk._select_candidates(lens, x, y, cand, tries, shift, scale,
+                                 need_rays)
+
+
+def selected_plain_chunked(a) -> list:
+    """K1's plain select mode on the call ``a`` in 1M-ray chunks."""
+    from pota_tpu_torch.ops import po_kernels as pk
+
+    return plain_chunked(pk.po_forward_selected_plain, a[:14],
+                         (1, 2, 4, 5, 6))
 
 
 def k1_record(a, ptxas, tag, path=None) -> dict:
-    """K1 in its draw mode on the captured arguments ``a`` of the path's
-    ``po_forward_drawn`` call: the candidates' rays and K1's outputs bit for
-    bit those of the torch draw and K1's candidate mode on its candidates
-    (the route it replaced); its outputs against the plain version on those
-    candidates (in 1M-ray chunks): ``trans > 0`` agreement and the largest
-    error on the rays both keep; its record (``path`` None: the
-    flagship's), timed as the path calls it, beside the torch draw and K1
-    (``chain_ms``) and K1's candidate mode alone (``candidate_ms``)."""
+    """K1 in its select mode on the captured arguments ``a`` of the path's
+    ``po_forward_selected`` call: origin, direction, weight, tries and the
+    selected candidate's sensor point, solution and chart bit for bit
+    those of K1's draw mode followed by the torch epilogue (the route it
+    replaced); against the plain version (in 1M-ray chunks): the rays'
+    selections (``tries``) and the largest error on the rays both take
+    alike; its record (``path`` None: the flagship's), timed as the path
+    calls it (``ms``: CUDA events round the wrapper; ``device_ms``: the
+    kernel alone, from the profiler), beside the route it replaced
+    (``chain_ms``, ``chain_device_ms``), the draw mode alone
+    (``draw_ms``), and the candidates each ray traced."""
     import torch
 
     from pota_tpu_torch.ops import po_kernels as pk
 
-    lens, x, tries = a[0], a[1], a[6]
-    a1 = drawn_candidates(a)
-    got = pk.po_forward_drawn(*a[:12], True)
-    chain = (*pk.po_forward(*a1), *a1[1:5])
+    lens, sx, tries = a[0], a[1], a[7]
+    need_rays = len(a) > 14 and bool(a[14])
+    got = pk.po_forward_selected(*a[:14], True)
+    chain = draw_and_select(a, True)
     if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                for g, w in zip(got, chain)):
-        fail("K1's draw mode and the torch draw with K1 differ")
+        fail("K1's select mode and the draw mode with the torch select "
+             "differ")
     del chain
-    got = got[:4]
-    ref = plain_chunked(pk.po_forward_plain, a1, slice(1, 5))
-    ok_g, ok_p = got[1] > 0, ref[1] > 0
-    agree = float((ok_g == ok_p).double().mean())
-    both = ok_g & ok_p
-    err = max(float((g[both] - r[both]).abs().max())
-              for g, r in zip(got, ref))
-    n_rays, n1 = int(x.shape[0]), int(a1[1].shape[0])
+    ref = selected_plain_chunked(a)
+    same = got[3] == ref[3]
+    agree = float(same.double().mean())
+    alike = same & (got[2] > 0) & (ref[2] > 0)
+    err = max(float((g[alike] - r[alike]).abs().max())
+              for g, r in zip(got[:2], ref[:2]))
+    # the candidates a ray traced: up to its first success, K when none
+    traced = int(torch.clamp(got[3].long() + 1, max=tries).sum())
+    weight1 = float((got[2] > 0).double().mean())
+    n_rays = int(sx.shape[0])
     where = f" ({path})" if path else ""
-    print(f"K1 po_forward_drawn{where} N={n_rays} K={tries} M={n1} "
-          f"candidates and outputs the torch draw's bits; trans>0 "
-          f"agree={agree:.6f} max_abs_err(valid rays)={err:.3e} mm",
+    print(f"K1 po_forward_selected{where} N={n_rays} K={tries}: rays and "
+          f"the selected candidates the draw mode's and torch select's bits;"
+          f" tries agree with the plain version on {agree:.6f}, "
+          f"max_abs_err(rays both take alike)={err:.3e}; weight 1 on "
+          f"{weight1:.4f}; {traced} candidates traced of {n_rays * tries}",
           flush=True)
     if agree < MASK_AGREE or err > 1e-3:
-        fail(f"K1 po_forward_drawn{where} disagrees with its plain version")
-    del got, ref, ok_g, ok_p, both
-    # 24 bytes a ray in (x, y, r1, r2, the key); 28 a candidate out, 16
-    # more where the path asks for the candidates' rays
-    rays_out = len(a) > 12 and bool(a[12])
-    n_bytes = 24.0 * n_rays + (44.0 if rays_out else 28.0) * n1
+        fail(f"K1 po_forward_selected{where} disagrees with its plain "
+             "version")
+    del got, ref, same, alike
+    # 24 bytes a ray in (sx, sy, r1, r2, the key); 32 out (origin,
+    # direction, weight, tries), 32 more where the path asks for the
+    # selected candidate; the operations of the candidates traced (the
+    # epilogue's ~100 a ray left out)
+    n_bytes = (24.0 + (64.0 if need_rays else 32.0)) * n_rays
+    a1 = drawn_candidates(a)
+    kernel = ["po_forward_select_kernel"]
     rec = dict(
-        name="po_forward", mode="draw", route="cuda",
+        name="po_forward", mode="select", route="cuda",
         source="pota_tpu_torch/csrc/po_forward.cu",
         replaces=f"{TPU_KERNELS}:83", max_abs_err=err,
-        ms=median_ms(lambda: pk.po_forward_drawn(*a)),
-        chain_ms=median_ms(
-            lambda: pk.po_forward(*drawn_candidates(a))),
+        ms=median_ms(lambda: pk.po_forward_selected(*a)),
+        device_ms=(device_ms(lambda: pk.po_forward_selected(*a), kernel)
+                   [kernel[0]]),
+        chain_ms=median_ms(lambda: draw_and_select(a, need_rays)),
+        chain_device_ms=device_ms(lambda: draw_and_select(a, need_rays),
+                                  [""])[""],
+        draw_ms=median_ms(lambda: pk.po_forward_drawn(
+            lens, a[1] * a[3], a[2] * a[3], *a[4:12], a[13])),
         candidate_ms=median_ms(lambda: pk.po_forward(*a1)),
-        plain_ms=median_ms(
-            lambda: plain_chunked(pk.po_forward_plain, a1, slice(1, 5)), 3),
-        **bound(n_bytes, n1 * basis_forward_flops(a1[7])),
-        runtime_term_bound_ms=bound(n_bytes, n1 * forward_flops(
-            lens.ap.exponents, lens.pt.exponents, a1[7]))["bound_ms"],
-        **ptxas["po_forward_drawn"],
-        candidate_registers=ptxas["po_forward"]["registers"],
-        library_ms=None, n=n1, rays=n_rays, rays_out=rays_out,
-        mask_agree=agree)
+        plain_ms=median_ms(lambda: selected_plain_chunked(a), 3),
+        **bound(n_bytes, traced * basis_forward_flops(a[13])),
+        **ptxas["po_forward_selected"],
+        draw_registers=ptxas["po_forward_drawn"]["registers"],
+        library_ms=None, n=n_rays, tries=tries, traced=traced,
+        rays_out=need_rays, tries_agree=agree, weight1=weight1)
     if path:
         rec["path"] = path
-    print(f"po_forward_drawn{where} (the draw mode): {rec['ms']:.3f} ms, "
-          f"the torch draw and K1 {rec['chain_ms']:.3f} ms, K1 on the "
-          f"candidates {rec['candidate_ms']:.3f} ms, bound "
-          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), runtime-term "
-          f"bound {rec['runtime_term_bound_ms']:.3f} ms, "
-          f"{rec['registers']} registers ({rec['candidate_registers']} in "
-          f"the candidate mode), {rec['spill_bytes']} spill bytes {tag}",
-          flush=True)
+    dev_ms = lambda v: "not measured" if v is None else f"{v:.3f} ms"
+    print(f"po_forward_selected{where} (the select mode): {rec['ms']:.3f} "
+          f"ms, device {dev_ms(rec['device_ms'])}; the draw mode and the "
+          f"torch select {rec['chain_ms']:.3f} ms (device "
+          f"{dev_ms(rec['chain_device_ms'])}); the draw mode alone "
+          f"{rec['draw_ms']:.3f} ms, K1 on the candidates "
+          f"{rec['candidate_ms']:.3f} ms; bound {rec['bound_ms']:.3f} ms "
+          f"({rec['bound_by']}), {rec['registers']} registers "
+          f"({rec['draw_registers']} in the draw mode), "
+          f"{rec['spill_bytes']} spill bytes {tag}", flush=True)
     return rec
 
 
@@ -1176,16 +1226,17 @@ def k2_record(a2, ptxas, path) -> dict:
 
 
 def _vjp_slice(args, lo: int, hi: int, dtype=None) -> tuple:
-    """K1v's arguments (lens, rays, solution, cotangents, lam, shift,
-    need_inputs) cut to candidates [lo, hi), the tensors in ``dtype``."""
+    """K1v's select-mode arguments (lens, the selected candidates' x, y,
+    dx, dy, out4, the rays' cotangents, lam, shift, scale) cut to rays
+    [lo, hi), the tensors in ``dtype``."""
     cut = [None if t is None else
            (t[lo:hi] if dtype is None else t[lo:hi].to(dtype)).contiguous()
-           for t in args[1:11]]
-    return (args[0], *cut, *args[11:])
+           for t in args[1:8]]
+    return (args[0], *cut, *args[8:])
 
 
 def vjp_plain_sum(args, dtype) -> tuple:
-    """K1v's plain version over ``args``'s candidates in chunks of
+    """K1v's plain select mode over ``args``'s rays in chunks of
     :data:`PLAIN_VJP_CHUNK`, the inputs in ``dtype``, the chunks' (pt, ap)
     cotangents summed in float64."""
     from pota_tpu_torch.ops import po_kernels as pk
@@ -1193,8 +1244,8 @@ def vjp_plain_sum(args, dtype) -> tuple:
     m = args[1].shape[0]
     total = None
     for lo in range(0, m, PLAIN_VJP_CHUNK):
-        part = pk.po_forward_vjp_plain(
-            *_vjp_slice(args, lo, min(lo + PLAIN_VJP_CHUNK, m), dtype))[:2]
+        part = pk.po_forward_vjp_selected_plain(
+            *_vjp_slice(args, lo, min(lo + PLAIN_VJP_CHUNK, m), dtype))
         part = [p.double() for p in part]
         total = part if total is None else [a + b
                                             for a, b in zip(total, part)]
@@ -1202,84 +1253,80 @@ def vjp_plain_sum(args, dtype) -> tuple:
 
 
 def forward_vjp_record(calls, ptxas, tag, path) -> dict:
-    """K1v on the arguments of every launch of one step of ``path`` (the
-    trace's checkpointed chunks, ``calls``): on all of them in one launch
-    against its plain version (float32, chunks summed in float64) and, on
-    the first :data:`PLAIN_VJP_F64` candidates, against the plain version
-    in float64, both by :data:`VJP_TOL` relative L2 of the ``pt`` and
-    ``ap`` cotangents; two runs give the same bits.  ``ms``, ``plain_ms``
-    and ``bound_ms`` are per launch: the step's launches run back to back
-    (the chunks differ: a band of sky carries no cotangent), over their
-    count; ``all_ms`` the whole step's candidates in one launch.  The
-    bound counts the operations of the candidates that carry a cotangent
-    (:func:`basis_forward_vjp_flops`) and the bytes the function needs:
-    the cotangents given for every candidate, the rays and the solution
-    for those that carry one, and the outputs."""
+    """K1v in its select mode on the arguments of every launch of one step
+    of ``path`` (the trace's checkpointed chunks, ``calls``: each chunk's
+    selected candidates and its rays' cotangents): on all of them in one
+    launch against its plain version (float32, chunks summed in float64)
+    and, on the first :data:`PLAIN_VJP_F64` rays, against the plain
+    version in float64, both by :data:`VJP_TOL` relative L2 of the ``pt``
+    and ``ap`` cotangents; two runs give the same bits.  ``ms``,
+    ``plain_ms`` and ``bound_ms`` are per launch: the step's launches run
+    back to back, over their count; ``all_ms`` the whole step's rays in one
+    launch.  The bound counts the operations of the rays that carry a
+    cotangent (:func:`basis_forward_vjp_flops` and the chart's VJP) and the
+    bytes the function needs: the cotangents for every ray, the selected
+    candidate (x, y, dx, dy, out4) for those that carry one, the sums."""
     import torch
 
     from pota_tpu_torch.ops import _build, po_kernels as pk
 
     one = calls[0]
     cat = [None if one[i] is None else torch.cat([c[i] for c in calls])
-           for i in range(1, 11)]
-    full = (one[0], *cat, *one[11:])
+           for i in range(1, 8)]
+    full = (one[0], *cat, *one[8:])
     m_all, m1 = int(cat[0].shape[0]), int(one[1].shape[0])
-    got = pk.po_forward_vjp(*full)
-    again = pk.po_forward_vjp(*full)
+    got = pk.po_forward_vjp_selected(*full)
+    again = pk.po_forward_vjp_selected(*full)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     rel = lambda g, r: float((g.double() - r).norm() / r.norm())
     ref = vjp_plain_sum(full, torch.float32)
-    err = [rel(g, r) for g, r in zip(got[:2], ref)]
+    err = [rel(g, r) for g, r in zip(got, ref)]
     abs_err = max(float((g.double() - r).abs().max())
-                  for g, r in zip(got[:2], ref))
+                  for g, r in zip(got, ref))
     n64 = min(m_all, PLAIN_VJP_F64)
     head = _vjp_slice(full, 0, n64)
-    got64 = pk.po_forward_vjp(*head)
+    got64 = pk.po_forward_vjp_selected(*head)
     ref64 = vjp_plain_sum(head, torch.float64)
-    err64 = [rel(g, r) for g, r in zip(got64[:2], ref64)]
+    err64 = [rel(g, r) for g, r in zip(got64, ref64)]
     plain64 = [rel(g, r) for g, r in zip(vjp_plain_sum(head, torch.float32),
                                          ref64)]
     del got, again, ref, got64, ref64, head
-    cts = [t for t in cat[6:10] if t is not None]
+    cts = [t for t in cat[5:7] if t is not None]
     live = torch.zeros(m_all, dtype=torch.bool, device=cts[0].device)
     for t in cts:
-        live |= (t != 0).reshape(m_all, -1).any(1)
+        live |= (t != 0).any(1)
     active = int(live.sum())
-    # the cotangents given are read for every candidate, the rays and the
-    # solution (x, y, dx, dy) only for those that carry one; the rays'
-    # cotangents (need_inputs) are written for all, the sums once a launch
-    need_inputs = len(one) > 13 and bool(one[13])
-    n_bytes = (sum(4.0 * t.numel() for t in cts) + 16.0 * active
-               + (16.0 * m_all if need_inputs else 0.0)
+    n_bytes = (sum(4.0 * t.numel() for t in cts) + 32.0 * active
                + 8.0 * pk.VJP_SUMS * len(calls))
     per_launch = lambda fn: lambda: [fn(*c) for c in calls]
     names = ("po_forward_vjp_kernel", "po_forward_vjp_finish")
-    dev_ms = device_ms(per_launch(pk.po_forward_vjp), names)
+    dev_ms = device_ms(per_launch(pk.po_forward_vjp_selected), names)
     kernel_ms = (None if None in dev_ms.values()
                  else sum(dev_ms.values()) / len(calls))
-    # the first launch's kernel time with no candidate live (the scan
-    # alone), as given, and every candidate live (seeded normal cotangents)
-    g4, by_live = one[7], {}
-    if g4 is not None:
-        dense = torch.randn(g4.shape, device=g4.device, generator=(
-            torch.Generator(g4.device).manual_seed(5)))
-        for label, g in (("none", torch.zeros_like(g4)), ("given", g4),
+    # the first launch's kernel time with no ray live (the scan alone), as
+    # given, and every ray live (seeded normal cotangents)
+    g_d, by_live = one[7], {}
+    if g_d is not None:
+        dense = torch.randn(g_d.shape, device=g_d.device, generator=(
+            torch.Generator(g_d.device).manual_seed(5)))
+        for label, g in (("none", torch.zeros_like(g_d)), ("given", g_d),
                          ("all", dense)):
-            a = (*one[:7], g, *one[8:])
-            by_live[label] = device_ms(lambda: pk.po_forward_vjp(*a),
-                                       names)["po_forward_vjp_kernel"]
+            a = (*one[:6], None if label == "none" else one[6], g, *one[8:])
+            by_live[label] = device_ms(
+                lambda: pk.po_forward_vjp_selected(*a),
+                names)["po_forward_vjp_kernel"]
         del dense
-    print(f"K1v po_forward_vjp ({path}) on {len(calls)} launches' {m_all} "
-          f"candidates: rel L2 pt {err[0]:.3e} ap {err[1]:.3e} against the "
-          f"plain version; on the first {n64} against float64 pt "
+    print(f"K1v po_forward_vjp_selected ({path}) on {len(calls)} launches' "
+          f"{m_all} rays: rel L2 pt {err[0]:.3e} ap {err[1]:.3e} against "
+          f"the plain version; on the first {n64} against float64 pt "
           f"{err64[0]:.3e} ap {err64[1]:.3e} (the float32 plain version "
           f"{plain64[0]:.3e} / {plain64[1]:.3e}); two runs identical bits "
           f"{same}", flush=True)
     if max(err + err64) > VJP_TOL or not same:
-        fail(f"K1v po_forward_vjp ({path}) disagrees with its plain version "
-             "or is not reproducible")
+        fail(f"K1v po_forward_vjp_selected ({path}) disagrees with its "
+             "plain version or is not reproducible")
     rec = dict(
-        name="po_forward_vjp", path=path, route="cuda",
+        name="po_forward_vjp", mode="select", path=path, route="cuda",
         source="pota_tpu_torch/csrc/po_forward_vjp.cu",
         replaces=f"{TPU_KERNELS}:83",
         role="K1's backward; no TPU kernel: JAX differentiates its pure "
@@ -1288,31 +1335,34 @@ def forward_vjp_record(calls, ptxas, tag, path) -> dict:
         f64_rel_l2=dict(pt=err64[0], ap=err64[1], n=n64,
                         plain_f32_pt=plain64[0], plain_f32_ap=plain64[1]),
         identical_bits=same,
-        ms=median_ms(per_launch(pk.po_forward_vjp)) / len(calls),
-        plain_ms=median_ms(per_launch(pk.po_forward_vjp_plain), 3)
+        ms=median_ms(per_launch(pk.po_forward_vjp_selected)) / len(calls),
+        plain_ms=median_ms(per_launch(pk.po_forward_vjp_selected_plain), 3)
         / len(calls),
-        all_ms=median_ms(lambda: pk.po_forward_vjp(*full)),
+        all_ms=median_ms(lambda: pk.po_forward_vjp_selected(*full)),
         **bound(n_bytes / len(calls), active / len(calls)
-                * basis_forward_vjp_flops(one[8] is not None)),
+                * (basis_forward_vjp_flops(False) + CHART_VJP_FLOPS)),
         bytes_ms=n_bytes / len(calls) / HBM_BYTES_PER_S * 1e3,
         kernel_ms=kernel_ms,
         kernel_parts_ms={k: (None if v is None else v / len(calls))
                          for k, v in dev_ms.items()},
         kernel_ms_by_live=by_live,
         library_ms=None, n=m1, n_all=m_all, active=active,
-        blocks_per_sm=_build.lib().pota_po_forward_vjp_blocks_per_sm(),
-        **ptxas["po_forward_vjp"])
+        blocks_per_sm=(
+            _build.lib().pota_po_forward_vjp_selected_blocks_per_sm()),
+        **ptxas["po_forward_vjp_selected"],
+        candidate_mode_registers=ptxas["po_forward_vjp"]["registers"])
     k_ms = "not measured" if kernel_ms is None else f"{kernel_ms:.4f} ms"
-    print(f"po_forward_vjp ({path}): {rec['ms']:.3f} ms a launch through "
-          f"the wrapper at M={m1} ({len(calls)} launches, {active} of "
-          f"{m_all} candidates carry a cotangent), the kernels alone "
+    print(f"po_forward_vjp_selected ({path}): {rec['ms']:.3f} ms a launch "
+          f"through the wrapper at N={m1} ({len(calls)} launches, {active} "
+          f"of {m_all} rays carry a cotangent), the kernels alone "
           f"{k_ms} a launch ({rec['kernel_parts_ms']}; the first launch's "
-          f"main kernel with none, its own and every candidate live "
+          f"main kernel with none, its own and every ray live "
           f"{by_live}), all in one launch "
           f"{rec['all_ms']:.3f} ms, plain "
           f"{rec['plain_ms']:.3f} ms a launch, bound {rec['bound_ms']:.4f} "
           f"ms a launch ({rec['bound_by']}; bytes {rec['bytes_ms']:.4f}), "
-          f"{rec['registers']} registers, {rec['spill_bytes']} spill bytes, "
+          f"{rec['registers']} registers ({rec['candidate_mode_registers']} "
+          f"in the candidate mode), {rec['spill_bytes']} spill bytes, "
           f"{rec['blocks_per_sm']} blocks of 128 an SM {tag}", flush=True)
     return rec
 
@@ -1386,9 +1436,9 @@ class Config5:
 
         def recording_vjp(*a):
             vjp_calls.append(a)
-            return ops.KERNELS.po_forward_vjp(*a)
+            return ops.KERNELS.po_forward_vjp_selected(*a)
 
-        rec.po_forward_vjp = recording_vjp
+        rec.po_forward_vjp_selected = recording_vjp
         fn_args = {}
         expand_apply = pk.ExpandFn.apply
 
@@ -1409,7 +1459,7 @@ class Config5:
         if len(vjp_calls) != chunks:
             fail(f"config 5: K1v ran {len(vjp_calls)} times, not once a "
                  f"chunk ({chunks})")
-        records = [k1_record(rec.args["po_forward_drawn"], ptxas, tag,
+        records = [k1_record(rec.args["po_forward_selected"], ptxas, tag,
                              "config5"),
                    forward_vjp_record(vjp_calls, ptxas, tag, "config5")]
         vjp_calls.clear()
@@ -1466,16 +1516,16 @@ class Config5:
 
         def recording_k1(*a):
             k1_calls.append(a)
-            return ops.KERNELS.po_forward_drawn(*a)
+            return ops.KERNELS.po_forward_selected(*a)
 
         sets = (("kernels",
-                 ops.KERNELS._replace(po_forward_drawn=recording_k1)),
+                 ops.KERNELS._replace(po_forward_selected=recording_k1)),
                 ("plain", ops.PLAIN),
                 ("K1 with plain K1v", ops.KERNELS._replace(
-                    po_forward_vjp=ops.PLAIN.po_forward_vjp)),
+                    po_forward_vjp_selected=(
+                        ops.PLAIN.po_forward_vjp_selected))),
                 ("plain K1 with K1v", ops.KERNELS._replace(
-                    po_forward=ops.PLAIN.po_forward,
-                    po_forward_drawn=ops.PLAIN.po_forward_drawn)),
+                    po_forward_selected=ops.PLAIN.po_forward_selected)),
                 ("K3 alone", ops.PLAIN._replace(
                     po_splat=ops.KERNELS.po_splat)))
         res = {}
@@ -1502,18 +1552,19 @@ class Config5:
         d_err = 0.0
         for a in k1_calls[:chunks]:
             with torch.no_grad():
-                got = pk.po_forward_drawn(*a[:12])
-                ref = pk.po_forward_plain(*drawn_candidates(a))
-            ok_g, ok_p = got[1] > 0, ref[1] > 0
-            both = ok_g & ok_p
-            flips += int((ok_g != ok_p).sum())
-            n_k1 += int(ok_g.numel())
-            if bool(both.any()):
-                d_err = max([d_err] + [float((g[both] - r[both]).abs().max())
-                                       for g, r in zip(got[2:], ref[2:])])
-        print(f"  K1 against its plain version on the frame's {n_k1} "
-              f"candidates: trans > 0 differs on {flips}; dx, dy max abs "
-              f"difference {d_err:.3e} where both pass", flush=True)
+                got = pk.po_forward_selected(*a[:14])
+                ref = pk.po_forward_selected_plain(*a[:14])
+            alike = (got[3] == ref[3]) & (got[2] > 0) & (ref[2] > 0)
+            flips += int((got[3] != ref[3]).sum())
+            n_k1 += int(got[3].numel())
+            if bool(alike.any()):
+                d_err = max([d_err] + [
+                    float((g[alike] - r[alike]).abs().max())
+                    for g, r in zip(got[:2], ref[:2])])
+        print(f"  K1 against its plain version on the frame's {n_k1} rays: "
+              f"the candidate selected differs on {flips}; origin and "
+              f"direction max abs difference {d_err:.3e} where both take "
+              "the same", flush=True)
         del k1_calls
         if (off > MAX_PIXELS_OFF or g_err[0] > CONFIG5_GRAD_TOL
                 or abs(res["kernels"][1] - res["plain"][1])
@@ -2695,6 +2746,8 @@ def main() -> int:
              "K1 (the folded forward)"),
             ("po_forward_drawn", "po_forward_kernelILb1E",
              "K1's draw mode (it draws its aperture candidates)"),
+            ("po_forward_selected", "po_forward_select_kernel",
+             "K1's select mode (it hands back rays)"),
             ("po_splat", "po_splat_kernelILi0E",
              "K3 flagship instantiation (SPLAT_DISK, the basis solve)"),
             ("po_splat_lam", "po_splat_kernelILi1E",
@@ -2702,8 +2755,10 @@ def main() -> int:
             ("po_splat_ext", "po_splat_kernelILi2E",
              "K3b external-aperture instantiation (SPLAT_EXTERNAL)"),
             ("po_backward", "po_backward_kernel", "K6 (the basis solve)"),
-            ("po_forward_vjp", "po_forward_vjp_kernel",
+            ("po_forward_vjp", "po_forward_vjp_kernelILb0E",
              "K1v (K1's VJP on the folded table)"),
+            ("po_forward_vjp_selected", "po_forward_vjp_kernelILb1E",
+             "K1v's select mode (the rays' cotangents through the chart)"),
             ("po_forward_vjp_finish", "po_forward_vjp_finish",
              "K1v's float64 sums and unfold"),
             ("po_forward_jvp", "po_forward_jvp_kernel",
@@ -2781,8 +2836,8 @@ def main() -> int:
     splat_extra = 60 + 20 * n_sph        # pixel map, lens point, occlusion
 
     with torch.no_grad():
-        # K1: PO forward in its draw mode, M = N * K candidates
-        records.append(k1_record(rec["po_forward_drawn"], ptxas, tag))
+        # K1: PO forward in its select mode, N rays of K candidates
+        records.append(k1_record(rec["po_forward_selected"], ptxas, tag))
 
         # K2: expand, S slots; the library yardstick is index_select
         a2 = rec["expand"]

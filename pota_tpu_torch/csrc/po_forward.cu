@@ -1,28 +1,40 @@
-// PO forward kernel (K1), with a draw mode.
+// PO forward kernel (K1), with a draw mode and a select mode.
 //
 // Replaces: pota_tpu/ops/po_pallas.py::build_po_forward_kernel, the fused
-// per-lens forward trace behind models/po_camera.py::trace_fw_po.
+// per-lens forward trace behind models/po_camera.py::trace_fw_po; the
+// select mode also the XLA epilogue after it (po_chart.cuh).
 //
 // Per candidate: a fixed-iteration 2x2 Newton on the aperture polynomial
 // `ap` for the sensor directions (dx, dy) that reach the aperture sample,
 // the sensor shift, then pt_evaluate of the outer-pupil chart +
 // transmittance.
 //
-// Two modes, one body (po_forward_kernel<kDraw>):
-// - candidates (pota_po_forward): the caller hands every candidate's sensor
-//   point and aperture point, [M] each;
-// - draw (pota_po_forward_drawn): the caller hands each ray's sensor point,
-//   its (r1, r2) and its uint32 retry key, and the kernel draws the ray's K
-//   aperture candidates itself, as po_kernels.py po_forward_drawn_plain
-//   does in torch: candidate 0 on (r1, r2), candidate k >= 1 on two LCG
-//   steps after TEA-8(key, k), the concentric disk (fewer than 2 blades) or
-//   the blade fan, times the aperture radius.  Thread i traces candidate
-//   i % K of ray i / K, the layout the candidate mode reads.  Every float
-//   operation of the draw is the torch chain's, in its order, rounded alone
-//   (__fmul_rn / __fadd_rn / __fdiv_rn, cosf / sinf as torch's kernels
-//   call them), so the candidates are those of the torch chain bit for
-//   bit.  It writes the candidates' rays (x, y, ax, ay) [M] where asked:
-//   the differentiable route saves them for K1v.
+// Three modes:
+// - candidates (pota_po_forward, po_forward_kernel<false>): the caller
+//   hands every candidate's sensor point and aperture point, [M] each;
+// - draw (pota_po_forward_drawn, po_forward_kernel<true>): the caller hands
+//   each ray's sensor point, its (r1, r2) and its uint32 retry key, and the
+//   kernel draws the ray's K aperture candidates itself, as po_kernels.py
+//   po_forward_drawn_plain does in torch: candidate 0 on (r1, r2),
+//   candidate k >= 1 on two LCG steps after TEA-8(key, k), the concentric
+//   disk (fewer than 2 blades) or the blade fan, times the aperture radius.
+//   Thread i traces candidate i % K of ray i / K, the layout the candidate
+//   mode reads.  Every float operation of the draw is the torch chain's, in
+//   its order, rounded alone (__fmul_rn / __fadd_rn / __fdiv_rn, cosf /
+//   sinf as torch's kernels call them), so the candidates are those of the
+//   torch chain bit for bit.  It writes the candidates' rays (x, y, ax, ay)
+//   [M] where asked;
+// - select (pota_po_forward_selected, po_forward_select_kernel): the draw
+//   mode's inputs, the rays' screen points in place of their sensor points,
+//   and the kernel hands back rays, not candidates.  Thread i takes ray i:
+//   it draws and traces the ray's candidates in turn, stops at the first
+//   that passes the pupil crops, maps that chart (or candidate 0's, when
+//   none passes) to the camera-space ray and writes origin, direction,
+//   weight and tries, the bits of the draw mode followed by trace_fw_po's
+//   torch epilogue (po_chart.cuh); where asked, the selected candidate's
+//   sensor point, solution and chart, which the differentiable route saves
+//   for K1v's select mode.  A candidate after the first that passes is
+//   never traced: its outputs reach no ray.
 //
 // What bounds it on the H100: arithmetic.  On the folded table about 1,100
 // FMAs a candidate (the collapse of `ap` to (dx, dy), 3 Newton iterations
@@ -30,20 +42,24 @@
 // 16-byte shared loads, against 20 bytes in and 28 bytes out; the draw adds
 // about 200 integer operations (TEA's 8 rounds, two LCG steps) and one
 // sine and cosine a candidate, and reads 24 bytes a ray (x, y, r1, r2, the
-// key) in place of 16 a candidate.
+// key) in place of 16 a candidate.  The select mode writes 32 bytes a ray
+// (64 with the saved candidate) in place of 28 a candidate, and traces
+// between one candidate a ray and K: a warp runs until its last lane's
+// first success.
 //
 // Design: every ray of a frame has the frame's wavelength, so the kernel
 // runs po_forward_trace (po_forward_basis.cuh) on the table
 // po_kernels.py fold_forward_tables folds at that wavelength: exponents
 // known at compile time (no runtime powers, no loop over a term list, no
 // per-ray wavelength), `ap` collapsed once per candidate to its 21
-// coefficients in (dx, dy).  One thread per candidate, a grid-stride loop;
-// the 3.5 KB table is copied into shared memory once per block and read
-// with volatile 16-byte loads (basis::ld4), which the compiler cannot hoist
-// out of the loop.  On an H100 (sm_90a, CUDA 12.8) each mode takes 87
-// registers and spills nothing (the draw mode keeps a 32-byte stack
-// frame).  One build serves every lens (the TPU kernel baked each lens into
-// immediates).
+// coefficients in (dx, dy).  One thread per candidate (per ray in the
+// select mode), a grid-stride loop; the 3.5 KB table is copied into shared
+// memory once per block and read with volatile 16-byte loads (basis::ld4),
+// which the compiler cannot hoist out of the loop.  On an H100 (sm_90a,
+// CUDA 12.8) the candidate and draw modes take 87 registers and spill
+// nothing (the draw mode keeps a 32-byte stack frame).  One build serves
+// every lens (the TPU kernel baked each lens into immediates).
+#include "po_chart.cuh"
 #include "po_forward_basis.cuh"
 
 namespace pota {
@@ -170,6 +186,88 @@ po_forward_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
   }
 }
 
+// The select mode's per-ray inputs and outputs beside ForwardDraw's.
+struct ForwardSelect {
+  const float* sx;  // the rays' screen points [n_rays]
+  const float* sy;
+  float hsw;        // half the sensor width (mm): x = sx hsw, y = sy hsw
+  PupilSelect pupil;
+  float* origin;     // [n_rays, 3]
+  float* direction;  // [n_rays, 3]
+  float* weight;     // [n_rays]
+  int* tries;        // [n_rays]
+  // the selected candidate's sensor point, solution and chart, [n_rays]
+  // and [n_rays, 4]; null: not written
+  float *x, *y, *dx, *dy, *out4;
+};
+
+// One thread a ray: its K candidates drawn and traced in turn as the draw
+// mode traces them, until the first that passes the crops (crops_ok); that
+// one's chart, or candidate 0's when none passes, mapped to the ray
+// (chart_ray); weight 1 where a candidate passed and the ray is finite,
+// tries the first candidate that passed (K when none did), as
+// models/po_camera.py trace_fw_po's epilogue selects them.
+__global__ void __launch_bounds__(kForwardThreads)
+po_forward_select_kernel(int n_rays, const float* __restrict__ g_tab,
+                         float inv_ap_z, float sensor_shift, int iterations,
+                         const ForwardDraw draw, const ForwardSelect sel) {
+  __shared__ __align__(16) float s_tab[fwd::kTableFloats];
+  block_load(s_tab, g_tab, fwd::kTableFloats);
+  __syncthreads();
+
+  for (int ray = blockIdx.x * blockDim.x + threadIdx.x; ray < n_rays;
+       ray += gridDim.x * blockDim.x) {
+    const float x = __fmul_rn(sel.sx[ray], sel.hsw);
+    const float y = __fmul_rn(sel.sy[ray], sel.hsw);
+    float o[4], dx, dy;
+    float o_first[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dx_first = 0.0f,
+          dy_first = 0.0f;
+    int first = draw.tries;
+    for (int k = 0; k < draw.tries; ++k) {
+      float ax, ay;
+      drawn_aperture(draw, ray, k, ax, ay);
+      const float tr = relu_nan(po_forward_trace(
+          s_tab, inv_ap_z, sensor_shift, iterations, x, y, ax, ay, dx, dy,
+          o));
+      if (crops_ok(sel.pupil, x, y, dx, dy, o, tr, sensor_shift)) {
+        first = k;
+        break;
+      }
+      if (k == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o_first[j] = o[j];
+        dx_first = dx;
+        dy_first = dy;
+      }
+    }
+    if (first == draw.tries) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] = o_first[j];
+      dx = dx_first;
+      dy = dy_first;
+    }
+    float org[3], dir[3];
+    chart_ray(sel.pupil, o, org, dir);
+    bool finite = true;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      finite = finite && isfinite(org[j]) && isfinite(dir[j]);
+      sel.origin[3 * ray + j] = org[j];
+      sel.direction[3 * ray + j] = dir[j];
+    }
+    sel.weight[ray] = (first < draw.tries && finite) ? 1.0f : 0.0f;
+    sel.tries[ray] = first;
+    if (sel.x != nullptr) {
+      sel.x[ray] = x;
+      sel.y[ray] = y;
+      sel.dx[ray] = dx;
+      sel.dy[ray] = dy;
+      reinterpret_cast<float4*>(sel.out4)[ray] =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
 }  // namespace pota
 
 // table: the folded forward table of the frame's wavelength
@@ -207,5 +305,36 @@ extern "C" int pota_po_forward_drawn(
       <<<pota::grid_for(n, threads), threads, 0, stream>>>(
           x, y, nullptr, nullptr, (int)n, table, inv_ap_z, sensor_shift,
           iterations, out4, trans, dx, dy, draw);
+  return (int)cudaGetLastError();
+}
+
+// The select mode: n_rays rays of `tries` candidates each; sx, sy, r1, r2
+// (f32) and key (int64) [n_rays] (key null when tries is 1); the pupil's
+// constants (PupilSelect, in its order); origin, direction [n_rays, 3],
+// weight [n_rays] f32, tries_out [n_rays] int32; the selected candidate's
+// x, y, dx, dy [n_rays] and out4 [n_rays, 4] (16-byte aligned) written
+// when x is not null (then all five are given).
+extern "C" int pota_po_forward_selected(
+    const float* sx, const float* sy, float hsw, const float* r1,
+    const float* r2, const long long* key, int n_rays, int tries,
+    float radius, int blades, float blade_angle, const float* table,
+    float inv_ap_z, float sensor_shift, int iterations, int chart, float R,
+    float R2, float inv_R, float inv_absR, float center, float scale,
+    float r_outer2, float r_inner2, float bfl, float* origin,
+    float* direction, float* weight, int* tries_out, float* x, float* y,
+    float* dx, float* dy, float* out4, cudaStream_t stream) {
+  if (n_rays <= 0) return (int)cudaSuccess;
+  const pota::ForwardDraw draw{r1, r2, key, tries, blades, radius,
+                               blade_angle, nullptr, nullptr, nullptr,
+                               nullptr};
+  const pota::ForwardSelect sel{
+      sx, sy, hsw,
+      pota::PupilSelect{chart, R, R2, inv_R, inv_absR, center, scale,
+                        r_outer2, r_inner2, bfl},
+      origin, direction, weight, tries_out, x, y, dx, dy, out4};
+  constexpr int threads = pota::kForwardThreads;
+  pota::po_forward_select_kernel<<<pota::grid_for(n_rays, threads), threads,
+                                   0, stream>>>(
+      n_rays, table, inv_ap_z, sensor_shift, iterations, draw, sel);
   return (int)cudaGetLastError();
 }

@@ -22,11 +22,22 @@
 // version).  The rays' cotangents (x, y: through u' and -l^T dap/dx; ax,
 // ay: l) are written per candidate when asked for.
 //
+// The select mode (pota_po_forward_vjp_selected, po_forward_vjp_kernel<
+// true>): the backward of K1's select mode.  Its candidates are the rays'
+// selected ones, [N], which K1's select mode saves (x, y, dx, dy, out4);
+// their cotangents are the rays' (origin, direction [N, 3]), which the
+// walk takes through the chart's VJP (po_chart.cuh chart_ray_vjp) onto
+// out4 before the walks above.  trans, dx and dy carry none: the torch
+// epilogue it replaces reads them only through the crops and the select,
+// which carry no gradient.  A ray is live where its cotangents are not all
+// zero.
+//
 // What bounds it on the H100: arithmetic over the candidates that carry a
 // cotangent, about 8,400 f32 operations each (two tangent walks, the 7 x
 // 126 sums), and the cotangents of all candidates (28 bytes each).  On the
 // differentiable frame the first-success select passes a cotangent to one
-// candidate a ray at most: 6.4% of config 5's.
+// candidate a ray at most: 6.4% of config 5's, 19.2% of its rays in the
+// select mode, which walks the selected candidates alone.
 //
 // Design.
 // * Only live candidates are walked.  Each warp first reads the
@@ -55,6 +66,7 @@
 //   thread stays within 128 registers: four blocks of 128 an SM.  No [M,
 //   126] monomial tensor leaves the SM.  The table (3.5 KB, K1's) is read
 //   from shared memory by basis::ld4 as K1 reads it.
+#include "po_chart.cuh"
 #include "po_forward_walks.cuh"
 
 namespace pota {
@@ -165,14 +177,50 @@ struct Cotangents {
   }
 };
 
+// The select mode's inputs: the rays' cotangents in place of K1's, and
+// the selected candidates' charts, whose VJP (po_chart.cuh chart_ray_vjp)
+// gives each candidate's out4 cotangent.
+struct SelectVjp {
+  const float* out4;         // [n, 4], 16-byte aligned
+  const float* g_origin;     // [n, 3]; null: zero
+  const float* g_direction;  // [n, 3]; null: zero
+  PupilSelect pupil;
+
+  __device__ __forceinline__ bool live(int i) const {
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (g_origin) any = any || g_origin[3 * i + k] != 0.0f;
+      if (g_direction) any = any || g_direction[3 * i + k] != 0.0f;
+    }
+    return any;
+  }
+
+  // candidate i's out4 cotangent
+  __device__ __forceinline__ void cotangents(int i, float w[4]) const {
+    const float4 c = reinterpret_cast<const float4*>(out4)[i];
+    const float o[4] = {c.x, c.y, c.z, c.w};
+    float go[3], gd[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      go[k] = g_origin ? g_origin[3 * i + k] : 0.0f;
+      gd[k] = g_direction ? g_direction[3 * i + k] : 0.0f;
+    }
+    chart_ray_vjp(pupil, o, go, gd, w);
+  }
+};
+
 // One live candidate c, on its lane: its stage `st` (the powers first, so
 // that u' and u die with the walks), the weights, both walks one after the
 // other, J^T l = h and the rays' cotangents.  The conditioning is read from
 // the table where it is used, and u from the stage, not kept in registers
-// across the walks.
+// across the walks.  In the select mode (kSelect) its out4 cotangent is
+// the VJP of its chart's ray, and trans, dx and dy have none.
+template <bool kSelect>
 __device__ __forceinline__ void walk_candidate(
-    int c, const float* __restrict__ xs, const float* __restrict__ ys,
-    const float* __restrict__ dxs, const float* __restrict__ dys,
+    int c, const SelectVjp& sel, const float* __restrict__ xs,
+    const float* __restrict__ ys, const float* __restrict__ dxs,
+    const float* __restrict__ dys,
     const float* __restrict__ g_out4, const float* __restrict__ g_trans,
     const float* __restrict__ g_dx, const float* __restrict__ g_dy,
     unsigned tab_s, float sensor_shift, float* st, float* __restrict__ g_x,
@@ -204,21 +252,27 @@ __device__ __forceinline__ void walk_candidate(
   }
   // out4's and trans's cotangents now; dx's and dy's after the walk, so
   // that they are not live during it
-  const Cotangents ct(g_out4, g_trans, nullptr, nullptr, c);
   PtVjp pv;
   pv.pt = tab_s + 4 * fwd::kPt;
   pv.trans = tab_s + 4 * fwd::kTrans;
+  float gt = 0.0f;
+  if constexpr (kSelect) {
+    sel.cotangents(c, pv.w);
+  } else {
+    const Cotangents ct(g_out4, g_trans, nullptr, nullptr, c);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) pv.w[r] = ct.w[r];
+    for (int r = 0; r < 4; ++r) pv.w[r] = ct.w[r];
+    gt = ct.gt;
+  }
   pv.w[4] = 0.0f;
-  if (ct.gt != 0.0f) {
+  if (gt != 0.0f) {
     // relu_nan's mask needs trans's raw value at u'
     fwd::PtSums pts;
     pts.pt = tab_s + 4 * fwd::kPt;
     pts.trans = tab_s + 4 * fwd::kTrans;
     pts.o[0] = pts.o[1] = pts.o[2] = pts.o[3] = pts.tr = 0.0f;
     basis::for_each_monomial(up, pts);
-    pv.w[4] = pts.tr > 0.0f ? ct.gt : 0.0f;
+    pv.w[4] = pts.tr > 0.0f ? gt : 0.0f;
   }
 #pragma unroll
   for (int r = 0; r < kPtRows; ++r) st[kStW + r] = pv.w[r];
@@ -297,8 +351,9 @@ __device__ __forceinline__ void add_batch(const float* stage, int count,
 
 }  // namespace vjp
 
+template <bool kSelect>
 __global__ void __launch_bounds__(vjp::kThreads, vjp::kMinBlocks)
-po_forward_vjp_kernel(const float* __restrict__ xs,
+po_forward_vjp_kernel(const vjp::SelectVjp sel, const float* __restrict__ xs,
                       const float* __restrict__ ys,
                       const float* __restrict__ dxs,
                       const float* __restrict__ dys,
@@ -342,7 +397,10 @@ po_forward_vjp_kernel(const float* __restrict__ xs,
 #pragma unroll
     for (int q = 0; q < kScan; ++q) {
       const int i = base + q * stride + lane;
-      live[q] = i < n && Cotangents(g_out4, g_trans, g_dx, g_dy, i).live();
+      if constexpr (kSelect)
+        live[q] = i < n && sel.live(i);
+      else
+        live[q] = i < n && Cotangents(g_out4, g_trans, g_dx, g_dy, i).live();
     }
 #pragma unroll
     for (int q = 0; q < kScan; ++q) {
@@ -363,9 +421,9 @@ po_forward_vjp_kernel(const float* __restrict__ xs,
     const int batch = min(count - b, 32);
     const int c = lane < batch ? queue[first + (b >> 5) * stride + lane] : -1;
     if (c >= 0)
-      walk_candidate(c, xs, ys, dxs, dys, g_out4, g_trans, g_dx, g_dy,
-                     tab_s, sensor_shift, stage + lane * kStage, g_x, g_y,
-                     g_ax, g_ay);
+      walk_candidate<kSelect>(c, sel, xs, ys, dxs, dys, g_out4, g_trans,
+                              g_dx, g_dy, tab_s, sensor_shift,
+                              stage + lane * kStage, g_x, g_y, g_ax, g_ay);
     __syncwarp();
     add_batch(stage, batch, s_offs, sums, lane);
     __syncwarp();
@@ -427,28 +485,75 @@ po_forward_vjp_finish(const float* __restrict__ partials, int blocks,
 
 }  // namespace pota
 
+template <bool kSelect>
 static int vjp_blocks_per_sm() {
   static const int per_sm = [] {
     int b = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b, pota::po_forward_vjp_kernel, pota::vjp::kThreads, 0);
+        &b, pota::po_forward_vjp_kernel<kSelect>, pota::vjp::kThreads, 0);
     return b;
   }();
   return per_sm;
 }
 
-// Resident blocks of K1v's kernel an SM (the occupancy query).
+template <bool kSelect>
+static int vjp_blocks(int n) {
+  if (n <= 0) return 0;
+  const int per_sm = vjp_blocks_per_sm<kSelect>();
+  return pota::grid_for(n, pota::vjp::kThreads, per_sm < 1 ? 1 : per_sm);
+}
+
+// Resident blocks of K1v's kernel an SM (the occupancy query), in each
+// mode.
 extern "C" int pota_po_forward_vjp_blocks_per_sm() {
-  return vjp_blocks_per_sm();
+  return vjp_blocks_per_sm<false>();
+}
+extern "C" int pota_po_forward_vjp_selected_blocks_per_sm() {
+  return vjp_blocks_per_sm<true>();
 }
 
 // The blocks (partial rows) of a launch over n candidates: one wave of the
 // kernel's resident blocks at most, so the sums' order depends only on n
 // and the card.
 extern "C" int pota_po_forward_vjp_blocks(int n) {
-  if (n <= 0) return 0;
-  const int per_sm = vjp_blocks_per_sm();
-  return pota::grid_for(n, pota::vjp::kThreads, per_sm < 1 ? 1 : per_sm);
+  return vjp_blocks<false>(n);
+}
+
+// The same for the select mode's kernel.
+extern "C" int pota_po_forward_vjp_selected_blocks(int n) {
+  return vjp_blocks<true>(n);
+}
+
+// Both modes' launch: the kernel over n candidates, then the finish.
+template <bool kSelect>
+static int launch_vjp(const pota::vjp::SelectVjp& sel, const float* x,
+                      const float* y, const float* dx, const float* dy,
+                      const float* g_out4, const float* g_trans,
+                      const float* g_dx, const float* g_dy, int n,
+                      const float* table, float sensor_shift, int* queue,
+                      float* partials, int blocks, const int* unfold,
+                      const double* lam_pow, float* g_pt, int t_pt,
+                      float* g_ap, int t_ap, float* g_x, float* g_y,
+                      float* g_ax, float* g_ay, int* live_count,
+                      cudaStream_t stream) {
+  if (blocks != vjp_blocks<kSelect>(n)) return (int)cudaErrorInvalidValue;
+  if (live_count) {
+    const cudaError_t err =
+        cudaMemsetAsync(live_count, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n > 0) {
+    pota::po_forward_vjp_kernel<kSelect>
+        <<<blocks, pota::vjp::kThreads, 0, stream>>>(
+            sel, x, y, dx, dy, g_out4, g_trans, g_dx, g_dy, n, table,
+            sensor_shift, queue, partials, g_x, g_y, g_ax, g_ay, live_count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  pota::po_forward_vjp_finish<<<(pota::vjp::kSums + 31) / 32,
+                                pota::vjp::kFinishThreads, 0, stream>>>(
+      partials, blocks, unfold, lam_pow, g_pt, t_pt, g_ap, t_ap);
+  return (int)cudaGetLastError();
 }
 
 // table: K1's folded forward table of the frame's wavelength
@@ -473,22 +578,34 @@ extern "C" int pota_po_forward_vjp(const float* x, const float* y,
                                    float* g_x, float* g_y, float* g_ax,
                                    float* g_ay, int* live_count,
                                    cudaStream_t stream) {
-  if (blocks != pota_po_forward_vjp_blocks(n))
-    return (int)cudaErrorInvalidValue;
-  if (live_count) {
-    const cudaError_t err =
-        cudaMemsetAsync(live_count, 0, sizeof(int), stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (n > 0) {
-    pota::po_forward_vjp_kernel<<<blocks, pota::vjp::kThreads, 0, stream>>>(
-        x, y, dx, dy, g_out4, g_trans, g_dx, g_dy, n, table, sensor_shift,
-        queue, partials, g_x, g_y, g_ax, g_ay, live_count);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  pota::po_forward_vjp_finish<<<(pota::vjp::kSums + 31) / 32,
-                                pota::vjp::kFinishThreads, 0, stream>>>(
-      partials, blocks, unfold, lam_pow, g_pt, t_pt, g_ap, t_ap);
-  return (int)cudaGetLastError();
+  return launch_vjp<false>(pota::vjp::SelectVjp{}, x, y, dx, dy, g_out4,
+                           g_trans, g_dx, g_dy, n, table, sensor_shift,
+                           queue, partials, blocks, unfold, lam_pow, g_pt,
+                           t_pt, g_ap, t_ap, g_x, g_y, g_ax, g_ay,
+                           live_count, stream);
+}
+
+// The select mode: n rays' selected candidates (x, y, dx, dy [n] and
+// their charts out4 [n, 4], 16-byte aligned: K1's select mode saves them)
+// and the rays' cotangents g_origin, g_direction [n, 3] (null: zero); the
+// pupil's constants as K1's select mode takes them (PupilSelect, chart to
+// scale); blocks = pota_po_forward_vjp_selected_blocks(n); the rest as
+// pota_po_forward_vjp takes it, without the rays' cotangents.
+extern "C" int pota_po_forward_vjp_selected(
+    const float* x, const float* y, const float* dx, const float* dy,
+    const float* out4, const float* g_origin, const float* g_direction,
+    int n, const float* table, float sensor_shift, int chart, float R,
+    float R2, float inv_R, float inv_absR, float center, float scale,
+    int* queue, float* partials, int blocks, const int* unfold,
+    const double* lam_pow, float* g_pt, int t_pt, float* g_ap, int t_ap,
+    int* live_count, cudaStream_t stream) {
+  const pota::vjp::SelectVjp sel{
+      out4, g_origin, g_direction,
+      pota::PupilSelect{chart, R, R2, inv_R, inv_absR, center, scale, 0.0f,
+                        0.0f, 0.0f}};
+  return launch_vjp<true>(sel, x, y, dx, dy, nullptr, nullptr, nullptr,
+                          nullptr, n, table, sensor_shift, queue, partials,
+                          blocks, unfold, lam_pow, g_pt, t_pt, g_ap, t_ap,
+                          nullptr, nullptr, nullptr, nullptr, live_count,
+                          stream);
 }

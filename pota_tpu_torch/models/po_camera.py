@@ -2,14 +2,18 @@
 :mod:`pota_tpu.models.po_camera`).
 
 The reference's vignetting-retry loop becomes K = ``vignetting_retries + 1``
-candidate aperture samples per ray, all traced by the PO forward kernel,
-then a first-success select.  K1 draws the candidates itself
-(``ops.po_kernels.po_forward_drawn``, its draw mode), except for the image
-bokeh, whose CDF's candidates are drawn in torch and handed to K1
-(``ops.po_kernels.po_forward``).  The differentiable route traces them
-through the same kernel with its VJP (``ops.po_kernels.DrawnForwardFn`` or
-``ForwardFn``: K1 forward, K1v backward), the gradient JAX takes through
-its pure path (``use_pallas=False``).  The ray differentials
+candidate aperture samples per ray, traced by the PO forward kernel, then a
+first-success select.  With depth of field K1 draws the candidates, selects
+each ray's and hands back the rays (``ops.po_kernels.po_forward_selected``,
+its select mode; the draw and select of :func:`select_rays` inside its
+launch), except for the image bokeh, whose CDF's candidates are drawn in
+torch and handed to K1 (``ops.po_kernels.po_forward``), then selected in
+torch.  The differentiable route takes the same kernel with its VJP
+(``ops.po_kernels.SelectFn``: K1 forward, K1v backward; ``ForwardFn`` for
+the image bokeh), the gradient JAX takes through its pure path
+(``use_pallas=False``); on the CPU it keeps K1's draw mode with the term
+trace (``DrawnForwardFn``) and the select in torch, JAX's rounding, to
+which the CPU tests hold it.  The ray differentials
 take K1j on the card (:func:`trace_fw_po_jvp`: K1's function and its
 Jacobian in the sensor point, one launch) and, on the CPU and without
 depth of field, the deriv ray's torch trace (``trace_fw_po(deriv_ray=True)``,
@@ -24,13 +28,14 @@ from ..config import CameraConfig
 from ..ops.po_kernels import (
     DrawnForwardFn,
     ForwardFn,
+    SelectFn,
     aperture_sample,
     candidate_rays,
+    chart_rays,
+    select_rays,
 )
-from ..optics import geometry as geo
 from ..optics.polynomial import (
     PolyLens,
-    inner_pupil_ok,
     pt_evaluate,
     pt_sample_aperture,
 )
@@ -48,19 +53,17 @@ def po_sample_aperture_disk(cfg: CameraConfig, r1, r2, bokeh_cdf=None):
     return aperture_sample(r1, r2, cfg.aperture_blades)
 
 
-def rays_from_chart(cfg: CameraConfig, lens: PolyLens, out4):
-    """The outer pupil's chart ``out4`` [N, 4] (mm) to camera-space rays in
-    scene units: ``chart_to_cs``, the scale (negative: it reverses the rays
-    and converts mm to units), the direction normalised.  Returns (origin
-    [N, 3], direction [N, 3])."""
-    R = lens.outer_pupil_curvature_radius
-    origin, direction = geo.chart_to_cs(out4[..., :2], out4[..., 2:4], -R, R,
-                                        lens.outer_chart)
-    scale = cfg.unit_scale_po
-    origin = origin * scale
-    direction = direction * scale
-    dir_n2 = torch.sum(direction * direction, -1, keepdim=True)
-    return origin, direction / torch.sqrt(torch.clamp(dir_n2, min=1e-24))
+def _takes_select(cfg: CameraConfig, sx, sy, image_bokeh: bool,
+                  differentiable: bool, deriv_ray: bool) -> bool:
+    """Whether :func:`trace_fw_po` takes K1's select mode: depth of field
+    on, the image bokeh off, not the deriv ray; on the differentiable route
+    only on the card (the CPU's traces the term set, JAX's rounding) and
+    with screen points that take no gradient."""
+    if not cfg.enable_dof or image_bokeh or deriv_ray:
+        return False
+    return not differentiable or not (sx.device.type == "cpu"
+                                      or sx.requires_grad
+                                      or sy.requires_grad)
 
 
 def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
@@ -73,15 +76,16 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     Returns (origin [N, 3], dir [N, 3], weight [N], tries [N]) scaled to
     scene units, camera looking down -z.  ``ops`` selects the kernel set
     (default: the kernel wrappers, :data:`pota_tpu_torch.ops.KERNELS`).
-    With depth of field K1 draws the [N, K] candidates itself
-    (``ops.po_forward_drawn``); the image bokeh's are drawn in torch from
-    its CDF and handed to ``ops.po_forward``.  ``differentiable`` traces
-    the candidates through
-    :class:`~pota_tpu_torch.ops.po_kernels.DrawnForwardFn` (or, with the
-    image bokeh, ``ForwardFn``: K1 forward, ``ops.po_forward_vjp``
-    backward: JAX's gradient of its pure path,
-    ``pota_tpu/models/po_camera.py:194-205``), so origin and direction
-    carry gradients to the lens coefficients.  ``deriv_ray``
+    With depth of field K1 draws the [N, K] candidates, selects each ray's
+    and returns the rays (``ops.po_forward_selected``); the image bokeh's
+    are drawn in torch from its CDF and handed to ``ops.po_forward``, and
+    selected in torch (:func:`select_rays`).  ``differentiable`` traces
+    the rays through :class:`~pota_tpu_torch.ops.po_kernels.SelectFn` (on
+    the CPU K1's draw mode, ``DrawnForwardFn``, and :func:`select_rays`;
+    with the image bokeh ``ForwardFn``: K1 forward, K1v backward: JAX's
+    gradient of its pure path, ``pota_tpu/models/po_camera.py:194-205``),
+    so origin and direction carry gradients to the lens coefficients.
+    ``deriv_ray``
     traces one candidate on (r1, r2), draws no retry uniforms
     (``retry_key`` may be None) and takes the torch trace
     (``pt_sample_aperture``, ``pt_evaluate``: the term trace, whatever the
@@ -97,10 +101,25 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     n_tries = 1 if deriv_ray else cfg.vignetting_retries + 1
     n = sx.shape[0]
     hsw = cfg.sensor_width * 0.5
+    image_bokeh = cfg.bokeh_enable_image and bokeh_cdf is not None
+    if _takes_select(cfg, sx, sy, image_bokeh, differentiable, deriv_ray):
+        # K1 draws, traces and selects the candidates and hands back the
+        # rays (its select mode)
+        rays = (sx.contiguous(), sy.contiguous(), r1.contiguous(),
+                r2.contiguous(),
+                None if retry_key is None else retry_key.contiguous())
+        draw = (n_tries, aperture_radius, cfg.aperture_blades)
+        lam, scale = cfg.lambda_um, cfg.unit_scale_po
+        if differentiable:
+            return SelectFn.apply(*rays, lens.pt.coeffs, lens.ap.coeffs,
+                                  lens, draw, lam, sensor_shift,
+                                  newton_iterations, (hsw, scale), ops)
+        return ops.po_forward_selected(lens, rays[0], rays[1], hsw,
+                                       *rays[2:], *draw, lam, sensor_shift,
+                                       scale, newton_iterations)
     x = sx * hsw
     y = sy * hsw
 
-    image_bokeh = cfg.bokeh_enable_image and bokeh_cdf is not None
     if cfg.enable_dof and (deriv_ray or image_bokeh):
         aperture = (po_sample_aperture_disk(
             cfg, *prng.retry_uniforms(r1, r2, retry_key, n_tries), bokeh_cdf)
@@ -130,17 +149,14 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
                 out4, trans, dx, dy = ops.po_forward(lens, *rays, lam,
                                                      sensor_shift, its)
         else:
-            # K1 draws the candidates itself (its draw mode)
+            # the differentiable route off the select mode (the CPU's): K1
+            # draws the candidates (its draw mode), selected in torch
             rays = (x, y, r1.contiguous(), r2.contiguous(),
                     None if retry_key is None else retry_key.contiguous())
-            draw = (n_tries, aperture_radius, cfg.aperture_blades)
-            if differentiable:
-                out4, trans, dx, dy = DrawnForwardFn.apply(
-                    *rays, lens.pt.coeffs, lens.ap.coeffs, lens, draw, lam,
-                    sensor_shift, its, ops)
-            else:
-                out4, trans, dx, dy = ops.po_forward_drawn(
-                    lens, *rays, *draw, lam, sensor_shift, its)
+            out4, trans, dx, dy = DrawnForwardFn.apply(
+                *rays, lens.pt.coeffs, lens.ap.coeffs, lens,
+                (n_tries, aperture_radius, cfg.aperture_blades), lam,
+                sensor_shift, its, ops)
         out4 = out4.reshape(n, n_tries, 4)
         trans = trans.reshape(n, n_tries)
         dx = dx.reshape(n, n_tries)
@@ -155,23 +171,8 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
         yk = y[:, None] + zero
         out4, trans = pt_evaluate(
             lens, torch.stack([xk, yk, dx, dy, zero + cfg.lambda_um], -1))
-    shifted = torch.stack([xk, yk, dx, dy], -1)
-
-    ok = trans > 0.0
-    ok &= out4[..., 0] ** 2 + out4[..., 1] ** 2 <= lens.outer_pupil_radius ** 2
-    ok &= inner_pupil_ok(lens, shifted)
-
-    # first-success select over the K candidates
-    first = torch.argmax(ok.to(torch.int32), -1)
-    any_ok = ok.any(-1)
-    out_sel = torch.gather(out4, 1, first[:, None, None].expand(n, 1, 4))[:, 0]
-
-    origin, direction = rays_from_chart(cfg, lens, out_sel)
-
-    finite = torch.all(torch.isfinite(origin) & torch.isfinite(direction), -1)
-    weight = torch.where(any_ok & finite, 1.0, 0.0)
-    tries = torch.where(any_ok, first, n_tries).to(torch.int32)
-    return origin, direction, weight, tries
+    return select_rays(lens, out4, trans, torch.stack([xk, yk, dx, dy], -1),
+                       cfg.unit_scale_po)
 
 
 def trace_fw_po_jvp(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
@@ -182,7 +183,8 @@ def trace_fw_po_jvp(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     K1's function and its Jacobian in the sensor point (x, y), JAX's
     ``custom_root`` tangent at the Newton's solution; then, per screen
     tangent ``(t_sx, t_sy)`` of ``tangents`` ([N] each), the chart's
-    tangent ``J (t_sx, t_sy) hsw`` through :func:`rays_from_chart` by
+    tangent ``J (t_sx, t_sy) hsw`` through
+    :func:`~pota_tpu_torch.ops.po_kernels.chart_rays` by
     ``torch.func.jvp`` (the torch tail alone).  What ``torch.func.jvp`` of
     ``trace_fw_po(deriv_ray=True)`` computes, without its torch trace.
     Returns [(d origin [N, 3], d direction [N, 3])], one pair a tangent."""
@@ -200,7 +202,8 @@ def trace_fw_po_jvp(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     for t_sx, t_sy in tangents:
         t_out4 = (jac[..., 0] * (t_sx * hsw)[:, None]
                   + jac[..., 1] * (t_sy * hsw)[:, None])
-        _, d = torch.func.jvp(lambda o: rays_from_chart(cfg, lens, o),
+        _, d = torch.func.jvp(lambda o: chart_rays(lens, o,
+                                                   cfg.unit_scale_po),
                               (out4,), (t_out4,))
         out.append(d)
     return out

@@ -25,6 +25,8 @@ class KernelOps(NamedTuple):
     po_forward_vjp: Callable
     po_forward_jvp: Callable
     po_forward_drawn: Callable
+    po_forward_selected: Callable
+    po_forward_vjp_selected: Callable
 
 
 KERNELS = KernelOps(po_kernels.po_forward, po_kernels.expand,
@@ -32,7 +34,9 @@ KERNELS = KernelOps(po_kernels.po_forward, po_kernels.expand,
                     po_kernels.tl_splat, po_kernels.po_splat_lam,
                     po_kernels.po_splat_ext, po_kernels.po_backward,
                     po_kernels.po_forward_vjp, po_kernels.po_forward_jvp,
-                    po_kernels.po_forward_drawn)
+                    po_kernels.po_forward_drawn,
+                    po_kernels.po_forward_selected,
+                    po_kernels.po_forward_vjp_selected)
 PLAIN = KernelOps(po_kernels.po_forward_plain, po_kernels.expand_plain,
                   po_kernels.po_splat_plain, splat_accum.segment_accum_plain,
                   po_kernels.tl_splat_plain, po_kernels.po_splat_lam_plain,
@@ -40,6 +44,8 @@ PLAIN = KernelOps(po_kernels.po_forward_plain, po_kernels.expand_plain,
                   po_kernels.po_backward_plain,
                   po_kernels.po_forward_vjp_plain,
                   po_kernels.po_forward_jvp_plain,
-                  po_kernels.po_forward_drawn_plain)
+                  po_kernels.po_forward_drawn_plain,
+                  po_kernels.po_forward_selected_plain,
+                  po_kernels.po_forward_vjp_selected_plain)
 
 __all__ = ["KERNELS", "PLAIN", "KernelOps", "LAUNCHES", "reset_launches"]

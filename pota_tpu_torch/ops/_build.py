@@ -53,6 +53,16 @@ SIGNATURES = {
     # trans, dx, dy and the candidates' x, y, ax, ay (null: not written)
     "pota_po_forward_drawn": [_p] * 5 + [_i, _i, _f, _i, _f, _p, _f, _f,
                                          _i] + [_p] * 9,
+    # K1's select mode (po_forward_select_kernel: a ray a thread, its
+    # candidates traced until the first that passes the pupil crops, the
+    # chart mapped to the ray): the rays' sx, sy, the half sensor width,
+    # r1, r2 and keys, n_rays, tries, radius, blades, the blade angle, the
+    # table and K1's scalars, the pupil's constants (chart, then R to bfl),
+    # origin, direction, weight, tries and the selected candidate's x, y,
+    # dx, dy, out4 (null: not written)
+    "pota_po_forward_selected": [_p, _p, _f, _p, _p, _p, _i, _i, _f, _i,
+                                 _f, _p, _f, _f, _i, _i] + [_f] * 9
+                                + [_p] * 10,
     "pota_expand": [_p, _i, _p, _i, _p, _i, _i, _p, _p, _p],
     "pota_po_splat": _PO_SPLAT,
     "pota_segment_accum": [_p, _p, _ll, _p, _i, _p, _i] + [_p] * 8,
@@ -64,6 +74,14 @@ SIGNATURES = {
     "pota_po_forward_vjp": [_p] * 8 + [_i, _p, _f, _p, _p, _i, _p, _p, _p,
                                        _i, _p, _i] + [_p] * 6,
     "pota_po_forward_vjp_blocks": [_i],
+    # K1v's select mode: the selected candidates' x, y, dx, dy, out4 and
+    # the rays' cotangents, n, the table, the shift, the pupil's constants
+    # (chart, R to scale), then as pota_po_forward_vjp from the queue on
+    "pota_po_forward_vjp_selected": [_p] * 7 + [_i, _p, _f, _i] + [_f] * 6
+                                    + [_p, _p, _i, _p, _p, _p, _i, _p, _i,
+                                       _p, _p],
+    "pota_po_forward_vjp_selected_blocks": [_i],
+    "pota_po_forward_vjp_selected_blocks_per_sm": [],
     "pota_po_forward_vjp_blocks_per_sm": [],
     "pota_po_forward_jvp": [_p] * 4 + [_i, _p, _f, _f, _i] + [_p] * 6,
     "pota_po_forward_jvp_blocks_per_sm": [],

@@ -10,10 +10,14 @@ code, and are what the CPU tests hold against the JAX package.
   (``pota_tpu/ops/po_pallas.py::build_po_forward_kernel``), on the table
   :func:`fold_forward_tables` folds at the frame's wavelength, and
   :func:`po_forward_drawn`, K1 in its draw mode (it draws each ray's
-  aperture candidates itself; :class:`DrawnForwardFn` with a gradient), and
+  aperture candidates itself; :class:`DrawnForwardFn` with a gradient),
+  :func:`po_forward_selected`, K1 in its select mode (it also selects each
+  ray's candidate and hands back the ray; :class:`SelectFn` with a
+  gradient), and
   :func:`po_forward_vjp` — K1v, its VJP on the same table (no TPU kernel:
   JAX differentiates its pure path), which :class:`ForwardFn` binds as
-  K1's gradient for the differentiable PO trace, and
+  K1's gradient for the differentiable PO trace, with its select mode
+  :func:`po_forward_vjp_selected`, and
   :func:`po_forward_jvp` — K1j, K1's function with its Jacobian in the
   sensor point (no TPU kernel: JAX takes ``jax.jvp`` of its pure path), for
   the PO ray differentials;
@@ -40,17 +44,19 @@ The kernels compute values only.  A wrapper handed a tensor (or a lens
 whose coefficients) that requires grad while grad mode is on raises
 ``RuntimeError`` (:func:`_refuse_grad`): its output would be cut off from
 the graph.  The differentiable routes call them under ``no_grad`` or inside
-an ``autograd.Function`` (:class:`ForwardFn`, :class:`ExpandFn`,
-``splat_accum.AccumFn``).
+an ``autograd.Function`` (:class:`ForwardFn`, :class:`SelectFn`,
+:class:`ExpandFn`, ``splat_accum.AccumFn``).
 """
 from __future__ import annotations
 
 import itertools
 import math
+import struct
 import weakref
 
 import torch
 
+from ..optics import geometry as geo
 from ..optics import samplers
 from ..optics.geometry import CHARTS
 from ..optics.polynomial import (
@@ -862,6 +868,167 @@ def po_forward_drawn(lens: PolyLens, x, y, r1, r2, key, tries: int,
     return (out4, trans, dx, dy) + rays
 
 
+# --------------------------------- K1's select mode: it hands back rays
+
+
+def chart_rays(lens: PolyLens, out4, scale: float):
+    """The outer pupil's chart ``out4`` [..., 4] (mm) to camera-space rays
+    in scene units: ``chart_to_cs``, the scale ``scale`` (the camera's
+    ``unit_scale_po``, negative: it reverses the rays and converts mm to
+    units), the direction normalised.  Returns (origin [..., 3], direction
+    [..., 3])."""
+    R = lens.outer_pupil_curvature_radius
+    origin, direction = geo.chart_to_cs(out4[..., :2], out4[..., 2:4], -R, R,
+                                        lens.outer_chart)
+    origin = origin * scale
+    direction = direction * scale
+    dir_n2 = torch.sum(direction * direction, -1, keepdim=True)
+    return origin, direction / torch.sqrt(torch.clamp(dir_n2, min=1e-24))
+
+
+def select_rays(lens: PolyLens, out4, trans, shifted, scale: float):
+    """The PO trace's epilogue over each ray's K candidates: the crops
+    (``trans > 0``, the outer pupil's radius, ``inner_pupil_ok`` at the
+    shifted sensor point ``shifted`` [N, K, 4] = (xk, yk, dx, dy)), the
+    first-success select (the lowest candidate that passes, candidate 0
+    when none does), :func:`chart_rays` of its chart (``out4`` [N, K, 4]),
+    the finite test.  Returns (origin [N, 3], direction [N, 3], weight [N]:
+    1 where a candidate passed and the ray is finite, tries [N] int32: the
+    candidate taken, K when none passed)."""
+    n, n_tries = trans.shape
+    ok = trans > 0.0
+    ok &= out4[..., 0] ** 2 + out4[..., 1] ** 2 <= lens.outer_pupil_radius ** 2
+    ok &= inner_pupil_ok(lens, shifted)
+
+    # first-success select over the K candidates
+    first = torch.argmax(ok.to(torch.int32), -1)
+    any_ok = ok.any(-1)
+    out_sel = torch.gather(out4, 1, first[:, None, None].expand(n, 1, 4))[:, 0]
+
+    origin, direction = chart_rays(lens, out_sel, scale)
+
+    finite = torch.all(torch.isfinite(origin) & torch.isfinite(direction), -1)
+    weight = torch.where(any_ok & finite, 1.0, 0.0)
+    tries = torch.where(any_ok, first, n_tries).to(torch.int32)
+    return origin, direction, weight, tries
+
+
+def _select_candidates(lens: PolyLens, x, y, cand, tries: int,
+                       sensor_shift: float, scale: float, need_rays: bool):
+    """:func:`select_rays` of K1's outputs ``cand`` = (out4, trans, dx, dy)
+    on the rays' K candidates, ray-major, at the sensor points ``x, y``
+    [N]; with ``need_rays`` also the selected candidate's (x, y, dx, dy
+    [N], out4 [N, 4])."""
+    n = x.shape[0]
+    out4, trans, dx, dy = (t.reshape(n, tries, *t.shape[1:]) for t in cand)
+    xk = x[:, None] + dx * sensor_shift
+    yk = y[:, None] + dy * sensor_shift
+    out = select_rays(lens, out4, trans, torch.stack([xk, yk, dx, dy], -1),
+                      scale)
+    if not need_rays:
+        return out
+    first = torch.where(out[3] == tries, 0, out[3]).long()[:, None]
+    pick = lambda t: torch.gather(t, 1, first)[:, 0]
+    out_sel = torch.gather(out4, 1, first[..., None].expand(n, 1, 4))[:, 0]
+    return out + (x, y, pick(dx), pick(dy), out_sel)
+
+
+def po_forward_selected_plain(lens: PolyLens, sx, sy, hsw: float, r1, r2,
+                              key, tries: int, radius: float, blades: int,
+                              lam_um: float, sensor_shift: float,
+                              scale: float, iterations: int = 3,
+                              need_rays: bool = False):
+    """Plain K1 select mode: the sensor points ``sx * hsw``, ``sy * hsw``,
+    K1's plain draw mode (:func:`po_forward_drawn_plain`) on them, then the
+    epilogue in torch (:func:`select_rays`).  Returns what
+    :func:`po_forward_selected` returns."""
+    x, y = sx * hsw, sy * hsw
+    cand = po_forward_drawn_plain(lens, x, y, r1, r2, key, tries, radius,
+                                  blades, lam_um, sensor_shift, iterations)
+    return _select_candidates(lens, x, y, cand, tries, sensor_shift, scale,
+                              need_rays)
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as torch rounds a Python scalar that meets
+    a float32 tensor."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+def _pupil_select(lens: PolyLens, scale: float) -> tuple:
+    """The select mode's pupil constants (``csrc/po_chart.cuh``
+    ``PupilSelect``, in its order): the chart's index in :data:`CHARTS`,
+    then R, R ** 2, 1 / R, 1 / |R|, -R, the unit scale and the crops' outer
+    radius squared, inner radius squared and back focal length, each the
+    float32 that the torch epilogue's Python scalar becomes (a division by
+    a scalar is a product with its float32 reciprocal)."""
+    R = lens.outer_pupil_curvature_radius
+    return (CHARTS.index(lens.outer_chart), _f32(R), _f32(R ** 2),
+            _f32(1.0 / _f32(R)), _f32(1.0 / _f32(abs(R))), _f32(-R),
+            _f32(scale), _f32(lens.outer_pupil_radius ** 2),
+            _f32(lens.inner_pupil_radius ** 2),
+            _f32(lens.back_focal_length))
+
+
+@span("pota.k1")
+def po_forward_selected(lens: PolyLens, sx, sy, hsw: float, r1, r2, key,
+                        tries: int, radius: float, blades: int,
+                        lam_um: float, sensor_shift: float, scale: float,
+                        iterations: int = 3, need_rays: bool = False):
+    """K1 in its select mode: K1 hands back each ray, not its candidates
+    (``csrc/po_forward.cu``, ``pota_po_forward_selected``; its plain
+    version on the CPU).  The sensor point ``sx * hsw, sy * hsw``, the K =
+    ``tries`` candidates drawn as :func:`po_forward_drawn` draws them and
+    traced until the first that passes the pupil crops, the chart of that
+    one (of candidate 0 when none passes) mapped to the ray at the unit
+    scale ``scale``: bit for bit the draw mode followed by
+    :func:`select_rays`.  ``sx, sy, r1, r2`` f32 [N] contiguous, ``key``
+    int64 [N] (None when K is 1), ``hsw`` half the sensor width (mm); the
+    rest as :func:`po_forward_drawn` takes it.  Counts one ``po_forward``
+    launch, and the rays selected in ``k1.selected`` while a profiler
+    records.  Returns (origin [N, 3], direction [N, 3], weight [N], tries
+    [N] int32), and with ``need_rays`` the selected candidate's sensor
+    point, solution and chart (x, y, dx, dy [N], out4 [N, 4]) after them,
+    which K1v's select mode (:func:`po_forward_vjp_selected`) takes."""
+    _refuse_grad("po_forward_selected", sx, sy, r1, r2, lens=lens)
+    dev = sx.device
+    n, tries, blades = sx.shape[0], int(tries), int(blades)
+    for name, t in (("sx", sx), ("sy", sy), ("r1", r1), ("r2", r2)):
+        _check(name, t, torch.float32, dev, (n,))
+    if key is not None or tries > 1:
+        _check("key", key, torch.int64, dev, (n,))
+    if tries < 1 or n * tries >= 2 ** 31:
+        raise ValueError(f"po_forward_selected: {n} rays of {tries} "
+                         "candidates")
+    if lens.device != dev:
+        raise ValueError(f"lens on {lens.device}, rays on {dev}")
+    trace.count("k1.selected", n)
+    if dev.type == "cpu":
+        return po_forward_selected_plain(lens, sx, sy, hsw, r1, r2, key,
+                                         tries, radius, blades, lam_um,
+                                         sensor_shift, scale, iterations,
+                                         need_rays)
+    table = _folded_table(lens, "forward", (lam_um,), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    origin, direction = (torch.empty((n, 3), **f32) for _ in range(2))
+    weight = torch.empty((n,), **f32)
+    tries_out = torch.empty((n,), dtype=torch.int32, device=dev)
+    saved = (tuple(torch.empty((n,), **f32) for _ in range(4))
+             + (torch.empty((n, 4), **f32),)) if need_rays else ()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _build.lib().pota_po_forward_selected(
+        sx.data_ptr(), sy.data_ptr(), float(hsw), r1.data_ptr(),
+        r2.data_ptr(), ptr(key), n, tries, float(radius), blades,
+        2.0 * math.pi / blades if blades >= 2 else 0.0, table.data_ptr(),
+        1.0 / lens.aperture_z, float(sensor_shift), int(iterations),
+        *_pupil_select(lens, scale), origin.data_ptr(), direction.data_ptr(),
+        weight.data_ptr(), tries_out.data_ptr(),
+        *(ptr(t) for t in saved or (None,) * 5), _stream(dev))
+    _build.check(err, "po_forward_selected")
+    _build.LAUNCHES["po_forward"] += 1
+    return (origin, direction, weight, tries_out) + saved
+
+
 # -------------------------------------------- K1v: the VJP of K1's function
 
 
@@ -1051,43 +1218,210 @@ def po_forward_vjp(lens: PolyLens, x, y, ax, ay, dx, dy, g_out4, g_trans,
         return po_forward_vjp_plain(lens, x, y, ax, ay, dx, dy, g_out4,
                                     g_trans, g_dx, g_dy, lam_um,
                                     sensor_shift, need_inputs)
+    _check_vjp_coeffs("po_forward_vjp", lens)
+    if g_out4 is not None and g_out4.data_ptr() % 16:
+        raise ValueError("g_out4: must be 16-byte aligned")
+    lib = _build.lib()
+    blocks = lib.pota_po_forward_vjp_blocks(m)
+    g_in = ([torch.empty((m,), dtype=torch.float32, device=dev)
+             for _ in range(4)] if need_inputs else [])
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return _launch_vjp(
+        "po_forward_vjp", lens, lam_um, m, blocks,
+        lambda table, scratch, grads, live, stream: lib.pota_po_forward_vjp(
+            x.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+            ptr(g_out4), ptr(g_trans), ptr(g_dx), ptr(g_dy), m, table,
+            float(sensor_shift), *scratch, *grads,
+            *(ptr(t) for t in (g_in or [None] * 4)), live,
+            stream)) + tuple(g_in)
+
+
+def _check_vjp_coeffs(name: str, lens: PolyLens) -> None:
+    """K1v's refusals of the lens on the card: float32 coefficients, and
+    pt's and ap's rows K1's."""
     coeffs = (lens.pt.coeffs, lens.ap.coeffs)
     if any(c.dtype != torch.float32 for c in coeffs):
-        raise TypeError("po_forward_vjp: the lens's coefficients must be "
+        raise TypeError(f"{name}: the lens's coefficients must be "
                         "float32 on the card")
     if (coeffs[0].shape[0], coeffs[1].shape[0]) != (FWD_PT_ROWS,
                                                     FWD_AP_ROWS):
-        raise ValueError("po_forward_vjp: pt and ap must have K1's rows "
+        raise ValueError(f"{name}: pt and ap must have K1's rows "
                          f"({FWD_PT_ROWS}, {FWD_AP_ROWS})")
-    if g_out4 is not None and g_out4.data_ptr() % 16:
-        raise ValueError("g_out4: must be 16-byte aligned")
+
+
+def _launch_vjp(name: str, lens: PolyLens, lam_um: float, m: int,
+                blocks: int, launch) -> tuple:
+    """One K1v launch of either mode on the card over ``m`` candidates in
+    ``blocks`` blocks: its tables, the coefficients' cotangents, the
+    scratch, the live count while a profiler records; ``launch(table,
+    (queue, partials, blocks, index, lam_pow), (g_pt, t_pt, g_ap, t_ap),
+    live)`` calls the C entry with those pointers and its stream last.
+    Counts one ``po_forward_vjp`` launch and, traced, ``k1v.candidates``
+    and ``k1v.live``.  Returns (d pt.coeffs, d ap.coeffs)."""
+    dev = lens.device
     table, index, lam_pow = _vjp_tables(lens, lam_um, dev)
-    lib = _build.lib()
-    blocks = lib.pota_po_forward_vjp_blocks(m)
     g_pt, g_ap = (torch.empty(c.shape, dtype=torch.float32, device=dev)
-                  for c in coeffs)
-    g_in = ([torch.empty((m,), dtype=torch.float32, device=dev)
-             for _ in range(4)] if need_inputs else [])
+                  for c in (lens.pt.coeffs, lens.ap.coeffs))
     stream = _stream(dev)
     queue, partials = _vjp_scratch(dev, stream, m, blocks)
     # the live candidates' count, made only while a profiler records
     live = (torch.empty((1,), dtype=torch.int32, device=dev)
             if trace.recording() else None)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.pota_po_forward_vjp(
-        x.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        ptr(g_out4), ptr(g_trans), ptr(g_dx), ptr(g_dy), m,
-        table.data_ptr(), float(sensor_shift), queue.data_ptr(),
-        partials.data_ptr(), blocks, index.data_ptr(),
-        lam_pow.data_ptr(), g_pt.data_ptr(), g_pt.shape[1],
-        g_ap.data_ptr(), g_ap.shape[1],
-        *(ptr(t) for t in (g_in or [None] * 4)), ptr(live), stream)
-    _build.check(err, "po_forward_vjp")
+    err = launch(table.data_ptr(),
+                 (queue.data_ptr(), partials.data_ptr(), blocks,
+                  index.data_ptr(), lam_pow.data_ptr()),
+                 (g_pt.data_ptr(), g_pt.shape[1], g_ap.data_ptr(),
+                  g_ap.shape[1]),
+                 None if live is None else live.data_ptr(), stream)
+    _build.check(err, name)
     _build.LAUNCHES["po_forward_vjp"] += 1
     if live is not None:
         trace.count("k1v.candidates", m)
         trace.count("k1v.live", live)
-    return (g_pt, g_ap, *g_in)
+    return g_pt, g_ap
+
+
+def _normalize_vjp(v, lo: float, g):
+    """The VJP of ``v / sqrt(clamp(|v|^2, min=lo))`` ([..., 3]) for the
+    cotangent ``g``: ``(g - m (g . y) y) / s``, y the result, s its
+    divisor, m where the floor let ``|v|^2`` through."""
+    n2 = torch.sum(v * v, -1, keepdim=True)
+    s = torch.sqrt(torch.clamp(n2, min=lo))
+    gy = torch.where(n2 >= lo, torch.sum(g * v, -1, keepdim=True) / (s * s),
+                     0.0)
+    return (g - gy * v) / s
+
+
+def chart_rays_vjp(lens: PolyLens, out4, g_origin, g_direction,
+                   scale: float):
+    """The VJP of :func:`chart_rays` at the charts ``out4`` [N, 4] for the
+    rays' cotangents ``g_origin``, ``g_direction`` [N, 3] (None: zero): the
+    formulas of ``csrc/po_chart.cuh`` ``chart_ray_vjp``, in torch and in
+    the charts' dtype with the lens's constants unrounded, with the
+    gradients autograd takes through the epilogue's guards (none through
+    a ``safe_sqrt`` at or below its floor, none through a normalisation's
+    floor below it).  Returns the charts' cotangents [N, 4]."""
+    R = lens.outer_pupil_curvature_radius
+    chart, R2, inv_R, inv_absR = (CHARTS.index(lens.outer_chart), R ** 2,
+                                  1.0 / R, 1.0 / abs(R))
+    lo = 1e-24
+    o0, o1, o2, o3 = out4.unbind(-1)
+    zero = torch.zeros_like(o0)
+    g_org = zero[:, None].expand(-1, 3) if g_origin is None else g_origin
+    g_dir = zero[:, None].expand(-1, 3) if g_direction is None else g_direction
+    sphere, cyl_y = chart == CHARTS.index("sphere"), chart == CHARTS.index(
+        "cyl-y")
+    if sphere:
+        a, n0, n1 = R2 - (o0 * o0 + o1 * o1), o0 * inv_R, o1 * inv_R
+    elif cyl_y:
+        a, n0, n1 = R2 - o0 * o0, o0 * inv_R, zero
+    else:
+        a, n0, n1 = R2 - o1 * o1, zero, o1 * inv_R
+    root = lambda v: torch.where(v > 1e-20,
+                                 torch.sqrt(torch.clamp(v, min=1e-20)), 0.0)
+    # safe_sqrt's VJP: none at and below its floor, whatever the cotangent
+    root_vjp = lambda v, g: torch.where(
+        v > 1e-20, g * (0.5 / torch.sqrt(torch.clamp(v, min=1e-20))), 0.0)
+    nz = root(a) * inv_absR
+    b = 1.0 - (o2 * o2 + o3 * o3)
+    t0, t1, t2 = o2[:, None], o3[:, None], root(b)[:, None]
+    n = torch.stack([n0, n1, nz], -1)
+    w = torch.stack([nz, zero, -n0], -1)
+    ex = w / torch.sqrt(torch.clamp(torch.sum(w * w, -1, keepdim=True),
+                                    min=lo))
+    c = torch.linalg.cross(n, ex, dim=-1)
+    ey = c if sphere else c / torch.sqrt(torch.clamp(
+        torch.sum(c * c, -1, keepdim=True), min=lo))
+    D = (t0 * ex + t1 * ey + t2 * n) * scale
+    # the direction's normalisation and scale, onto the frame's sum
+    g_od = _normalize_vjp(D, lo, g_dir) * scale
+    g_t0, g_t1, g_t2 = (torch.sum(g_od * e, -1) for e in (ex, ey, n))
+    g_n, g_ex, g_c = t2 * g_od, t0 * g_od, t1 * g_od
+    if not sphere:
+        g_c = _normalize_vjp(c, lo, g_c)
+    # c = n x ex
+    g_n = g_n + torch.linalg.cross(ex, g_c, dim=-1)
+    g_ex = g_ex + torch.linalg.cross(g_c, n, dim=-1)
+    g_w = _normalize_vjp(w, lo, g_ex)
+    g_nz = g_n[:, 2] + g_w[:, 0] + g_org[:, 2] * (scale * R)
+    g_n0 = g_n[:, 0] - g_w[:, 2]
+    g_a = root_vjp(a, g_nz * inv_absR)
+    g_o0, g_o1 = g_org[:, 0] * scale, g_org[:, 1] * scale
+    if sphere or cyl_y:
+        g_o0 = g_o0 + g_n0 * inv_R - 2.0 * o0 * g_a
+    if not cyl_y:
+        g_o1 = g_o1 + g_n[:, 1] * inv_R - 2.0 * o1 * g_a
+    g_b = root_vjp(b, g_t2)
+    return torch.stack([g_o0, g_o1, g_t0 - 2.0 * o2 * g_b,
+                        g_t1 - 2.0 * o3 * g_b], -1)
+
+
+def po_forward_vjp_selected_plain(lens: PolyLens, x, y, dx, dy, out4,
+                                  g_origin, g_direction, lam_um: float,
+                                  sensor_shift: float, scale: float):
+    """Plain K1v select mode: the charts' cotangents by
+    :func:`chart_rays_vjp`, zero on the rays whose cotangents are all zero
+    (which the kernel does not walk), then :func:`po_forward_vjp_plain` at
+    the selected candidates (x, y, dx, dy [N]).  Returns (d pt.coeffs, d
+    ap.coeffs) in the rays' dtype."""
+    live = torch.zeros_like(x, dtype=torch.bool)
+    for g in (g_origin, g_direction):
+        if g is not None:
+            live |= (g != 0).any(-1)
+    g_out4 = torch.where(live[:, None], chart_rays_vjp(
+        lens, out4, g_origin, g_direction, scale), 0.0)
+    zero = torch.zeros_like(x)
+    return po_forward_vjp_plain(lens, x, y, zero, zero, dx, dy, g_out4, None,
+                                None, None, lam_um, sensor_shift)
+
+
+@span("pota.k1v")
+def po_forward_vjp_selected(lens: PolyLens, x, y, dx, dy, out4, g_origin,
+                            g_direction, lam_um: float, sensor_shift: float,
+                            scale: float):
+    """K1v in its select mode: the VJP of K1's select mode
+    (:func:`po_forward_selected`) at the selected candidates it saved (x,
+    y, dx, dy f32 [N], their charts ``out4`` [N, 4], 16-byte aligned) for
+    the rays' cotangents ``g_origin``, ``g_direction`` [N, 3] (None:
+    zero), as :func:`po_forward_vjp_selected_plain` takes and returns it;
+    the plain version on the CPU.  On the card the kernel
+    (``csrc/po_forward_vjp.cu``, ``po_forward_vjp_kernel<true>``) queues
+    the rays whose cotangents are not all zero, takes each through the
+    chart's VJP (``csrc/po_chart.cuh``) onto its out4 and walks it as K1v
+    walks a candidate; the sums' order is fixed as in
+    :func:`po_forward_vjp`.  Counts one ``po_forward_vjp`` launch and, while
+    a profiler records, N in ``k1v.candidates`` and the live rays in
+    ``k1v.live``.  Returns (d pt.coeffs, d ap.coeffs)."""
+    _refuse_grad("po_forward_vjp_selected", x, y, dx, dy, out4, g_origin,
+                 g_direction, lens=lens)
+    dev = x.device
+    n = x.shape[0]
+    for name, t in (("x", x), ("y", y), ("dx", dx), ("dy", dy)):
+        _check(name, t, torch.float32, dev, (n,))
+    _check("out4", out4, torch.float32, dev, (n, 4))
+    for name, t in (("g_origin", g_origin), ("g_direction", g_direction)):
+        if t is not None:
+            _check(name, t, torch.float32, dev, (n, 3))
+    if lens.device != dev:
+        raise ValueError(f"lens on {lens.device}, rays on {dev}")
+    if dev.type == "cpu":
+        return po_forward_vjp_selected_plain(
+            lens, x, y, dx, dy, out4, g_origin, g_direction, lam_um,
+            sensor_shift, scale)
+    _check_vjp_coeffs("po_forward_vjp_selected", lens)
+    if out4.data_ptr() % 16:
+        raise ValueError("out4: must be 16-byte aligned")
+    lib = _build.lib()
+    blocks = lib.pota_po_forward_vjp_selected_blocks(n)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return _launch_vjp(
+        "po_forward_vjp_selected", lens, lam_um, n, blocks,
+        lambda table, scratch, grads, live, stream:
+        lib.pota_po_forward_vjp_selected(
+            x.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+            out4.data_ptr(), ptr(g_origin), ptr(g_direction), n, table,
+            float(sensor_shift), *_pupil_select(lens, scale)[:7], *scratch,
+            *grads, live, stream))
 
 
 # ------------------------------------------ K1j: the JVP of K1's function
@@ -1280,6 +1614,67 @@ class DrawnForwardFn(torch.autograd.Function):
                 for g, n in zip(g_rays[:2], need)]
         return (*g_xy, None, None, None, g_pt if need[5] else None,
                 g_ap if need[6] else None, *(None,) * 6)
+
+
+class SelectFn(torch.autograd.Function):
+    """K1's select mode with a gradient: ``SelectFn.apply(sx, sy, r1, r2,
+    key, pt_coeffs, ap_coeffs, lens, draw, lam_um, sensor_shift,
+    iterations, select, ops)`` with ``draw`` = (tries, radius, blades) and
+    ``select`` = (hsw, scale) returns the rays' (origin, direction, weight,
+    tries), as :func:`po_forward_selected` gives them.  On the card the
+    forward is ``ops.po_forward_selected``; on the CPU the candidates are
+    drawn in torch and traced on the fit's term set
+    (:func:`_po_forward_terms`, as :class:`DrawnForwardFn` traces them),
+    then selected by :func:`select_rays`.
+
+    It saves the selected candidate of each ray (its sensor point,
+    solution and chart: 32 bytes a ray), and its backward is K1v in its
+    select mode (``ops.po_forward_vjp_selected``): the rays' cotangents
+    through the chart's VJP, then K1's VJP at the selected candidate, the
+    gradient the torch epilogue's autograd and K1v gave (the candidates not
+    selected carry none).  ``weight`` and ``tries`` carry no gradient; nor
+    do the screen points, uniforms and keys (the screen points may not
+    require one)."""
+
+    @staticmethod
+    def forward(ctx, sx, sy, r1, r2, key, pt_coeffs, ap_coeffs, lens, draw,
+                lam_um, sensor_shift, iterations, select, ops):
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            raise ValueError("SelectFn: the screen points take no gradient")
+        hsw, scale = select
+        tries = draw[0]
+        if sx.device.type == "cpu":
+            x, y = sx * hsw, sy * hsw
+            cand = _po_forward_terms(lens, *drawn_rays(x, y, r1, r2, key,
+                                                       *draw),
+                                     lam_um, sensor_shift, iterations)
+            out = _select_candidates(lens, x, y, cand, tries, sensor_shift,
+                                     scale, True)
+        else:
+            out = ops.po_forward_selected(lens, sx, sy, hsw, r1, r2, key,
+                                          *draw, lam_um, sensor_shift,
+                                          scale, iterations, True)
+        origin, direction, weight, tries_out, *saved = out
+        ctx.save_for_backward(*saved)
+        ctx.args = (lens, lam_um, sensor_shift, scale, ops)
+        ctx.mark_non_differentiable(weight, tries_out)
+        ctx.set_materialize_grads(False)
+        return origin, direction, weight, tries_out
+
+    @staticmethod
+    def backward(ctx, g_origin, g_direction, _g_weight, _g_tries):
+        need_pt, need_ap = ctx.needs_input_grad[5:7]
+        g_pt = g_ap = None
+        if (need_pt or need_ap) and not (g_origin is None
+                                         and g_direction is None):
+            lens, lam_um, sensor_shift, scale, ops = ctx.args
+            g_pt, g_ap = ops.po_forward_vjp_selected(
+                lens, *ctx.saved_tensors,
+                *(None if g is None else g.contiguous()
+                  for g in (g_origin, g_direction)),
+                lam_um, sensor_shift, scale)
+        return ((None,) * 5 + (g_pt if need_pt else None,
+                               g_ap if need_ap else None) + (None,) * 7)
 
 
 def _check_po_splat(lens, slots, params, spheres,

@@ -61,12 +61,18 @@ def main() -> None:
                                    iterations)
         return tuple(t.float() for t in out)
 
-    def drawn(trace):
-        """K1's draw mode, called as ``po_forward_drawn``, with ``trace``
-        in place of plain K1 on the candidates drawn in torch."""
-        def fn(lens_, x, y, r1, r2, key, tries, radius, blades, *rest):
-            return trace(lens_, *pk.drawn_rays(x, y, r1, r2, key, tries,
-                                               radius, blades), *rest)
+    def selected(trace):
+        """K1's select mode, called as ``po_forward_selected``, with
+        ``trace`` in place of plain K1 on the candidates drawn in torch,
+        then the select in torch."""
+        def fn(lens_, sx, sy, hsw, r1, r2, key, tries, radius, blades,
+               lam_um, shift, scale, iterations=3):
+            x, y = sx * hsw, sy * hsw
+            cand = trace(lens_, *pk.drawn_rays(x, y, r1, r2, key, tries,
+                                               radius, blades),
+                         lam_um, shift, iterations)
+            return pk._select_candidates(lens_, x, y, cand, tries, shift,
+                                         scale, False)
         return fn
 
     traces = {"term32": pk._po_forward_terms, "folded": pk.po_forward_plain,
@@ -76,7 +82,7 @@ def main() -> None:
         images[name], _ = render_frame(
             cfg, rc, scene, m, po_lens=lens, po_state=state,
             ops=ops.PLAIN._replace(po_forward=trace,
-                                   po_forward_drawn=drawn(trace)))
+                                   po_forward_selected=selected(trace)))
 
     def off(a, b):
         scale = max(float(b.abs().max()), 1.0)

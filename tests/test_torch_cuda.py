@@ -22,6 +22,7 @@ import pota_tpu_torch as pt
 from pota_tpu_torch import ops
 from pota_tpu_torch.ops import _build, po_kernels as pk
 from pota_tpu_torch.ops import splat_accum as acc
+from pota_tpu_torch.models import po_camera
 from pota_tpu_torch.optics.fit import load_poly_lens
 from pota_tpu_torch.optics.focus import POState
 from pota_tpu_torch.render import scene as sc
@@ -142,9 +143,11 @@ def test_po_forward_drawn_kernel_is_the_torch_chain(dev, tries, blades):
 
 
 @pytest.mark.parametrize("blades", [0, 5])
-def test_drawn_frames_are_the_torch_chains_bits(dev, blades):
+def test_drawn_frames_are_the_torch_chains_bits(dev, monkeypatch, blades):
     """Frames with K1 drawing its candidates against the same frames with
-    the torch chain's candidates (the route before the draw mode).  A
+    the torch chain's candidates (the route before the draw mode), both
+    with the select in torch (``trace_fw_po`` kept off K1's select mode,
+    which draws as the draw mode does: ``-k select``).  A
     64x48 differentiable teapot frame in 4 checkpointed chunks: the same
     image bits; K1v handed the same rays and solution a chunk, bit for bit,
     so that on one cotangent it gives the same gradient bits of pt and
@@ -152,6 +155,7 @@ def test_drawn_frames_are_the_torch_chains_bits(dev, blades):
     backward adds with atomics: two runs of one route differ as much).
     A 96x64 light-grid frame under ``no_grad``: RGBA and every AOV the same
     bits.  The same launches (K1 twice a chunk and once a frame)."""
+    monkeypatch.setattr(po_camera, "_takes_select", lambda *a: False)
     cfg = dataclasses.replace(CFG, vignetting_retries=2, splat_queue_mult=4,
                               trace_chunks=4, aperture_blades=blades)
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
@@ -208,6 +212,201 @@ def test_drawn_frames_are_the_torch_chains_bits(dev, blades):
     assert "RGBA" in tensors
     for k in tensors:
         assert _same_bits(fb[k], fb_c[k]), k
+
+
+HSW = CFG.sensor_width * 0.5
+SCALE = CFG.unit_scale_po
+CHARTS = ("sphere", "cyl-x", "cyl-y")
+
+
+def _chart_lens(dev, chart):
+    """The flagship fit with the outer chart ``chart`` (the cylinders take
+    the flagship's constants)."""
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    lens.outer_chart = chart
+    return lens
+
+
+def _screen_rays(dev, n, seed=0):
+    """:func:`_drawn_rays` with the sensor points as screen points, out to
+    24 mm off axis (past the crops: some rays keep no candidate)."""
+    x, y, r1, r2, key = _drawn_rays(dev, n, seed)
+    return [x * (24.0 / 14.0 / HSW), y * (24.0 / 14.0 / HSW), r1, r2, key]
+
+
+def _draw_then_select(lens, sx, sy, r1, r2, key, tries, blades,
+                      need_rays=False):
+    """The route K1's select mode replaced, called as
+    ``po_forward_selected``: K1's draw mode on the sensor points, then the
+    torch epilogue (``select_rays``) on the card."""
+    x, y = sx * HSW, sy * HSW
+    cand = pk.po_forward_drawn(lens, x, y, r1, r2, key, tries,
+                               STATE.aperture_radius, blades, 0.55,
+                               STATE.sensor_shift, 3)
+    return pk._select_candidates(lens, x, y, cand, tries, STATE.sensor_shift,
+                                 SCALE, need_rays)
+
+
+@pytest.mark.parametrize("chart", CHARTS)
+@pytest.mark.parametrize("blades", [0, 5])
+@pytest.mark.parametrize("tries", [1, 3, 4])
+def test_po_forward_selected_kernel_is_the_draw_and_select(dev, tries,
+                                                           blades, chart):
+    """K1's select mode against the route it replaces (K1's draw mode, then
+    the torch epilogue on the card), 200,003 rays: the same bits of origin,
+    direction, weight and tries, with and without the selected candidate
+    asked for, and of that candidate's sensor point, solution and chart;
+    rays that keep no candidate included; one ``po_forward`` launch a
+    call; two runs the same bits."""
+    lens = _chart_lens(dev, chart)
+    sx, sy, r1, r2, key = _screen_rays(dev, 200_003, seed=tries)
+    key = key if tries > 1 else None
+    want = _draw_then_select(lens, sx, sy, r1, r2, key, tries, blades, True)
+    args = (lens, sx, sy, HSW, r1, r2, key, tries, STATE.aperture_radius,
+            blades, 0.55, STATE.sensor_shift, SCALE, 3)
+    ops.reset_launches()
+    got = pk.po_forward_selected(*args, True)
+    short = pk.po_forward_selected(*args)
+    again = pk.po_forward_selected(*args, True)
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {"po_forward": 3}
+    names = ("origin", "direction", "weight", "tries", "x", "y", "dx", "dy",
+             "out4")
+    assert len(got) == 9 and len(short) == 4
+    for name, g, w, a in zip(names, got, want, again):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert _same_bits(g, w), name
+        assert _same_bits(g, a), name
+    for name, g, w in zip(names, short, want):
+        assert _same_bits(g, w), name
+    missed = want[3] == tries
+    print(f"{chart} K={tries} blades={blades}: "
+          f"{float(missed.double().mean()):.4f} of rays keep no candidate, "
+          f"weight 1 on {float(want[2].double().mean()):.4f}")
+    assert bool(missed.any()) and bool((~missed).any())
+
+
+def _parent_select(sx, sy, r1, r2, key, pt_c, ap_c, lens, draw, lam, shift,
+                   its, select, ops_):
+    """``SelectFn.apply``'s route before the select mode, for the card:
+    K1's draw mode with its gradient (``DrawnForwardFn``: K1v over the
+    candidates), then the torch epilogue under autograd."""
+    hsw, scale = select
+    x, y = sx * hsw, sy * hsw
+    cand = pk.DrawnForwardFn.apply(x, y, r1, r2, key, pt_c, ap_c, lens, draw,
+                                   lam, shift, its, ops_)
+    return pk._select_candidates(lens, x, y, cand, draw[0], shift, scale,
+                                 False)
+
+
+@pytest.mark.parametrize("chart", CHARTS)
+@pytest.mark.parametrize("blades", [0, 5])
+@pytest.mark.parametrize("tries", [1, 3, 4])
+def test_select_fn_gradients_on_the_card(dev, tries, blades, chart):
+    """``SelectFn`` on the card (K1's select mode, K1v's select mode taking
+    the rays' cotangents) against the route it replaces (``DrawnForwardFn``
+    and the torch epilogue: K1's draw mode, K1v over the candidates),
+    200,003 rays: the same forward bits; the ``pt`` and ``ap`` gradients
+    within 1e-4 relative L2 (K1v's tolerance) for cotangents on origin and
+    direction, on origin alone and on direction alone; two runs the same
+    bits."""
+    lens = _chart_lens(dev, chart)
+    sx, sy, r1, r2, key = _screen_rays(dev, 200_003, seed=tries + 7)
+    key = key if tries > 1 else None
+    coeffs = (lens.pt.coeffs, lens.ap.coeffs)
+    rng = np.random.default_rng(tries)
+    w_o, w_d = (_t(rng.standard_normal((200_003, 3)).astype(np.float32), dev)
+                for _ in range(2))
+    rest = (lens, (tries, STATE.aperture_radius, blades), 0.55,
+            STATE.sensor_shift, 3, (HSW, SCALE), ops.KERNELS)
+    try:
+        for c in coeffs:
+            c.requires_grad_(True)
+        for parts in ((True, True), (True, False), (False, True)):
+            res = []
+            for fn in (pk.SelectFn.apply, pk.SelectFn.apply, _parent_select):
+                out = fn(sx, sy, r1, r2, key, *coeffs, *rest)
+                loss = sum((w * o).sum() for w, o, p in
+                           ((w_o, out[0], parts[0]), (w_d, out[1], parts[1]))
+                           if p)
+                res.append((out, torch.autograd.grad(loss, coeffs)))
+            (o1, g1), (o2, g2), (o_p, g_p) = res
+            assert all(_same_bits(a.detach(), b.detach())
+                       for a, b in zip(o1, o_p))
+            assert all(_same_bits(a.detach(), b.detach())
+                       for a, b in zip(o1, o2))
+            assert all(_same_bits(a, b) for a, b in zip(g1, g2))
+            for a, b in zip(g1, g_p):
+                err = float((a - b).norm() / b.norm())
+                print(f"{chart} K={tries} blades={blades} {parts}: {err:.2e}")
+                assert bool(torch.isfinite(a).all()) and float(b.norm()) > 0
+                assert err < 1e-4, (parts, err)
+    finally:
+        for c in coeffs:
+            c.requires_grad_(False)
+
+
+@pytest.mark.parametrize("blades", [0, 5])
+def test_select_frames_are_the_parent_routes(dev, monkeypatch, blades):
+    """Frames through K1's select mode against the same frames through the
+    route before it (K1's draw mode, the torch epilogue, K1v over the
+    candidates; ``trace_fw_po`` kept off the select mode).  A 64x48
+    differentiable teapot frame in 4 checkpointed chunks: the same image
+    bits, gradients within 1e-4 relative L2, the same launches (K1 twice a
+    chunk, K1v once); two runs of the select route the same image bits and
+    gradients within 1e-5 (the splat's backward adds with atomics).  A
+    96x64 light-grid frame under ``no_grad``: RGBA and every AOV the same
+    bits, one K1 launch."""
+    cfg = dataclasses.replace(CFG, vignetting_retries=2, splat_queue_mult=4,
+                              trace_chunks=4, aperture_blades=blades)
+    m = look_at([0, 0, 0], [0, 0, -1], device=dev)
+    lens = load_poly_lens(FLAGSHIP, device=dev)
+    coeffs = (lens.pt.coeffs, lens.ap.coeffs)
+    takes_select = po_camera._takes_select
+    res, launches = [], []
+    for route in ("select", "select", "parent"):
+        monkeypatch.setattr(po_camera, "_takes_select", takes_select
+                            if route == "select" else lambda *a: False)
+        for c in coeffs:
+            c.requires_grad_(True)
+            c.grad = None
+        ops.reset_launches()
+        img, _ = render_frame(cfg, pt.RenderConfig(xres=64, yres=48, spp=1),
+                              sc.teapot_scene(device=dev), m, po_lens=lens,
+                              po_state=STATE, differentiable=True)
+        img[..., :3].mean().backward()
+        grads = [c.grad.clone() for c in coeffs]
+        for c in coeffs:
+            c.requires_grad_(False)
+            c.grad = None
+        step = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        with torch.no_grad():
+            _, fb = render_frame(
+                dataclasses.replace(cfg, vignetting_retries=3),
+                pt.RenderConfig(xres=96, yres=64, spp=1),
+                sc.lightgrid_scene(n=3, spacing=12.0, z=-150.0, radius=0.8,
+                                   intensity=40.0, device=dev), m,
+                po_lens=lens, po_state=STATE)
+        launches.append((step, dict(ops.LAUNCHES)))
+        res.append((img.detach(), *grads, fb))
+    assert launches[0] == launches[1] == launches[2]
+    assert launches[0][0]["po_forward"] == 8
+    assert launches[0][0]["po_forward_vjp"] == 4
+    assert launches[0][1]["po_forward"] == 1
+    (img, g_pt, g_ap, fb), (img2, g_pt2, g_ap2, _), (img_p, g_pt_p, g_ap_p,
+                                                     fb_p) = res
+    assert _same_bits(img, img_p) and _same_bits(img, img2)
+    for g, g2, g_p in ((g_pt, g_pt2, g_pt_p), (g_ap, g_ap2, g_ap_p)):
+        assert float(g_p.norm()) > 0
+        err = float((g - g_p).norm() / g_p.norm())
+        print(f"blades={blades}: frame gradient {err:.2e} from the parent's, "
+              f"{float((g - g2).norm() / g2.norm()):.2e} run to run")
+        assert err < 1e-4
+        assert float((g - g2).norm() / g2.norm()) < 1e-5
+    tensors = [k for k, v in fb.items() if isinstance(v, torch.Tensor)]
+    assert "RGBA" in tensors
+    for k in tensors:
+        assert _same_bits(fb[k], fb_p[k]), k
 
 
 def _vjp_args(lens, dev, n, full, seed=0):

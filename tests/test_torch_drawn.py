@@ -142,16 +142,18 @@ def test_k1_drawn_counts_only_while_a_profiler_records(lens):
 
 
 class _Counting:
-    """``ops.PLAIN`` counting K1's calls in each mode, and the two
+    """``ops.PLAIN`` counting K1's calls in each mode, and the three
     autograd functions' applications."""
 
     def __init__(self, monkeypatch):
         self.calls = {"po_forward": 0, "po_forward_drawn": 0,
-                      "ForwardFn": 0, "DrawnForwardFn": 0}
+                      "po_forward_selected": 0, "ForwardFn": 0,
+                      "DrawnForwardFn": 0, "SelectFn": 0}
         self.ops = ops.PLAIN._replace(**{
             k: self._count(k, getattr(ops.PLAIN, k))
-            for k in ("po_forward", "po_forward_drawn")})
-        for name in ("ForwardFn", "DrawnForwardFn"):
+            for k in ("po_forward", "po_forward_drawn",
+                      "po_forward_selected")})
+        for name in ("ForwardFn", "DrawnForwardFn", "SelectFn"):
             fn = getattr(po_camera, name)
             monkeypatch.setattr(po_camera, name, type(
                 name, (), {"apply": staticmethod(self._count(name,
@@ -187,9 +189,10 @@ def test_trace_fw_po_takes_the_draw_mode(lens, monkeypatch, case,
                                          differentiable):
     """``trace_fw_po`` draws in K1 exactly when depth of field is on, the
     image bokeh is off (its flag and a CDF) and the call is not the deriv
-    ray's: ``ops.po_forward_drawn``, or ``DrawnForwardFn`` on the
-    differentiable route; the image bokeh takes ``ops.po_forward`` or
-    ``ForwardFn``; no depth of field and the deriv ray take neither."""
+    ray's: in K1's select mode, ``ops.po_forward_selected``, or on the
+    CPU's differentiable route ``DrawnForwardFn``; the image bokeh takes
+    ``ops.po_forward`` or ``ForwardFn``; no depth of field and the deriv
+    ray take neither."""
     changes, with_image, deriv_ray, want = CASES[case]
     cfg = dataclasses.replace(CFG, **changes)
     cdf = None
@@ -211,9 +214,12 @@ def test_trace_fw_po_takes_the_draw_mode(lens, monkeypatch, case,
         finally:
             lens.pt.coeffs.requires_grad_(False)
     assert out[0].shape == (64, 3)
-    if want is not None and differentiable:
-        want = {"po_forward": "ForwardFn",
-                "po_forward_drawn": "DrawnForwardFn"}[want]
+    if want is not None:
+        want = {(False, "po_forward"): "po_forward",
+                (True, "po_forward"): "ForwardFn",
+                (False, "po_forward_drawn"): "po_forward_selected",
+                (True, "po_forward_drawn"): "DrawnForwardFn"}[
+                    differentiable, want]
     assert {k: v for k, v in counting.calls.items() if v} == (
         {want: 1} if want else {})
 
