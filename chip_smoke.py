@@ -1079,7 +1079,8 @@ def drawn_candidates(a) -> tuple:
     """K1's arguments in its candidate mode (``po_forward``) on the
     candidates that the select-mode call ``a`` (``po_forward_selected``'s
     arguments) draws, drawn in torch (``drawn_rays``) at the sensor points
-    ``sx * hsw, sy * hsw``: the route the draw mode replaced."""
+    ``sx * hsw, sy * hsw``: the torch draw that the select mode
+    replaced."""
     from pota_tpu_torch.ops import po_kernels as pk
 
     lens, sx, sy, hsw = a[:4]
@@ -1089,16 +1090,15 @@ def drawn_candidates(a) -> tuple:
 
 def draw_and_select(a, need_rays=False) -> tuple:
     """The route K1's select mode replaced, on the select-mode call ``a``:
-    K1's draw mode on the sensor points, then the torch epilogue
-    (``select_rays``)."""
+    the candidates drawn in torch (:func:`drawn_candidates`), K1's
+    candidate mode on them, then the torch epilogue (``select_rays``)."""
     from pota_tpu_torch.ops import po_kernels as pk
 
     lens, sx, sy, hsw, tries, shift, scale = a[0], a[1], a[2], a[3], a[7], \
         a[11], a[12]
-    x, y = sx * hsw, sy * hsw
-    cand = pk.po_forward_drawn(lens, x, y, *a[4:12], a[13])
-    return pk._select_candidates(lens, x, y, cand, tries, shift, scale,
-                                 need_rays)
+    cand = pk.po_forward(*drawn_candidates(a))
+    return pk._select_candidates(lens, sx * hsw, sy * hsw, cand, tries, shift,
+                                 scale, need_rays)
 
 
 def selected_plain_chunked(a) -> list:
@@ -1112,27 +1112,27 @@ def selected_plain_chunked(a) -> list:
 def k1_record(a, ptxas, tag, path=None) -> dict:
     """K1 in its select mode on the captured arguments ``a`` of the path's
     ``po_forward_selected`` call: origin, direction, weight, tries and the
-    selected candidate's sensor point, solution and chart bit for bit
-    those of K1's draw mode followed by the torch epilogue (the route it
+    selected candidate's sensor point, solution and chart bit for bit those of
+    the torch draw, K1's candidate mode and the torch epilogue (the route it
     replaced); against the plain version (in 1M-ray chunks): the rays'
-    selections (``tries``) and the largest error on the rays both take
-    alike; its record (``path`` None: the flagship's), timed as the path
-    calls it (``ms``: CUDA events round the wrapper; ``device_ms``: the
-    kernel alone, from the profiler), beside the route it replaced
-    (``chain_ms``, ``chain_device_ms``), the draw mode alone
-    (``draw_ms``), and the candidates each ray traced."""
+    selections (``tries``) and the largest error on the rays both take alike;
+    its record (``path`` None: the flagship's), timed as the path calls it
+    (``ms``: CUDA events round the wrapper; ``device_ms``: the kernel alone,
+    from the profiler), beside the route it replaced (``chain_ms``,
+    ``chain_device_ms``), K1's candidate mode alone on the torch draw's
+    candidates (``candidate_ms``), and the candidates each ray traced."""
     import torch
 
     from pota_tpu_torch.ops import po_kernels as pk
 
-    lens, sx, tries = a[0], a[1], a[7]
+    sx, tries = a[1], a[7]
     need_rays = len(a) > 14 and bool(a[14])
     got = pk.po_forward_selected(*a[:14], True)
     chain = draw_and_select(a, True)
     if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                for g, w in zip(got, chain)):
-        fail("K1's select mode and the draw mode with the torch select "
-             "differ")
+        fail("K1's select mode and the torch draw, K1's candidate mode and "
+             "the torch select differ")
     del chain
     ref = selected_plain_chunked(a)
     same = got[3] == ref[3]
@@ -1146,7 +1146,7 @@ def k1_record(a, ptxas, tag, path=None) -> dict:
     n_rays = int(sx.shape[0])
     where = f" ({path})" if path else ""
     print(f"K1 po_forward_selected{where} N={n_rays} K={tries}: rays and "
-          f"the selected candidates the draw mode's and torch select's bits;"
+          f"the selected candidates the torch chain's bits;"
           f" tries agree with the plain version on {agree:.6f}, "
           f"max_abs_err(rays both take alike)={err:.3e}; weight 1 on "
           f"{weight1:.4f}; {traced} candidates traced of {n_rays * tries}",
@@ -1172,26 +1172,24 @@ def k1_record(a, ptxas, tag, path=None) -> dict:
         chain_ms=median_ms(lambda: draw_and_select(a, need_rays)),
         chain_device_ms=device_ms(lambda: draw_and_select(a, need_rays),
                                   [""])[""],
-        draw_ms=median_ms(lambda: pk.po_forward_drawn(
-            lens, a[1] * a[3], a[2] * a[3], *a[4:12], a[13])),
         candidate_ms=median_ms(lambda: pk.po_forward(*a1)),
         plain_ms=median_ms(lambda: selected_plain_chunked(a), 3),
         **bound(n_bytes, traced * basis_forward_flops(a[13])),
         **ptxas["po_forward_selected"],
-        draw_registers=ptxas["po_forward_drawn"]["registers"],
+        candidate_registers=ptxas["po_forward"]["registers"],
         library_ms=None, n=n_rays, tries=tries, traced=traced,
         rays_out=need_rays, tries_agree=agree, weight1=weight1)
     if path:
         rec["path"] = path
     dev_ms = lambda v: "not measured" if v is None else f"{v:.3f} ms"
     print(f"po_forward_selected{where} (the select mode): {rec['ms']:.3f} "
-          f"ms, device {dev_ms(rec['device_ms'])}; the draw mode and the "
-          f"torch select {rec['chain_ms']:.3f} ms (device "
-          f"{dev_ms(rec['chain_device_ms'])}); the draw mode alone "
-          f"{rec['draw_ms']:.3f} ms, K1 on the candidates "
-          f"{rec['candidate_ms']:.3f} ms; bound {rec['bound_ms']:.3f} ms "
-          f"({rec['bound_by']}), {rec['registers']} registers "
-          f"({rec['draw_registers']} in the draw mode), "
+          f"ms, device {dev_ms(rec['device_ms'])}; the torch draw, K1's "
+          f"candidate mode and the torch select {rec['chain_ms']:.3f} ms "
+          f"(device {dev_ms(rec['chain_device_ms'])}); K1 on the "
+          f"candidates alone {rec['candidate_ms']:.3f} ms; bound "
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+          f"{rec['registers']} registers "
+          f"({rec['candidate_registers']} in the candidate mode), "
           f"{rec['spill_bytes']} spill bytes {tag}", flush=True)
     return rec
 
@@ -2742,10 +2740,8 @@ def main() -> int:
     # every kernel's registers and spills
     ptxas = {}
     for name, key, label in (
-            ("po_forward", "po_forward_kernelILb0E",
-             "K1 (the folded forward)"),
-            ("po_forward_drawn", "po_forward_kernelILb1E",
-             "K1's draw mode (it draws its aperture candidates)"),
+            ("po_forward", "17po_forward_kernelE",
+             "K1 (the folded forward, its candidate mode)"),
             ("po_forward_selected", "po_forward_select_kernel",
              "K1's select mode (it hands back rays)"),
             ("po_splat", "po_splat_kernelILi0E",

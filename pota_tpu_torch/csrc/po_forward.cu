@@ -1,4 +1,4 @@
-// PO forward kernel (K1), with a draw mode and a select mode.
+// PO forward kernel (K1), with a candidate mode and a select mode.
 //
 // Replaces: pota_tpu/ops/po_pallas.py::build_po_forward_kernel, the fused
 // per-lens forward trace behind models/po_camera.py::trace_fw_po; the
@@ -9,43 +9,38 @@
 // the sensor shift, then pt_evaluate of the outer-pupil chart +
 // transmittance.
 //
-// Three modes:
-// - candidates (pota_po_forward, po_forward_kernel<false>): the caller
-//   hands every candidate's sensor point and aperture point, [M] each;
-// - draw (pota_po_forward_drawn, po_forward_kernel<true>): the caller hands
-//   each ray's sensor point, its (r1, r2) and its uint32 retry key, and the
-//   kernel draws the ray's K aperture candidates itself, as po_kernels.py
-//   po_forward_drawn_plain does in torch: candidate 0 on (r1, r2),
+// Two modes:
+// - candidates (pota_po_forward, po_forward_kernel): the caller hands
+//   every candidate's sensor point and aperture point, [M] each; the image
+//   bokeh's trace takes it, its candidates drawn from the bokeh's CDF;
+// - select (pota_po_forward_selected, po_forward_select_kernel): the
+//   caller hands each ray's screen point, its (r1, r2) and its uint32 retry
+//   key, and the kernel draws the ray's K aperture candidates itself, as
+//   po_kernels.py drawn_rays does in torch: candidate 0 on (r1, r2),
 //   candidate k >= 1 on two LCG steps after TEA-8(key, k), the concentric
 //   disk (fewer than 2 blades) or the blade fan, times the aperture radius.
-//   Thread i traces candidate i % K of ray i / K, the layout the candidate
-//   mode reads.  Every float operation of the draw is the torch chain's, in
-//   its order, rounded alone (__fmul_rn / __fadd_rn / __fdiv_rn, cosf /
-//   sinf as torch's kernels call them), so the candidates are those of the
-//   torch chain bit for bit.  It writes the candidates' rays (x, y, ax, ay)
-//   [M] where asked;
-// - select (pota_po_forward_selected, po_forward_select_kernel): the draw
-//   mode's inputs, the rays' screen points in place of their sensor points,
-//   and the kernel hands back rays, not candidates.  Thread i takes ray i:
-//   it draws and traces the ray's candidates in turn, stops at the first
-//   that passes the pupil crops, maps that chart (or candidate 0's, when
-//   none passes) to the camera-space ray and writes origin, direction,
-//   weight and tries, the bits of the draw mode followed by trace_fw_po's
-//   torch epilogue (po_chart.cuh); where asked, the selected candidate's
-//   sensor point, solution and chart, which the differentiable route saves
-//   for K1v's select mode.  A candidate after the first that passes is
-//   never traced: its outputs reach no ray.
+//   Every float operation of the draw is the torch chain's, in its order,
+//   rounded alone (__fmul_rn / __fadd_rn / __fdiv_rn, cosf / sinf as
+//   torch's kernels call them), so the candidates are those of the torch
+//   chain bit for bit.  Thread i takes ray i: it draws and traces the ray's
+//   candidates in turn, stops at the first that passes the pupil crops,
+//   maps that chart (or candidate 0's, when none passes) to the
+//   camera-space ray and writes origin, direction, weight and tries, the
+//   bits of the torch draw, the candidate mode and trace_fw_po's torch
+//   epilogue (po_chart.cuh); where asked, the selected candidate's sensor
+//   point, solution and chart, which the differentiable route saves for
+//   K1v's select mode.  A candidate after the first that passes is never
+//   traced: its outputs reach no ray.
 //
 // What bounds it on the H100: arithmetic.  On the folded table about 1,100
 // FMAs a candidate (the collapse of `ap` to (dx, dy), 3 Newton iterations
 // of 76, pt's five rows over the 126-monomial basis) and 221 broadcast
-// 16-byte shared loads, against 20 bytes in and 28 bytes out; the draw adds
-// about 200 integer operations (TEA's 8 rounds, two LCG steps) and one
-// sine and cosine a candidate, and reads 24 bytes a ray (x, y, r1, r2, the
-// key) in place of 16 a candidate.  The select mode writes 32 bytes a ray
-// (64 with the saved candidate) in place of 28 a candidate, and traces
-// between one candidate a ray and K: a warp runs until its last lane's
-// first success.
+// 16-byte shared loads, against 20 bytes in and 28 bytes out in the
+// candidate mode.  The select mode's draw adds about 200 integer operations
+// (TEA's 8 rounds, two LCG steps) and one sine and cosine a candidate; it
+// reads 24 bytes a ray (sx, sy, r1, r2, the key) and writes 32 (64 with the
+// saved candidate), and traces between one candidate a ray and K: a warp
+// runs until its last lane's first success.
 //
 // Design: every ray of a frame has the frame's wavelength, so the kernel
 // runs po_forward_trace (po_forward_basis.cuh) on the table
@@ -56,9 +51,9 @@
 // select mode), a grid-stride loop; the 3.5 KB table is copied into shared
 // memory once per block and read with volatile 16-byte loads (basis::ld4),
 // which the compiler cannot hoist out of the loop.  On an H100 (sm_90a,
-// CUDA 12.8) the candidate and draw modes take 87 registers and spill
-// nothing (the draw mode keeps a 32-byte stack frame).  One build serves
-// every lens (the TPU kernel baked each lens into immediates).
+// CUDA 12.8) the candidate mode takes 87 registers and the select mode 102,
+// and neither spills.  One build serves every lens (the TPU kernel baked
+// each lens into immediates).
 #include "po_chart.cuh"
 #include "po_forward_basis.cuh"
 
@@ -66,8 +61,7 @@ namespace pota {
 
 constexpr int kForwardThreads = 256;
 
-// The draw mode's inputs (per ray) and its optional outputs (per candidate,
-// null when not asked for).
+// The select mode's draw: its inputs per ray and the draw's constants.
 struct ForwardDraw {
   const float* r1;
   const float* r2;
@@ -76,14 +70,13 @@ struct ForwardDraw {
   int blades;            // < 2: the concentric disk; else the blade fan
   float radius;          // the aperture radius (mm)
   float blade_angle;     // float32 of 2 pi / blades (a double in torch)
-  float *x, *y, *ax, *ay;
 };
 
 // samplers.concentric_disk_sample, each torch op rounded alone.  It is
 // common.cuh's concentric_polar and tea_concentric_disk but for that
 // rounding: there nvcc contracts phi's kPi2 - kPi4 * q into one FMA, which
 // K3's splat disk keeps (rounded alone, K3's frames would change bits),
-// while the draw mode must round as torch does to give the torch chain's
+// while the select mode must round as torch does to give the torch chain's
 // candidates bit for bit.
 __device__ __forceinline__ void drawn_disk(float r1, float r2, float& x,
                                            float& y) {
@@ -142,43 +135,24 @@ __device__ __forceinline__ void drawn_aperture(const ForwardDraw& d, int ray,
   ay = __fmul_rn(py, d.radius);
 }
 
-// n candidates.  Candidate mode: xs, ys, axs, ays [n].  Draw mode: xs, ys
-// [n / tries] (one a ray), axs and ays unread, the rest in `draw`.
-template <bool kDraw>
+// n candidates: sensor points xs, ys and aperture points axs, ays [n].
 __global__ void __launch_bounds__(kForwardThreads)
 po_forward_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                   const float* __restrict__ axs, const float* __restrict__ ays,
                   int n, const float* __restrict__ g_tab, float inv_ap_z,
                   float sensor_shift, int iterations, float* __restrict__ out4,
                   float* __restrict__ trans_out, float* __restrict__ dx_out,
-                  float* __restrict__ dy_out, const ForwardDraw draw) {
+                  float* __restrict__ dy_out) {
   __shared__ __align__(16) float s_tab[fwd::kTableFloats];
   block_load(s_tab, g_tab, fwd::kTableFloats);
   __syncthreads();
 
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    float x, y, ax, ay;
-    if constexpr (kDraw) {
-      const int ray = i / draw.tries;
-      x = xs[ray];
-      y = ys[ray];
-      drawn_aperture(draw, ray, i - ray * draw.tries, ax, ay);
-      if (draw.x != nullptr) {
-        draw.x[i] = x;
-        draw.y[i] = y;
-        draw.ax[i] = ax;
-        draw.ay[i] = ay;
-      }
-    } else {
-      x = xs[i];
-      y = ys[i];
-      ax = axs[i];
-      ay = ays[i];
-    }
     float dx, dy, o[4];
     const float tr = po_forward_trace(s_tab, inv_ap_z, sensor_shift,
-                                      iterations, x, y, ax, ay, dx, dy, o);
+                                      iterations, xs[i], ys[i], axs[i],
+                                      ays[i], dx, dy, o);
     reinterpret_cast<float4*>(out4)[i] = make_float4(o[0], o[1], o[2], o[3]);
     trans_out[i] = relu_nan(tr);
     dx_out[i] = dx;
@@ -201,12 +175,12 @@ struct ForwardSelect {
   float *x, *y, *dx, *dy, *out4;
 };
 
-// One thread a ray: its K candidates drawn and traced in turn as the draw
-// mode traces them, until the first that passes the crops (crops_ok); that
-// one's chart, or candidate 0's when none passes, mapped to the ray
-// (chart_ray); weight 1 where a candidate passed and the ray is finite,
-// tries the first candidate that passed (K when none did), as
-// models/po_camera.py trace_fw_po's epilogue selects them.
+// One thread a ray: its K candidates drawn (drawn_aperture) and traced in
+// turn, until the first that passes the crops (crops_ok); that one's
+// chart, or candidate 0's when none passes, mapped to the ray (chart_ray);
+// weight 1 where a candidate passed and the ray is finite, tries the first
+// candidate that passed (K when none did), as po_kernels.py select_rays
+// selects them.
 __global__ void __launch_bounds__(kForwardThreads)
 po_forward_select_kernel(int n_rays, const float* __restrict__ g_tab,
                          float inv_ap_z, float sensor_shift, int iterations,
@@ -279,32 +253,10 @@ extern "C" int pota_po_forward(const float* x, const float* y, const float* ax,
                                float* dx, float* dy, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
   constexpr int threads = pota::kForwardThreads;
-  pota::po_forward_kernel<false>
-      <<<pota::grid_for(n, threads), threads, 0, stream>>>(
-          x, y, ax, ay, n, table, inv_ap_z, sensor_shift, iterations, out4,
-          trans, dx, dy, pota::ForwardDraw{});
-  return (int)cudaGetLastError();
-}
-
-// The draw mode: n_rays rays of `tries` candidates each; x, y, r1, r2
-// (f32) and key (int64) [n_rays]; out4 [n, 4], trans, dx, dy [n] with n =
-// n_rays * tries (< 2^31); the candidates' rays xk, yk, axk, ayk [n] are
-// written when xk is not null (then all four are given).
-extern "C" int pota_po_forward_drawn(
-    const float* x, const float* y, const float* r1, const float* r2,
-    const long long* key, int n_rays, int tries, float radius, int blades,
-    float blade_angle, const float* table, float inv_ap_z, float sensor_shift,
-    int iterations, float* out4, float* trans, float* dx, float* dy,
-    float* xk, float* yk, float* axk, float* ayk, cudaStream_t stream) {
-  const long long n = (long long)n_rays * tries;
-  if (n <= 0) return (int)cudaSuccess;
-  const pota::ForwardDraw draw{r1, r2, key, tries, blades, radius,
-                               blade_angle, xk, yk, axk, ayk};
-  constexpr int threads = pota::kForwardThreads;
-  pota::po_forward_kernel<true>
-      <<<pota::grid_for(n, threads), threads, 0, stream>>>(
-          x, y, nullptr, nullptr, (int)n, table, inv_ap_z, sensor_shift,
-          iterations, out4, trans, dx, dy, draw);
+  pota::po_forward_kernel<<<pota::grid_for(n, threads), threads, 0,
+                            stream>>>(x, y, ax, ay, n, table, inv_ap_z,
+                                      sensor_shift, iterations, out4, trans,
+                                      dx, dy);
   return (int)cudaGetLastError();
 }
 
@@ -325,8 +277,7 @@ extern "C" int pota_po_forward_selected(
     float* dx, float* dy, float* out4, cudaStream_t stream) {
   if (n_rays <= 0) return (int)cudaSuccess;
   const pota::ForwardDraw draw{r1, r2, key, tries, blades, radius,
-                               blade_angle, nullptr, nullptr, nullptr,
-                               nullptr};
+                               blade_angle};
   const pota::ForwardSelect sel{
       sx, sy, hsw,
       pota::PupilSelect{chart, R, R2, inv_R, inv_absR, center, scale,

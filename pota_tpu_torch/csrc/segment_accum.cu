@@ -30,7 +30,7 @@
 //      gathered.
 //   2. Each thread gathers its 4 rows' payload, all 20 loads in flight
 //      before the first is used, then sums the rows in order.  Of the
-//      layouts scripts/time_kernel_variants.py times (4 or 8 rows a
+//      layouts timed on the H100 (4 or 8 rows a
 //      thread; 2, 4 or all rows' loads in flight, or each row's behind its
 //      head branch), this one (64 registers) ran fastest on the 1080p
 //      frame's stream and tied on the seeded ones; loads behind the head

@@ -37,8 +37,8 @@
 // spherical-aberration and squircle strengths in as immediates, one compile
 // per setting; here they are runtime scalars (the bias flag, its exponent
 // log(abb_spherical) / log(0.5) formed in double on the host, and c2s), so
-// one build serves every setting.  scripts/time_kernel_variants.py times
-// this design against the first port's, one change at a time.
+// one build serves every setting.  Each of these choices was timed against
+// the first port's design on the H100, one change at a time (PERF.md).
 #include "common.cuh"
 
 #include <atomic>

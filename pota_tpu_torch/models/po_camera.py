@@ -3,21 +3,28 @@
 
 The reference's vignetting-retry loop becomes K = ``vignetting_retries + 1``
 candidate aperture samples per ray, traced by the PO forward kernel, then a
-first-success select.  With depth of field K1 draws the candidates, selects
-each ray's and hands back the rays (``ops.po_kernels.po_forward_selected``,
-its select mode; the draw and select of :func:`select_rays` inside its
-launch), except for the image bokeh, whose CDF's candidates are drawn in
-torch and handed to K1 (``ops.po_kernels.po_forward``), then selected in
-torch.  The differentiable route takes the same kernel with its VJP
-(``ops.po_kernels.SelectFn``: K1 forward, K1v backward; ``ForwardFn`` for
-the image bokeh), the gradient JAX takes through its pure path
-(``use_pallas=False``); on the CPU it keeps K1's draw mode with the term
-trace (``DrawnForwardFn``) and the select in torch, JAX's rounding, to
-which the CPU tests hold it.  The ray differentials
-take K1j on the card (:func:`trace_fw_po_jvp`: K1's function and its
-Jacobian in the sensor point, one launch) and, on the CPU and without
-depth of field, the deriv ray's torch trace (``trace_fw_po(deriv_ray=True)``,
-``_ApertureSolve``), which ``torch.func.jvp`` differentiates.
+first-success select.  :func:`trace_fw_po` picks one route from the
+configuration alone, on every device:
+
+* depth of field on, no image bokeh, not the deriv ray: K1's select mode
+  (``ops.po_kernels.po_forward_selected``: K1 draws each ray's candidates,
+  selects the first that passes the pupil crops and hands back the ray), or
+  ``ops.po_kernels.SelectFn`` when differentiable (K1v's select mode for the
+  backward);
+* the image bokeh: the CDF's candidates drawn in torch and handed to K1's
+  candidate mode (``ops.po_kernels.po_forward``, or ``ForwardFn`` when
+  differentiable), then selected in torch (:func:`select_rays`);
+* the deriv ray, or no depth of field: the torch term trace.
+
+The differentiable routes give the gradient JAX takes through its pure path
+(``use_pallas=False``).  The device decides only inside the kernel wrappers
+(the plain version on the CPU, the kernel on the card) and the autograd
+functions, whose forward on the CPU traces the fit's term set (JAX's rounding,
+to which the CPU tests hold it).  The ray differentials take K1j on the card
+(:func:`trace_fw_po_jvp`: K1's function and its Jacobian in the sensor point,
+one launch) and, on the CPU and without depth of field, the deriv ray's torch
+trace (``trace_fw_po(deriv_ray=True)``, ``_ApertureSolve``), which
+``torch.func.jvp`` differentiates.
 """
 from __future__ import annotations
 
@@ -26,7 +33,6 @@ import torch
 from ..config import CameraConfig
 
 from ..ops.po_kernels import (
-    DrawnForwardFn,
     ForwardFn,
     SelectFn,
     aperture_sample,
@@ -53,19 +59,6 @@ def po_sample_aperture_disk(cfg: CameraConfig, r1, r2, bokeh_cdf=None):
     return aperture_sample(r1, r2, cfg.aperture_blades)
 
 
-def _takes_select(cfg: CameraConfig, sx, sy, image_bokeh: bool,
-                  differentiable: bool, deriv_ray: bool) -> bool:
-    """Whether :func:`trace_fw_po` takes K1's select mode: depth of field
-    on, the image bokeh off, not the deriv ray; on the differentiable route
-    only on the card (the CPU's traces the term set, JAX's rounding) and
-    with screen points that take no gradient."""
-    if not cfg.enable_dof or image_bokeh or deriv_ray:
-        return False
-    return not differentiable or not (sx.device.type == "cpu"
-                                      or sx.requires_grad
-                                      or sy.requires_grad)
-
-
 def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
                 retry_key, po_state, newton_iterations: int = 3, ops=None,
                 bokeh_cdf=None, differentiable: bool = False,
@@ -80,12 +73,11 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     and returns the rays (``ops.po_forward_selected``); the image bokeh's
     are drawn in torch from its CDF and handed to ``ops.po_forward``, and
     selected in torch (:func:`select_rays`).  ``differentiable`` traces
-    the rays through :class:`~pota_tpu_torch.ops.po_kernels.SelectFn` (on
-    the CPU K1's draw mode, ``DrawnForwardFn``, and :func:`select_rays`;
-    with the image bokeh ``ForwardFn``: K1 forward, K1v backward: JAX's
+    the rays through :class:`~pota_tpu_torch.ops.po_kernels.SelectFn`
+    (with the image bokeh ``ForwardFn``: K1 forward, K1v backward: JAX's
     gradient of its pure path, ``pota_tpu/models/po_camera.py:194-205``),
-    so origin and direction carry gradients to the lens coefficients.
-    ``deriv_ray``
+    so origin and direction carry gradients to the lens coefficients; the
+    screen points take none.  ``deriv_ray``
     traces one candidate on (r1, r2), draws no retry uniforms
     (``retry_key`` may be None) and takes the torch trace
     (``pt_sample_aperture``, ``pt_evaluate``: the term trace, whatever the
@@ -102,7 +94,7 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     n = sx.shape[0]
     hsw = cfg.sensor_width * 0.5
     image_bokeh = cfg.bokeh_enable_image and bokeh_cdf is not None
-    if _takes_select(cfg, sx, sy, image_bokeh, differentiable, deriv_ray):
+    if cfg.enable_dof and not image_bokeh and not deriv_ray:
         # K1 draws, traces and selects the candidates and hands back the
         # rays (its select mode)
         rays = (sx.contiguous(), sy.contiguous(), r1.contiguous(),
@@ -120,7 +112,7 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
     x = sx * hsw
     y = sy * hsw
 
-    if cfg.enable_dof and (deriv_ray or image_bokeh):
+    if cfg.enable_dof:
         aperture = (po_sample_aperture_disk(
             cfg, *prng.retry_uniforms(r1, r2, retry_key, n_tries), bokeh_cdf)
             * aperture_radius)
@@ -137,26 +129,17 @@ def trace_fw_po(cfg: CameraConfig, lens: PolyLens, sx, sy, r1, r2,
         out4, trans = pt_evaluate(
             lens, torch.stack([xk, yk, dx, dy, sensor5[..., 4]], -1))
     elif cfg.enable_dof:
+        # the image bokeh: the CDF's candidates, drawn in torch, into K1's
+        # candidate mode
+        rays = candidate_rays(x, y, aperture)
         lam, its = cfg.lambda_um, newton_iterations
-        if image_bokeh:
-            # the CDF's candidates, drawn in torch, into K1's candidate mode
-            rays = candidate_rays(x, y, aperture)
-            if differentiable:
-                out4, trans, dx, dy = ForwardFn.apply(
-                    *rays, lens.pt.coeffs, lens.ap.coeffs, lens, lam,
-                    sensor_shift, its, ops)
-            else:
-                out4, trans, dx, dy = ops.po_forward(lens, *rays, lam,
-                                                     sensor_shift, its)
-        else:
-            # the differentiable route off the select mode (the CPU's): K1
-            # draws the candidates (its draw mode), selected in torch
-            rays = (x, y, r1.contiguous(), r2.contiguous(),
-                    None if retry_key is None else retry_key.contiguous())
-            out4, trans, dx, dy = DrawnForwardFn.apply(
-                *rays, lens.pt.coeffs, lens.ap.coeffs, lens,
-                (n_tries, aperture_radius, cfg.aperture_blades), lam,
+        if differentiable:
+            out4, trans, dx, dy = ForwardFn.apply(
+                *rays, lens.pt.coeffs, lens.ap.coeffs, lens, lam,
                 sensor_shift, its, ops)
+        else:
+            out4, trans, dx, dy = ops.po_forward(lens, *rays, lam,
+                                                 sensor_shift, its)
         out4 = out4.reshape(n, n_tries, 4)
         trans = trans.reshape(n, n_tries)
         dx = dx.reshape(n, n_tries)

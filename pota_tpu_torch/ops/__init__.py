@@ -24,7 +24,6 @@ class KernelOps(NamedTuple):
     po_backward: Callable
     po_forward_vjp: Callable
     po_forward_jvp: Callable
-    po_forward_drawn: Callable
     po_forward_selected: Callable
     po_forward_vjp_selected: Callable
 
@@ -34,7 +33,6 @@ KERNELS = KernelOps(po_kernels.po_forward, po_kernels.expand,
                     po_kernels.tl_splat, po_kernels.po_splat_lam,
                     po_kernels.po_splat_ext, po_kernels.po_backward,
                     po_kernels.po_forward_vjp, po_kernels.po_forward_jvp,
-                    po_kernels.po_forward_drawn,
                     po_kernels.po_forward_selected,
                     po_kernels.po_forward_vjp_selected)
 PLAIN = KernelOps(po_kernels.po_forward_plain, po_kernels.expand_plain,
@@ -44,7 +42,6 @@ PLAIN = KernelOps(po_kernels.po_forward_plain, po_kernels.expand_plain,
                   po_kernels.po_backward_plain,
                   po_kernels.po_forward_vjp_plain,
                   po_kernels.po_forward_jvp_plain,
-                  po_kernels.po_forward_drawn_plain,
                   po_kernels.po_forward_selected_plain,
                   po_kernels.po_forward_vjp_selected_plain)
 

@@ -45,14 +45,6 @@ _PO_SPLAT = [_p] * 10 + [_i, _p, _i, _p, _i, _i, _p, _p, _i, _p, _p, _p]
 # C signatures of the entry points (csrc/*.cu); each returns cudaError_t
 SIGNATURES = {
     "pota_po_forward": [_p] * 4 + [_i, _p, _f, _f, _i] + [_p] * 5,
-    # K1's draw mode (po_forward_kernel<true>: it draws each ray's aperture
-    # candidates, ~200 integer operations and a sine and cosine a candidate
-    # beside K1's ~1,100 FMAs, so still bound by arithmetic; 87 registers,
-    # 0 spills): the rays' x, y, r1, r2 and keys, then n_rays, tries,
-    # radius, blades, the blade angle, the table and K1's scalars, out4,
-    # trans, dx, dy and the candidates' x, y, ax, ay (null: not written)
-    "pota_po_forward_drawn": [_p] * 5 + [_i, _i, _f, _i, _f, _p, _f, _f,
-                                         _i] + [_p] * 9,
     # K1's select mode (po_forward_select_kernel: a ray a thread, its
     # candidates traced until the first that passes the pupil crops, the
     # chart mapped to the ray): the rays' sx, sy, the half sensor width,

@@ -8,16 +8,17 @@ code, and are what the CPU tests hold against the JAX package.
 
 * :func:`po_forward` — K1, the PO forward trace
   (``pota_tpu/ops/po_pallas.py::build_po_forward_kernel``), on the table
-  :func:`fold_forward_tables` folds at the frame's wavelength, and
-  :func:`po_forward_drawn`, K1 in its draw mode (it draws each ray's
-  aperture candidates itself; :class:`DrawnForwardFn` with a gradient),
-  :func:`po_forward_selected`, K1 in its select mode (it also selects each
-  ray's candidate and hands back the ray; :class:`SelectFn` with a
-  gradient), and
+  :func:`fold_forward_tables` folds at the frame's wavelength.  K1 has
+  two modes: the candidate mode, :func:`po_forward` (the caller hands
+  every candidate; :class:`ForwardFn` with a gradient), which the image
+  bokeh takes, and the select mode, :func:`po_forward_selected` (K1 draws
+  each ray's aperture candidates itself, selects the first that passes the
+  pupil crops and hands back the ray; :class:`SelectFn` with a gradient),
+  which every other trace with depth of field takes; and
   :func:`po_forward_vjp` — K1v, its VJP on the same table (no TPU kernel:
   JAX differentiates its pure path), which :class:`ForwardFn` binds as
-  K1's gradient for the differentiable PO trace, with its select mode
-  :func:`po_forward_vjp_selected`, and
+  K1's gradient, with its select mode :func:`po_forward_vjp_selected`,
+  which :class:`SelectFn` binds; and
   :func:`po_forward_jvp` — K1j, K1's function with its Jacobian in the
   sensor point (no TPU kernel: JAX takes ``jax.jvp`` of its pure path), for
   the PO ray differentials;
@@ -771,7 +772,7 @@ def po_forward(lens: PolyLens, x, y, ax, ay, lam_um: float,
     return out4, trans, dx, dy
 
 
-# --------------------------------- K1's draw mode: it draws its candidates
+# ------------------------- K1's candidates, as its select mode draws them
 
 
 def aperture_sample(r1, r2, blades: int):
@@ -794,7 +795,7 @@ def candidate_rays(x, y, aperture):
 
 
 def drawn_rays(x, y, r1, r2, key, tries: int, radius: float, blades: int):
-    """The candidates' rays that K1's draw mode traces, in torch
+    """The candidates' rays that K1's select mode draws, in torch
     (``utils.rng.retry_uniforms``, :func:`aperture_sample` times
     ``radius``, :func:`candidate_rays`)."""
     aperture = aperture_sample(*prng.retry_uniforms(r1, r2, key, tries),
@@ -804,68 +805,14 @@ def drawn_rays(x, y, r1, r2, key, tries: int, radius: float, blades: int):
 
 def po_forward_drawn_plain(lens: PolyLens, x, y, r1, r2, key, tries: int,
                            radius: float, blades: int, lam_um: float,
-                           sensor_shift: float, iterations: int = 3,
-                           need_rays: bool = False):
-    """Plain K1 draw mode: the candidates drawn in torch
-    (:func:`drawn_rays`), then :func:`po_forward_plain` on them.  Returns
-    what :func:`po_forward_drawn` returns."""
-    rays = drawn_rays(x, y, r1, r2, key, tries, radius, blades)
-    out = tuple(po_forward_plain(lens, *rays, lam_um, sensor_shift,
-                                 iterations))
-    return out + rays if need_rays else out
-
-
-@span("pota.k1")
-def po_forward_drawn(lens: PolyLens, x, y, r1, r2, key, tries: int,
-                     radius: float, blades: int, lam_um: float,
-                     sensor_shift: float, iterations: int = 3,
-                     need_rays: bool = False):
-    """K1 in its draw mode: each of the N rays' K = ``tries`` aperture
-    candidates drawn inside K1's launch (``csrc/po_forward.cu``,
-    ``pota_po_forward_drawn``), bit for bit as :func:`drawn_rays` draws
-    them in torch (its plain version on the CPU), then traced as
-    :func:`po_forward` traces them.  ``x, y`` are the rays' sensor points
-    (mm), ``r1, r2`` their aperture uniforms (f32 [N] contiguous), ``key``
-    their uint32 retry keys (int64 [N]; None when K is 1), ``radius`` the
-    aperture radius (mm), ``blades`` the aperture's blades (fewer than 2:
-    the concentric disk).  Counts one ``po_forward`` launch, and the
-    candidates drawn in ``k1.drawn`` while a profiler records.
-    Returns (out4 [N * K, 4], trans, dx, dy [N * K]) ray-major, and with
-    ``need_rays`` the candidates' rays (x, y, ax, ay) [N * K] after them."""
-    _refuse_grad("po_forward_drawn", x, y, r1, r2, lens=lens)
-    dev = x.device
-    n, tries, blades = x.shape[0], int(tries), int(blades)
-    for name, t in (("x", x), ("y", y), ("r1", r1), ("r2", r2)):
-        _check(name, t, torch.float32, dev, (n,))
-    if key is not None or tries > 1:
-        _check("key", key, torch.int64, dev, (n,))
-    if tries < 1 or n * tries >= 2 ** 31:
-        raise ValueError(f"po_forward_drawn: {n} rays of {tries} candidates")
-    if lens.device != dev:
-        raise ValueError(f"lens on {lens.device}, rays on {dev}")
-    trace.count("k1.drawn", n * tries)
-    if dev.type == "cpu":
-        return po_forward_drawn_plain(lens, x, y, r1, r2, key, tries, radius,
-                                      blades, lam_um, sensor_shift,
-                                      iterations, need_rays)
-    table = _folded_table(lens, "forward", (lam_um,), dev)
-    m = n * tries
-    out4 = torch.empty((m, 4), dtype=torch.float32, device=dev)
-    trans, dx, dy = (torch.empty((m,), dtype=torch.float32, device=dev)
-                     for _ in range(3))
-    rays = tuple(torch.empty((m,), dtype=torch.float32, device=dev)
-                 for _ in range(4 if need_rays else 0))
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = _build.lib().pota_po_forward_drawn(
-        x.data_ptr(), y.data_ptr(), r1.data_ptr(), r2.data_ptr(), ptr(key),
-        n, tries, float(radius), blades,
-        2.0 * math.pi / blades if blades >= 2 else 0.0, table.data_ptr(),
-        1.0 / lens.aperture_z, float(sensor_shift), int(iterations),
-        out4.data_ptr(), trans.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        *(ptr(t) for t in rays or (None,) * 4), _stream(dev))
-    _build.check(err, "po_forward_drawn")
-    _build.LAUNCHES["po_forward"] += 1
-    return (out4, trans, dx, dy) + rays
+                           sensor_shift: float, iterations: int = 3):
+    """K1's plain candidates of N rays at the sensor points ``x, y``: the
+    candidates drawn in torch (:func:`drawn_rays`), then
+    :func:`po_forward_plain` on them.  Returns (out4 [N * K, 4], trans, dx,
+    dy [N * K]) ray-major."""
+    return po_forward_plain(lens, *drawn_rays(x, y, r1, r2, key, tries,
+                                              radius, blades),
+                            lam_um, sensor_shift, iterations)
 
 
 # --------------------------------- K1's select mode: it hands back rays
@@ -939,7 +886,7 @@ def po_forward_selected_plain(lens: PolyLens, sx, sy, hsw: float, r1, r2,
                               scale: float, iterations: int = 3,
                               need_rays: bool = False):
     """Plain K1 select mode: the sensor points ``sx * hsw``, ``sy * hsw``,
-    K1's plain draw mode (:func:`po_forward_drawn_plain`) on them, then the
+    the plain candidates (:func:`po_forward_drawn_plain`) on them, then the
     epilogue in torch (:func:`select_rays`).  Returns what
     :func:`po_forward_selected` returns."""
     x, y = sx * hsw, sy * hsw
@@ -978,13 +925,16 @@ def po_forward_selected(lens: PolyLens, sx, sy, hsw: float, r1, r2, key,
     """K1 in its select mode: K1 hands back each ray, not its candidates
     (``csrc/po_forward.cu``, ``pota_po_forward_selected``; its plain
     version on the CPU).  The sensor point ``sx * hsw, sy * hsw``, the K =
-    ``tries`` candidates drawn as :func:`po_forward_drawn` draws them and
-    traced until the first that passes the pupil crops, the chart of that
-    one (of candidate 0 when none passes) mapped to the ray at the unit
-    scale ``scale``: bit for bit the draw mode followed by
-    :func:`select_rays`.  ``sx, sy, r1, r2`` f32 [N] contiguous, ``key``
-    int64 [N] (None when K is 1), ``hsw`` half the sensor width (mm); the
-    rest as :func:`po_forward_drawn` takes it.  Counts one ``po_forward``
+    ``tries`` candidates drawn as :func:`drawn_rays` draws them in torch
+    and traced until the first that passes the pupil crops, the chart of
+    that one (of candidate 0 when none passes) mapped to the ray at the
+    unit scale ``scale``: bit for bit the torch draw, K1's candidate mode
+    and :func:`select_rays`.  ``sx, sy, r1, r2`` f32 [N] contiguous, the
+    rays' aperture uniforms ``r1, r2``, their uint32 retry keys ``key``
+    (int64 [N]; None when K is 1), ``hsw`` half the sensor width (mm),
+    ``radius`` the aperture radius (mm), ``blades`` the aperture's blades
+    (fewer than 2: the concentric disk), the rest as :func:`po_forward`
+    takes it.  Counts one ``po_forward``
     launch, and the rays selected in ``k1.selected`` while a profiler
     records.  Returns (origin [N, 3], direction [N, 3], weight [N], tries
     [N] int32), and with ``need_rays`` the selected candidate's sensor
@@ -1515,20 +1465,6 @@ def po_forward_jvp(lens: PolyLens, x, y, ax, ay, lam_um: float,
     return out4, trans, dx, dy, jac
 
 
-def _k1v(ctx, cts, need_rays: bool, need_coeffs: bool) -> tuple:
-    """K1v (``ops.po_forward_vjp``) at the rays and solution that an
-    autograd function of K1 saved in ``ctx``: ([the rays' 4 cotangents] or
-    [None] * 4, d pt, d ap), all None when no cotangent arrives or nothing
-    needs one."""
-    lens, lam_um, sensor_shift, ops = ctx.args
-    cts = [None if g is None else g.contiguous() for g in cts]
-    if all(g is None for g in cts) or not (need_rays or need_coeffs):
-        return [None] * 4, None, None
-    g_pt, g_ap, *g_rays = ops.po_forward_vjp(
-        lens, *ctx.saved_tensors, *cts, lam_um, sensor_shift, need_rays)
-    return g_rays or [None] * 4, g_pt, g_ap
-
-
 class ForwardFn(torch.autograd.Function):
     """K1 with a gradient: ``ForwardFn.apply(x, y, ax, ay, pt_coeffs,
     ap_coeffs, lens, lam_um, sensor_shift, iterations, ops)`` returns
@@ -1563,57 +1499,17 @@ class ForwardFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out4, g_trans, g_dx, g_dy):
         need = ctx.needs_input_grad
-        g_rays, g_pt, g_ap = _k1v(
-            ctx, (g_out4, g_trans, g_dx, g_dy), any(need[:4]),
-            any(need[4:6]))
-        grads = [g if n else None for g, n in zip((*g_rays, g_pt, g_ap),
-                                                  need)]
+        cts = [None if g is None else g.contiguous()
+               for g in (g_out4, g_trans, g_dx, g_dy)]
+        if all(g is None for g in cts) or not any(need[:6]):
+            return (None,) * 11
+        lens, lam_um, sensor_shift, ops = ctx.args
+        g_pt, g_ap, *g_rays = ops.po_forward_vjp(
+            lens, *ctx.saved_tensors, *cts, lam_um, sensor_shift,
+            any(need[:4]))
+        grads = [g if n else None for g, n in zip((*(g_rays or [None] * 4),
+                                                   g_pt, g_ap), need)]
         return (*grads, None, None, None, None, None)
-
-
-class DrawnForwardFn(torch.autograd.Function):
-    """:class:`ForwardFn` with K1 in its draw mode:
-    ``DrawnForwardFn.apply(x, y, r1, r2, key, pt_coeffs, ap_coeffs, lens,
-    draw, lam_um, sensor_shift, iterations, ops)`` with ``draw`` = (tries,
-    radius, blades) returns the (out4, trans, dx, dy) of the rays' K
-    candidates, as :func:`po_forward_drawn` draws them.  On the card the
-    forward is ``ops.po_forward_drawn``, which also writes the candidates'
-    rays; on the CPU the candidates are drawn in torch
-    (:func:`drawn_rays`) and traced on the fit's term set
-    (:func:`_po_forward_terms`), as :class:`ForwardFn` traces them.
-
-    It saves the candidates' rays and solution, as :class:`ForwardFn`
-    does, and its backward is the same K1v.  The sensor point's cotangents
-    are the sums over each ray's candidates; the uniforms and keys get
-    none."""
-
-    @staticmethod
-    def forward(ctx, x, y, r1, r2, key, pt_coeffs, ap_coeffs, lens, draw,
-                lam_um, sensor_shift, iterations, ops):
-        if x.device.type == "cpu":
-            rays = drawn_rays(x, y, r1, r2, key, *draw)
-            out4, trans, dx, dy = _po_forward_terms(
-                lens, *rays, lam_um, sensor_shift, iterations)
-        else:
-            out4, trans, dx, dy, *rays = ops.po_forward_drawn(
-                lens, x, y, r1, r2, key, *draw, lam_um, sensor_shift,
-                iterations, True)
-        ctx.save_for_backward(*rays, dx, dy)
-        ctx.args = (lens, lam_um, sensor_shift, ops)
-        ctx.tries = draw[0]
-        ctx.set_materialize_grads(False)
-        return out4, trans, dx, dy
-
-    @staticmethod
-    def backward(ctx, g_out4, g_trans, g_dx, g_dy):
-        need = ctx.needs_input_grad
-        g_rays, g_pt, g_ap = _k1v(
-            ctx, (g_out4, g_trans, g_dx, g_dy), any(need[:2]),
-            need[5] or need[6])
-        g_xy = [None if g is None or not n else g.view(-1, ctx.tries).sum(1)
-                for g, n in zip(g_rays[:2], need)]
-        return (*g_xy, None, None, None, g_pt if need[5] else None,
-                g_ap if need[6] else None, *(None,) * 6)
 
 
 class SelectFn(torch.autograd.Function):
@@ -1623,9 +1519,9 @@ class SelectFn(torch.autograd.Function):
     ``select`` = (hsw, scale) returns the rays' (origin, direction, weight,
     tries), as :func:`po_forward_selected` gives them.  On the card the
     forward is ``ops.po_forward_selected``; on the CPU the candidates are
-    drawn in torch and traced on the fit's term set
-    (:func:`_po_forward_terms`, as :class:`DrawnForwardFn` traces them),
-    then selected by :func:`select_rays`.
+    drawn in torch (:func:`drawn_rays`) and traced on the fit's term set
+    (:func:`_po_forward_terms`, as :class:`ForwardFn` traces them), then
+    selected by :func:`select_rays`.
 
     It saves the selected candidate of each ray (its sensor point,
     solution and chart: 32 bytes a ray), and its backward is K1v in its

@@ -101,73 +101,48 @@ def _same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def _torch_chain(lens, x, y, r1, r2, key, tries, radius, blades, lam_um,
-                 sensor_shift, iterations=3, need_rays=False):
-    """The route K1's draw mode replaced, called as ``po_forward_drawn``:
-    the candidates drawn in torch on the card, then K1 in its candidate
-    mode on them."""
-    rays = pk.drawn_rays(x, y, r1, r2, key, tries, radius, blades)
-    out = pk.po_forward(lens, *rays, lam_um, sensor_shift, iterations)
-    return out + rays if need_rays else out
-
-
-def _torch_chain_ops():
-    """The card's kernels with K1's draw mode replaced by the route it
-    replaced (:func:`_torch_chain`)."""
-    return ops.KERNELS._replace(po_forward_drawn=_torch_chain)
-
-
-@pytest.mark.parametrize("blades", [0, 5])
-@pytest.mark.parametrize("tries", [1, 3, 4])
-def test_po_forward_drawn_kernel_is_the_torch_chain(dev, tries, blades):
-    """K1's draw mode against the torch chain it replaces (the candidates
-    drawn in torch on the card, K1 on them): the same bits of the
-    candidates' rays (x, y, ax, ay) and of K1's out4, trans, dx, dy, with
-    and without the rays asked for; one ``po_forward`` launch a call."""
-    lens = load_poly_lens(FLAGSHIP, device=dev)
-    args = (lens, *_drawn_rays(dev, 200_003), tries, STATE.aperture_radius,
-            blades, 0.55, STATE.sensor_shift, 3)
-    want = _torch_chain(*args, True)
-    ops.reset_launches()
-    got = pk.po_forward_drawn(*args, True)
-    short = pk.po_forward_drawn(*args)
-    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {"po_forward": 2}
-    assert len(got) == 8 and len(short) == 4
-    names = ("out4", "trans", "dx", "dy", "x", "y", "ax", "ay")
-    for name, g, w in zip(names, got, want):
-        assert g.shape[0] == 200_003 * tries
-        assert _same_bits(g, w), name
-    for name, g, w in zip(names, short, want):
-        assert _same_bits(g, w), name
-    assert float((got[1] > 0).double().mean()) > 0.5
+def _draw_then_select(lens, sx, sy, hsw, r1, r2, key, tries, radius, blades,
+                      lam_um, sensor_shift, scale, iterations=3,
+                      need_rays=False):
+    """The torch chain K1's select mode replaced, called as
+    ``po_forward_selected``: the candidates drawn in torch on the card
+    (``drawn_rays``), K1 in its candidate mode on them, then the torch
+    epilogue (``select_rays``)."""
+    x, y = sx * hsw, sy * hsw
+    cand = pk.po_forward(lens, *pk.drawn_rays(x, y, r1, r2, key, tries,
+                                              radius, blades),
+                         lam_um, sensor_shift, iterations)
+    return pk._select_candidates(lens, x, y, cand, tries, sensor_shift,
+                                 scale, need_rays)
 
 
 @pytest.mark.parametrize("blades", [0, 5])
-def test_drawn_frames_are_the_torch_chains_bits(dev, monkeypatch, blades):
-    """Frames with K1 drawing its candidates against the same frames with
-    the torch chain's candidates (the route before the draw mode), both
-    with the select in torch (``trace_fw_po`` kept off K1's select mode,
-    which draws as the draw mode does: ``-k select``).  A
-    64x48 differentiable teapot frame in 4 checkpointed chunks: the same
-    image bits; K1v handed the same rays and solution a chunk, bit for bit,
-    so that on one cotangent it gives the same gradient bits of pt and
-    ap; the frame's gradients within 1e-5 relative L2 (the splat's
-    backward adds with atomics: two runs of one route differ as much).
+def test_drawn_frames_are_the_torch_chains_bits(dev, blades):
+    """Frames with K1 drawing and selecting its candidates (its select
+    mode) against the same frames on the torch chain
+    (:func:`_draw_then_select`: the candidates drawn in torch, K1's
+    candidate mode, the select in torch), both with K1v's select mode.  A 64x48
+    differentiable teapot frame in 4 checkpointed chunks: the same image bits;
+    K1v handed the same selected candidates a chunk (sensor point, solution and
+    chart), bit for bit, so that on one cotangent it gives the same gradient
+    bits of pt and ap; the frame's gradients within 1e-5 relative L2 (the
+    splat's backward adds with atomics: two runs of one route differ as much).
     A 96x64 light-grid frame under ``no_grad``: RGBA and every AOV the same
     bits.  The same launches (K1 twice a chunk and once a frame)."""
-    monkeypatch.setattr(po_camera, "_takes_select", lambda *a: False)
     cfg = dataclasses.replace(CFG, vignetting_retries=2, splat_queue_mult=4,
                               trace_chunks=4, aperture_blades=blades)
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
     lens = load_poly_lens(FLAGSHIP, device=dev)
     coeffs = (lens.pt.coeffs, lens.ap.coeffs)
     res, launches, vjps = [], [], []
-    for kernel_set in (ops.KERNELS, _torch_chain_ops()):
+    for kernel_set in (ops.KERNELS,
+                       ops.KERNELS._replace(
+                           po_forward_selected=_draw_then_select)):
         calls = []
 
         def recording_vjp(*a):
             calls.append(a)
-            return pk.po_forward_vjp(*a)
+            return pk.po_forward_vjp_selected(*a)
 
         for c in coeffs:
             c.requires_grad_(True)
@@ -177,7 +152,7 @@ def test_drawn_frames_are_the_torch_chains_bits(dev, monkeypatch, blades):
                               sc.teapot_scene(device=dev), m, po_lens=lens,
                               po_state=STATE, differentiable=True,
                               ops=kernel_set._replace(
-                                  po_forward_vjp=recording_vjp))
+                                  po_forward_vjp_selected=recording_vjp))
         img[..., :3].mean().backward()
         grads = [c.grad.clone() for c in coeffs]
         for c in coeffs:
@@ -200,10 +175,10 @@ def test_drawn_frames_are_the_torch_chains_bits(dev, monkeypatch, blades):
     assert len(vjps[0]) == len(vjps[1]) == 4
     with torch.no_grad():
         for a, a_c in zip(*vjps):
-            assert all(_same_bits(t, t_c) for t, t_c in zip(a[1:7],
-                                                             a_c[1:7]))
-            got = pk.po_forward_vjp(*a)
-            want = pk.po_forward_vjp(*a_c[:7], *a[7:])
+            assert all(_same_bits(t, t_c) for t, t_c in zip(a[1:6],
+                                                             a_c[1:6]))
+            got = pk.po_forward_vjp_selected(*a)
+            want = pk.po_forward_vjp_selected(*a_c[:6], *a[6:])
             assert all(_same_bits(g, w) for g, w in zip(got, want))
     for g, g_c in ((g_pt, g_pt_c), (g_ap, g_ap_c)):
         assert float(g_c.norm()) > 0
@@ -234,26 +209,14 @@ def _screen_rays(dev, n, seed=0):
     return [x * (24.0 / 14.0 / HSW), y * (24.0 / 14.0 / HSW), r1, r2, key]
 
 
-def _draw_then_select(lens, sx, sy, r1, r2, key, tries, blades,
-                      need_rays=False):
-    """The route K1's select mode replaced, called as
-    ``po_forward_selected``: K1's draw mode on the sensor points, then the
-    torch epilogue (``select_rays``) on the card."""
-    x, y = sx * HSW, sy * HSW
-    cand = pk.po_forward_drawn(lens, x, y, r1, r2, key, tries,
-                               STATE.aperture_radius, blades, 0.55,
-                               STATE.sensor_shift, 3)
-    return pk._select_candidates(lens, x, y, cand, tries, STATE.sensor_shift,
-                                 SCALE, need_rays)
-
-
 @pytest.mark.parametrize("chart", CHARTS)
 @pytest.mark.parametrize("blades", [0, 5])
 @pytest.mark.parametrize("tries", [1, 3, 4])
 def test_po_forward_selected_kernel_is_the_draw_and_select(dev, tries,
                                                            blades, chart):
-    """K1's select mode against the route it replaces (K1's draw mode, then
-    the torch epilogue on the card), 200,003 rays: the same bits of origin,
+    """K1's select mode against the route it replaces
+    (:func:`_draw_then_select`: the torch draw, K1's candidate mode and the
+    torch epilogue on the card), 200,003 rays: the same bits of origin,
     direction, weight and tries, with and without the selected candidate
     asked for, and of that candidate's sensor point, solution and chart;
     rays that keep no candidate included; one ``po_forward`` launch a
@@ -261,9 +224,9 @@ def test_po_forward_selected_kernel_is_the_draw_and_select(dev, tries,
     lens = _chart_lens(dev, chart)
     sx, sy, r1, r2, key = _screen_rays(dev, 200_003, seed=tries)
     key = key if tries > 1 else None
-    want = _draw_then_select(lens, sx, sy, r1, r2, key, tries, blades, True)
     args = (lens, sx, sy, HSW, r1, r2, key, tries, STATE.aperture_radius,
             blades, 0.55, STATE.sensor_shift, SCALE, 3)
+    want = _draw_then_select(*args, True)
     ops.reset_launches()
     got = pk.po_forward_selected(*args, True)
     short = pk.po_forward_selected(*args)
@@ -288,12 +251,13 @@ def test_po_forward_selected_kernel_is_the_draw_and_select(dev, tries,
 def _parent_select(sx, sy, r1, r2, key, pt_c, ap_c, lens, draw, lam, shift,
                    its, select, ops_):
     """``SelectFn.apply``'s route before the select mode, for the card:
-    K1's draw mode with its gradient (``DrawnForwardFn``: K1v over the
-    candidates), then the torch epilogue under autograd."""
+    the candidates drawn in torch (``drawn_rays``), K1's candidate mode
+    with its gradient on them (``ForwardFn``: K1v over the candidates),
+    then the torch epilogue under autograd."""
     hsw, scale = select
     x, y = sx * hsw, sy * hsw
-    cand = pk.DrawnForwardFn.apply(x, y, r1, r2, key, pt_c, ap_c, lens, draw,
-                                   lam, shift, its, ops_)
+    cand = pk.ForwardFn.apply(*pk.drawn_rays(x, y, r1, r2, key, *draw), pt_c,
+                              ap_c, lens, lam, shift, its, ops_)
     return pk._select_candidates(lens, x, y, cand, draw[0], shift, scale,
                                  False)
 
@@ -303,8 +267,9 @@ def _parent_select(sx, sy, r1, r2, key, pt_c, ap_c, lens, draw, lam, shift,
 @pytest.mark.parametrize("tries", [1, 3, 4])
 def test_select_fn_gradients_on_the_card(dev, tries, blades, chart):
     """``SelectFn`` on the card (K1's select mode, K1v's select mode taking
-    the rays' cotangents) against the route it replaces (``DrawnForwardFn``
-    and the torch epilogue: K1's draw mode, K1v over the candidates),
+    the rays' cotangents) against the route it replaces
+    (:func:`_parent_select`: the torch draw, K1's candidate mode, K1v over
+    the candidates, the torch epilogue),
     200,003 rays: the same forward bits; the ``pt`` and ``ap`` gradients
     within 1e-4 relative L2 (K1v's tolerance) for cotangents on origin and
     direction, on origin alone and on direction alone; two runs the same
@@ -348,8 +313,10 @@ def test_select_fn_gradients_on_the_card(dev, tries, blades, chart):
 @pytest.mark.parametrize("blades", [0, 5])
 def test_select_frames_are_the_parent_routes(dev, monkeypatch, blades):
     """Frames through K1's select mode against the same frames through the
-    route before it (K1's draw mode, the torch epilogue, K1v over the
-    candidates; ``trace_fw_po`` kept off the select mode).  A 64x48
+    route before it (the torch draw, K1's candidate mode, the torch
+    epilogue, K1v over the candidates: ``SelectFn`` replaced by
+    :func:`_parent_select` and the select mode by
+    :func:`_draw_then_select`).  A 64x48
     differentiable teapot frame in 4 checkpointed chunks: the same image
     bits, gradients within 1e-4 relative L2, the same launches (K1 twice a
     chunk, K1v once); two runs of the select route the same image bits and
@@ -361,18 +328,22 @@ def test_select_frames_are_the_parent_routes(dev, monkeypatch, blades):
     m = look_at([0, 0, 0], [0, 0, -1], device=dev)
     lens = load_poly_lens(FLAGSHIP, device=dev)
     coeffs = (lens.pt.coeffs, lens.ap.coeffs)
-    takes_select = po_camera._takes_select
     res, launches = [], []
     for route in ("select", "select", "parent"):
-        monkeypatch.setattr(po_camera, "_takes_select", takes_select
-                            if route == "select" else lambda *a: False)
+        kernel_set = ops.KERNELS
+        if route == "parent":
+            monkeypatch.setattr(po_camera, "SelectFn", type(
+                "ParentSelect", (), {"apply": staticmethod(_parent_select)}))
+            kernel_set = ops.KERNELS._replace(
+                po_forward_selected=_draw_then_select)
         for c in coeffs:
             c.requires_grad_(True)
             c.grad = None
         ops.reset_launches()
         img, _ = render_frame(cfg, pt.RenderConfig(xres=64, yres=48, spp=1),
                               sc.teapot_scene(device=dev), m, po_lens=lens,
-                              po_state=STATE, differentiable=True)
+                              po_state=STATE, differentiable=True,
+                              ops=kernel_set)
         img[..., :3].mean().backward()
         grads = [c.grad.clone() for c in coeffs]
         for c in coeffs:
@@ -386,7 +357,7 @@ def test_select_frames_are_the_parent_routes(dev, monkeypatch, blades):
                 pt.RenderConfig(xres=96, yres=64, spp=1),
                 sc.lightgrid_scene(n=3, spacing=12.0, z=-150.0, radius=0.8,
                                    intensity=40.0, device=dev), m,
-                po_lens=lens, po_state=STATE)
+                po_lens=lens, po_state=STATE, ops=kernel_set)
         launches.append((step, dict(ops.LAUNCHES)))
         res.append((img.detach(), *grads, fb))
     assert launches[0] == launches[1] == launches[2]

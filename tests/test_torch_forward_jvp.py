@@ -207,8 +207,8 @@ class _Counting:
     """``ops.PLAIN``, counting K1's (each mode) and K1j's calls."""
 
     def __init__(self):
-        self.calls = {"po_forward": 0, "po_forward_drawn": 0,
-                      "po_forward_selected": 0, "po_forward_jvp": 0}
+        self.calls = {"po_forward": 0, "po_forward_selected": 0,
+                      "po_forward_jvp": 0}
         self.ops = ops.PLAIN._replace(**{
             k: self._count(k, getattr(ops.PLAIN, k)) for k in self.calls})
 
@@ -239,8 +239,8 @@ def test_card_route_matches_jax(frame):
         cfg, tkw["po_lens"], ts["sx"], ts["sy"], ts["r1"], ts["r2"],
         tkw["po_state"], steps, ops=counting.ops)
     card = {"dOdx": dOdx, "dOdy": dOdy, "dDdx": dDdx, "dDdy": dDdy}
-    assert counting.calls == {"po_forward": 0, "po_forward_drawn": 0,
-                              "po_forward_selected": 1, "po_forward_jvp": 1}
+    assert counting.calls == {"po_forward": 0, "po_forward_selected": 1,
+                              "po_forward_jvp": 1}
     live = tw.numpy() > 0
     np.testing.assert_array_equal(live, np.asarray(jw) > 0)
     assert live.sum() > 0.5 * live.size

@@ -314,12 +314,12 @@ def test_plain_vjp_matches_central_differences(name):
 
 
 class _Counting:
-    """The CPU kernel set, counting the calls of K1 (both modes) and
-    K1v."""
+    """The CPU kernel set, counting the calls of K1 and K1v (both modes
+    each)."""
 
     def __init__(self):
-        self.calls = {"po_forward": 0, "po_forward_drawn": 0,
-                      "po_forward_vjp": 0}
+        self.calls = {"po_forward": 0, "po_forward_selected": 0,
+                      "po_forward_vjp": 0, "po_forward_vjp_selected": 0}
         self.ops = ops.KERNELS._replace(**{
             k: self._count(k, getattr(ops.KERNELS, k)) for k in self.calls})
 
@@ -330,12 +330,12 @@ class _Counting:
         return call
 
 
-def test_trace_chunks_through_forward_fn():
-    """The differentiable frame's PO trace goes through ``ForwardFn``
-    (``DrawnForwardFn``, K1's draw mode):
-    with ``trace_chunks`` 4 (checkpointed) K1v's plain version runs once a
-    chunk; the forward takes the term trace on the CPU, so the kernel
-    set's K1 is not called, in either mode (on the card K1 runs twice a chunk, the forward
+def test_trace_chunks_through_select_fn():
+    """The differentiable frame's PO trace goes through ``SelectFn`` (K1's
+    select mode): with ``trace_chunks`` 4 (checkpointed) K1v's plain
+    select mode runs once a chunk and its candidate mode never; the
+    forward takes the term trace on the CPU, so the kernel set's K1 is not
+    called, in either mode (on the card K1 runs twice a chunk, the forward
     and the backward's recompute: ``chip_smoke.py``).  The image equals
     one chunk's bit for bit and the gradients agree to 1e-6 (the chunks'
     VJPs are summed chunk by chunk; measured: identical at 32x32)."""
@@ -361,8 +361,9 @@ def test_trace_chunks_through_forward_fn():
                               differentiable=True, ops=counting.ops)
         img[..., :3].mean().backward()
         res[chunks] = (img.detach(), [c.grad.clone() for c in coeffs])
-        assert counting.calls == {"po_forward": 0, "po_forward_drawn": 0,
-                                  "po_forward_vjp": chunks}
+        assert counting.calls == {"po_forward": 0, "po_forward_selected": 0,
+                                  "po_forward_vjp": 0,
+                                  "po_forward_vjp_selected": chunks}
     assert torch.equal(res[1][0], res[4][0])
     for g, want in zip(res[4][1], res[1][1]):
         assert float(want.norm()) > 0

@@ -1,11 +1,11 @@
 """K1's select mode on the CPU: ``ops.po_forward_selected`` (K1 draws each
-ray's aperture candidates, selects the first that passes the pupil crops
-and hands back the ray), its plain version against K1's plain draw mode
-followed by the torch epilogue ``trace_fw_po`` ran after it, ``SelectFn``'s
-gradients against autograd through that route, the charts' VJP against
-autograd, the routes ``trace_fw_po`` keeps, and the counts (``k1.selected``,
-K1's calls a trace).  The kernels themselves are held to the same route on
-the card: ``test_torch_cuda.py -k select``.
+ray's aperture candidates, selects the first that passes the pupil crops and
+hands back the ray), its plain version against K1's plain candidates of the
+torch draw followed by the torch epilogue ``trace_fw_po`` ran after it,
+``SelectFn``'s gradients against autograd through that route, the charts' VJP
+against autograd, the routes ``trace_fw_po`` keeps, and the counts
+(``k1.selected``, K1's calls a trace).  The kernels themselves are held to the
+same route on the card: ``test_torch_cuda.py -k select``.
 """
 import dataclasses
 
@@ -62,9 +62,10 @@ def screen_rays(n=192, seed=0):
 
 
 def draw_then_select(lens, sx, sy, r1, r2, key, tries, blades):
-    """The route the select mode replaces, in torch: K1's plain draw mode
-    on the sensor points, then the epilogue (``select_rays``); with the
-    selected candidate's sensor point, solution and chart."""
+    """The route the select mode replaces, in torch: K1's plain candidates
+    of the torch draw on the sensor points, then the epilogue
+    (``select_rays``); with the selected candidate's sensor point, solution and
+    chart."""
     x, y = sx * HSW, sy * HSW
     out4, trans, dx, dy = pk.po_forward_drawn_plain(
         lens, x, y, r1, r2, key if tries > 1 else None, tries,
@@ -87,7 +88,7 @@ def draw_then_select(lens, sx, sy, r1, r2, key, tries, blades):
 def test_selected_plain_is_the_draw_and_the_epilogue(lenses, chart, tries,
                                                      blades):
     """The plain select mode, and the wrapper on the CPU, give K1's plain
-    draw mode followed by the torch epilogue bit for bit: origin,
+    candidates followed by the torch epilogue bit for bit: origin,
     direction, weight, tries and, asked for, the selected candidate's
     sensor point, solution and chart; rays that keep no candidate get
     candidate 0's ray, weight 0 and tries K.  ``LAUNCHES`` does not count
@@ -164,14 +165,15 @@ def test_chart_rays_vjp_is_autograd(lenses, chart):
 
 
 def old_route(lens, sx, sy, r1, r2, key, tries, blades, coeffs):
-    """The differentiable route before the select mode: K1's draw mode with
-    its gradient (``DrawnForwardFn``, the term trace on the CPU), then the
-    torch epilogue under autograd."""
+    """The differentiable route before the select mode: the candidates
+    drawn in torch (``drawn_rays``), K1 with its gradient on them
+    (``ForwardFn``: the term trace on the CPU, K1v over the candidates),
+    then the torch epilogue under autograd."""
     x, y = sx * HSW, sy * HSW
-    cand = pk.DrawnForwardFn.apply(
-        x, y, r1, r2, key, *coeffs, lens,
-        (tries, STATE.aperture_radius, blades), LAM, STATE.sensor_shift,
-        ITERS, ops.PLAIN)
+    cand = pk.ForwardFn.apply(
+        *pk.drawn_rays(x, y, r1, r2, key, tries, STATE.aperture_radius,
+                       blades),
+        *coeffs, lens, LAM, STATE.sensor_shift, ITERS, ops.PLAIN)
     return pk._select_candidates(lens, x, y, cand, tries,
                                  STATE.sensor_shift, SCALE, False)
 
@@ -183,9 +185,10 @@ def test_select_fn_gradients_match_the_old_route(lenses, chart, tries,
                                                  blades):
     """``SelectFn`` on the CPU (the term trace forward, K1v's plain select
     mode taking the rays' cotangents) against autograd through the route it
-    replaces (``DrawnForwardFn`` and the torch epilogue): the same forward
-    bits, and the ``pt`` and ``ap`` gradients within 1e-4 relative L2 (K1v's
-    tolerance against the torch trace, ``test_torch_forward_vjp.py``) for
+    replaces (``ForwardFn`` on the torch draw and the torch epilogue): the
+    same forward bits, and the ``pt`` and ``ap`` gradients within 1e-4
+    relative L2 (K1v's tolerance against the torch trace,
+    ``test_torch_forward_vjp.py``) for
     cotangents on origin and direction, on origin alone and on direction
     alone.  Measured: at most 5.9e-6 (the sphere, direction alone: the
     float32 normalisation's VJP, whose formulas hold autograd's to 1e-10 in
@@ -272,8 +275,8 @@ def test_trace_fw_po_keeps_the_torch_epilogue(lenses, monkeypatch, case):
     """The image bokeh, ``enable_dof=False`` and the deriv ray keep their
     routes: K1's select mode is not called and the torch epilogue is, once;
     with depth of field (the last case) the select mode is called once and
-    the epilogue is not, and its rays are the plain draw mode's followed by
-    the epilogue, bit for bit."""
+    the epilogue is not, and its rays are the plain candidates of the torch
+    draw followed by the epilogue, bit for bit."""
     changes, with_image, deriv_ray = KEPT[case]
     cfg = dataclasses.replace(CFG, **changes)
     cdf = None
@@ -300,10 +303,9 @@ def test_trace_fw_po_keeps_the_torch_epilogue(lenses, monkeypatch, case):
 
 
 def test_frame_calls_k1_once_and_counts_selected_rays(lenses):
-    """A frame under ``no_grad`` calls K1 once, in its select mode, as the
-    draw mode was called before it (one ``po_forward`` launch on the
-    card), and ``k1.selected`` counts its N rays while a profiler records,
-    nothing otherwise."""
+    """A frame under ``no_grad`` calls K1 once, in its select mode (one
+    ``po_forward`` launch on the card), and ``k1.selected`` counts its N rays
+    while a profiler records, nothing otherwise."""
     calls = []
 
     def selected(*a):
