@@ -1004,8 +1004,9 @@ def check_splat_kernel(name, kern, plain, args, items, source, replaces,
 def config5_vjp_checks(fn_args, accum_args) -> dict:
     """The VJPs of config 5's K2 and K4 on the 4K step's own arguments,
     each against a float64 oracle, with a seeded cotangent: ``ExpandFn``'s
-    table gradient (a float32 ``index_add_`` of ``d_ex`` by source over the
-    live slots) against the same sum in float64, and ``AccumFn``'s payload
+    table gradient (the float64 range sums of ``d_ex`` over each source's
+    live slots, rounded once) against a float64 ``index_add_`` by source,
+    and twice for identical bits, and ``AccumFn``'s payload
     gradient (the accumulator's gradient gathered at each live writer's
     pixel) against the float64 gather.  Errors are the largest absolute
     error over the oracle's largest magnitude; times are the backward
@@ -1021,26 +1022,29 @@ def _config5_vjp_checks(fn_args, accum_args) -> dict:
 
     from pota_tpu_torch.ops import po_kernels as pk, splat_accum
 
-    table_f, src, table_i, slot_on = fn_args
+    table_f, src, table_i, bounds = fn_args
     dev = table_f.device
     g = torch.Generator(device=dev).manual_seed(11)
     d_ex = torch.randn((table_f.shape[0], src.shape[0]), generator=g,
                        device=dev)
     t = table_f.detach().clone().requires_grad_(True)
-    ex_f, _ = pk.ExpandFn.apply(t, src, table_i, slot_on, pk.expand)
+    ex_f, _ = pk.ExpandFn.apply(t, src, table_i, bounds, pk.expand)
 
     def expand_bwd():
         return torch.autograd.grad(ex_f, t, d_ex, retain_graph=True)[0]
 
     got = expand_bwd()
     n = table_f.shape[1]
-    col = torch.where(slot_on, src.long(), n)
+    live = int(bounds[1].max())
+    col = torch.where(torch.arange(src.shape[0], device=dev) < live,
+                      src.long(), n)
     oracle = torch.zeros((table_f.shape[0], n + 1), dtype=torch.float64,
                          device=dev).index_add_(1, col, d_ex.double())[:, :n]
     out = dict(expand_rel_err=float((got.double() - oracle).abs().max()
                                     / oracle.abs().max()),
+               expand_same_bits=bool(torch.equal(got, expand_bwd())),
                expand_backward_ms=median_ms(expand_bwd),
-               live_slots=int(slot_on.sum()), slots=int(src.shape[0]))
+               live_slots=live, slots=int(src.shape[0]))
     del d_ex, t, ex_f, got, col, oracle
 
     keys, perm, payload, sid, npix = accum_args
@@ -1072,6 +1076,8 @@ def _config5_vjp_checks(fn_args, accum_args) -> dict:
           f"{out['accum_backward_ms']:.3f} ms)", flush=True)
     if out["expand_rel_err"] > 1e-5 or out["accum_rel_err"] != 0.0:
         fail("config 5: a VJP disagrees with its float64 oracle")
+    if not out["expand_same_bits"]:
+        fail("config 5: ExpandFn's backward gave other bits on a second run")
     return out
 
 

@@ -228,26 +228,83 @@ def expand(src, table_f, table_i):
     return ef, ei
 
 
+# the row length of range_sums' scans: PyTorch scans each row of a 2-D
+# tensor in a fixed order, where a whole 1-D CUDA tensor takes CUB's
+# decoupled look-back, whose float sums follow the blocks' timing
+SCAN_BLOCK = 1024
+
+
+def _prefix_f64(v):
+    """Inclusive prefix sum of a float64 vector, the same bits on every
+    run: rows of :data:`SCAN_BLOCK` scanned in place (two rows at least, so
+    that the scan is a 2-D one), each row's total carried by the same scan
+    one level up."""
+    m = v.numel()
+    rows = max(2, -(-m // SCAN_BLOCK))
+    w = torch.zeros(rows * SCAN_BLOCK, dtype=torch.float64, device=v.device)
+    w[:m] = v
+    wb = w.view(rows, SCAN_BLOCK)
+    wb.cumsum_(1)
+    if m > SCAN_BLOCK:
+        wb[1:] += _prefix_f64(wb[:, -1])[:-1, None]
+    return w[:m]
+
+
+def range_sums(x, bounds, rows=None):
+    """``out[:, j] = x[:, bounds[0, j]:bounds[1, j]].sum(1)`` for ``x``
+    [R, S] and int32 ``bounds`` [2, n] (each within [0, S]; an empty range
+    sums to 0), summed in float64 and rounded once to ``x``'s dtype, with
+    the same bits on every run: no atomics, and no 1-D scan of the whole
+    queue (:data:`SCAN_BLOCK`, :func:`_prefix_f64`).  ``rows`` (default
+    all) are the rows summed; the others are 0.  A row at a time: its
+    float64 prefix sums, and each range the difference of two of them, so
+    a slot outside every range adds to no sum."""
+    r, s = x.shape
+    blocks = max(2, -(-s // SCAN_BLOCK))
+    dev = x.device
+    # z[i]: x[:i] summed (z[0] = 0; past S, what the last block leaves)
+    z = torch.zeros(blocks * SCAN_BLOCK + 1, dtype=torch.float64,
+                    device=dev)
+    zb = z[1:].view(blocks, SCAN_BLOCK)
+    out = (torch.empty if rows is None else torch.zeros)(
+        (r, bounds.shape[1]), dtype=x.dtype, device=dev)
+    acc = torch.empty(bounds.shape[1], dtype=torch.float64, device=dev)
+    tmp = torch.empty_like(acc)
+    for k in range(r) if rows is None else rows:
+        z[1:s + 1] = x[k]
+        zb.cumsum_(1)
+        zb[1:] += _prefix_f64(zb[:-1, -1])[:, None]
+        torch.index_select(z, 0, bounds[1], out=acc)
+        acc -= torch.index_select(z, 0, bounds[0], out=tmp)
+        out[k] = acc
+    return out
+
+
 class ExpandFn(torch.autograd.Function):
     """K2 with a gradient for ``table_f``: ``ExpandFn.apply(table_f, src,
-    table_i, slot_on, expand_impl)`` returns ``expand_impl(src, table_f,
-    table_i)`` (a kernel set's ``expand``: the kernel on the card, the
-    plain version on the CPU).
+    table_i, bounds, expand_impl[, rows])`` returns ``expand_impl(src,
+    table_f, table_i)`` (a kernel set's ``expand``: the kernel on the card,
+    the plain version on the CPU).
 
     The backward is JAX's transpose (``_expand_differentiable``,
     ``pota_tpu/render/splat.py:282-325``): the gradient of a table column
     is the sum of ``d_ex_f`` over the slots that read it, the source's
-    contiguous slot range, over the live slots only (``slot_on`` [S] bool;
-    a slot past the queue end, which reads the last source, contributes
-    nothing).  It is summed by ``index_add_`` in float32, not by JAX's
+    contiguous slot range ``bounds[:, j]`` (int32 [2, n], [start, end) cut
+    at the queue's live end ``min(offs[-1], S)``: a slot past it, which
+    reads the last source, contributes nothing; a column with no slot gets
+    0).  :func:`range_sums` sums each range in float64, not in JAX's
     float32 prefix difference, which loses per-source totals once the
-    queue passes 2^24 slots.  ``src`` and ``table_i`` are indices and get
-    no gradient."""
+    queue passes 2^24 slots, and gives the same bits on every run.
+    ``rows`` (default all) names the rows of ``table_f`` whose values
+    carry a gradient (the source table's, :func:`render.splat._source_table`):
+    only those are summed, the others' gradient is 0.  ``src``, ``table_i``
+    and ``bounds`` are indices and get no gradient; ``bounds`` may be None
+    where no gradient is asked for."""
 
     @staticmethod
-    def forward(ctx, table_f, src, table_i, slot_on, expand_impl):
-        ctx.save_for_backward(src, slot_on)
-        ctx.n_src = table_f.shape[1]
+    def forward(ctx, table_f, src, table_i, bounds, expand_impl, rows=None):
+        ctx.save_for_backward(bounds)
+        ctx.rows = rows
         ex_f, ex_i = expand_impl(src, table_f.detach(), table_i)
         ctx.mark_non_differentiable(ex_i)
         return ex_f, ex_i
@@ -255,14 +312,9 @@ class ExpandFn(torch.autograd.Function):
     @staticmethod
     @span("pota.expand.vjp")
     def backward(ctx, d_ex_f, _d_ex_i):
-        src, slot_on = ctx.saved_tensors
-        n = ctx.n_src
-        # dead slots go to a spare column n, dropped below
-        col = torch.where(slot_on, src.to(torch.int64), n)
-        d_table = torch.zeros((d_ex_f.shape[0], n + 1), dtype=d_ex_f.dtype,
-                              device=d_ex_f.device)
-        d_table.index_add_(1, col, d_ex_f)
-        return d_table[:, :n], None, None, None, None
+        (bounds,) = ctx.saved_tensors
+        return (range_sums(d_ex_f, bounds, ctx.rows), None, None, None, None,
+                None)
 
 
 # ------------------------------------------------------------- K3: PO splat

@@ -188,13 +188,34 @@ def splat_queue_compact(budget, redistribute, queue_size: int,
     return src, slot_on, slots
 
 
+class PermuteFn(torch.autograd.Function):
+    """``cols[:, order]`` for a permutation ``order`` [N], by the same
+    indexing; the backward gathers the cotangent by the inverse
+    permutation, since each column receives exactly one value (autograd's
+    ``IndexBackward0`` sorts the indices and accumulates into zeros)."""
+
+    @staticmethod
+    def forward(ctx, cols, order):
+        ctx.save_for_backward(order)
+        return cols[:, order]
+
+    @staticmethod
+    @span("pota.source_table.vjp")
+    def backward(ctx, grad):
+        (order,) = ctx.saved_tensors
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        return grad.index_select(1, inv), None
+
+
 @span("pota.splat.source_table")
 def _source_table(stream, p_cam_safe, p_ws, sky, slot_vals, depth, starts,
                   has, time=None):
     """The compact source table: one column per slot-owning sample (in
     sample order, by a stable sort on the has-slots flag), f32 and int32
     rows side by side (``ops.po_kernels.TF_*`` / ``TI_*``); with ``time``
-    (motion blur) the shutter time rides as row ``TF_TIME``."""
+    (motion blur) the shutter time rides as row ``TF_TIME``.  Also returns
+    the f32 rows whose values carry a gradient."""
     n = depth.shape[0]
     rows_f = [
         p_cam_safe[:, 0], p_cam_safe[:, 1], p_cam_safe[:, 2],
@@ -210,7 +231,9 @@ def _source_table(stream, p_cam_safe, p_ws, sky, slot_vals, depth, starts,
         torch.arange(n, dtype=torch.int64, device=depth.device),
     ], 0).to(torch.int32)
     order = torch.argsort((~has).to(torch.int8), stable=True)
-    return cols_f[:, order].contiguous(), cols_i[:, order].contiguous()
+    grad_rows = tuple(i for i, r in enumerate(rows_f) if r.requires_grad)
+    return (PermuteFn.apply(cols_f, order).contiguous(),
+            cols_i[:, order].contiguous(), grad_rows)
 
 
 @span("pota.splat.camera_space")
@@ -549,11 +572,20 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
     trace.host_write(dev)
     slot_vals = stream["rgba"] + add_energy[:, None] * torch.tensor(
         [1.0, 1.0, 1.0, 0.0], dtype=dtype, device=dev)
-    table_f, table_i = _source_table(
+    table_f, table_i, grad_rows = _source_table(
         stream, p_cam_safe, p_ws, sky, slot_vals, depth_src, starts,
         granted > 0, time=stream["time"] if motion_blur else None)
+    bounds = None
+    if table_f.requires_grad:
+        with torch.no_grad():
+            # each table column's slot range, cut at the live end: the
+            # range sums of ExpandFn's backward, which skip the slots past it
+            bounds = torch.stack([starts, offs]).clamp_(max=s_cap).to(
+                torch.int32).index_select(1, table_i[pk.TI_SID])
+            trace.count("expand.vjp_dead_slots", offs[-1], most=s_cap,
+                        of=s_cap)
     ex_f, ex_i = pk.ExpandFn.apply(table_f, src.to(torch.int32), table_i,
-                                   slot_on, ops.expand)
+                                   bounds, ops.expand, grad_rows)
     # geometry, counts and weights: no gradient (the kernels run here)
     with torch.no_grad():
         ex_g = ex_f.detach()

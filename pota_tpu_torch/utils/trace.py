@@ -24,8 +24,9 @@ import functools
 
 import torch
 
-# name -> [(value, most)]: a Python number or a one-element device tensor,
-# and the most it counts for (None: all of it)
+# name -> [(value, most, of)]: a Python number or a one-element device
+# tensor, the most it counts for (None: all of it), and the size whose rest
+# it counts (None: the value itself)
 COUNTERS: dict = {}
 
 
@@ -70,19 +71,21 @@ class span:
         return spanned
 
 
-def count(name: str, n=1, most: int | None = None) -> None:
+def count(name: str, n=1, most: int | None = None,
+          of: int | None = None) -> None:
     """Add ``n`` to counter ``name`` while a profiler records.  ``n`` is a
     Python number or a one-element tensor; a device tensor is kept as a
     one-element device-to-device copy of the same dtype (a copy, not a
     kernel), read at :func:`snapshot`.  ``most`` caps this count when it
-    is read (the value of a tail that can pass a fixed size)."""
+    is read (the value of a tail that can pass a fixed size); with ``of``
+    the count is what ``n`` (so capped) leaves of ``of``."""
     if not torch.autograd._profiler_enabled():
         return
     if isinstance(n, torch.Tensor):
         kept = torch.empty((1,), dtype=n.dtype, device=n.device)
         kept.copy_(n.reshape(1))
         n = kept
-    COUNTERS.setdefault(name, []).append((n, most))
+    COUNTERS.setdefault(name, []).append((n, most, of))
 
 
 def host_read(t: torch.Tensor, n: int = 1) -> None:
@@ -108,9 +111,10 @@ def snapshot() -> dict:
     out = {}
     for name, entries in COUNTERS.items():
         total = 0
-        for v, most in entries:
+        for v, most, of in entries:
             v = v.item() if isinstance(v, torch.Tensor) else v
-            total += v if most is None else min(v, most)
+            v = v if most is None else min(v, most)
+            total += v if of is None else of - v
         out[name] = total
     return out
 

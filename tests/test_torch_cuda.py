@@ -958,12 +958,13 @@ def test_render_motion_blur_kernels_match_plain(dev, chroma):
     assert float(off) <= 0.02
 
 
-@pytest.mark.parametrize("s_cap", [4000, 40000])
+@pytest.mark.parametrize("s_cap", [4000, 40000, 200000])
 def test_expand_fn_backward_on_the_card(dev, s_cap):
     """``ExpandFn`` with the kernel on the card: forward exact, and the
-    table gradient (``index_add_`` over the live slots) against the same
-    backward on CPU tensors (the plain expand), to 1e-6 of scale (float32
-    sums in another order)."""
+    table gradient (the range sums over each source's live slots) against
+    the same backward on CPU tensors (the plain expand), to 1e-6 of scale,
+    with the same bits on two card runs; at 200,000 slots the queue's live
+    end is at ~14% (a four-card rank's band, mostly dead slots)."""
     from pota_tpu_torch.render.splat import splat_queue_compact
 
     rng = np.random.default_rng(4)
@@ -971,7 +972,12 @@ def test_expand_fn_backward_on_the_card(dev, s_cap):
     budget = torch.as_tensor(rng.integers(4, 20, n).astype(np.int32))
     redistribute = torch.as_tensor(rng.uniform(size=n) < 0.8)
     src, slot_on, slots = splat_queue_compact(budget, redistribute, s_cap)
+    if s_cap == 200000:
+        assert float(slot_on.double().mean()) < 0.2
     n_src = int((slots > 0).sum())
+    offs = torch.cumsum(slots[slots > 0], 0)
+    bounds = torch.stack([offs - slots[slots > 0], offs]).clamp(
+        max=s_cap).to(torch.int32)
     tf = rng.normal(size=(pk.TF_ROWS, n_src)).astype(np.float32)
     ti = rng.integers(0, 1000, (pk.TI_ROWS, n_src)).astype(np.int32)
     d_ex = rng.normal(size=(pk.TF_ROWS, s_cap)).astype(np.float32)
@@ -980,14 +986,40 @@ def test_expand_fn_backward_on_the_card(dev, s_cap):
         t = _t(tf, d).requires_grad_(True)
         ops.reset_launches()
         ex_f, ex_i = pk.ExpandFn.apply(t, src.to(d, torch.int32), _t(ti, d),
-                                       slot_on.to(d), pk.expand)
+                                       bounds.to(d), pk.expand)
         assert ops.LAUNCHES["expand"] == (1 if d.type == "cuda" else 0)
         ref = pk.expand_plain(src.to(d, torch.int32), _t(tf, d), _t(ti, d))
         assert torch.equal(ex_f.detach(), ref[0])
-        (g,) = torch.autograd.grad(ex_f, t, _t(d_ex, d))
+        (g,) = torch.autograd.grad(ex_f, t, _t(d_ex, d), retain_graph=True)
+        if d.type == "cuda":
+            again = torch.autograd.grad(ex_f, t, _t(d_ex, d))[0]
+            assert torch.equal(g, again)
         grads.append(g.cpu())
     scale = float(grads[1].abs().max())
     assert float((grads[0] - grads[1]).abs().max()) <= 1e-6 * scale
+
+
+def test_source_table_gradient_on_the_card(dev):
+    """The source table's reorder (``PermuteFn``) on the card: forward the
+    indexing's bits, and its gradient (a gather by the inverse
+    permutation) equal to autograd's gradient of ``cols[:, order]``, on a
+    has-slots mask with ties over 1,000,003 columns."""
+    from pota_tpu_torch.render.splat import PermuteFn
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    n = 1_000_003
+    has = torch.rand(n, generator=g, device=dev) < 0.6
+    order = torch.argsort((~has).to(torch.int8), stable=True)
+    cols = torch.randn((13, n), generator=g, device=dev)
+    ct = torch.randn((13, n), generator=g, device=dev)
+    a = cols.clone().requires_grad_(True)
+    out = PermuteFn.apply(a, order)
+    b = cols.clone().requires_grad_(True)
+    want = b[:, order]
+    assert torch.equal(out.detach(), want.detach())
+    out.backward(ct)
+    want.backward(ct)
+    assert torch.equal(a.grad, b.grad)
 
 
 def test_accum_fn_backward_on_the_card(dev):

@@ -58,6 +58,7 @@ from pota_tpu_torch.optics import polynomial as tpoly
 from pota_tpu_torch.optics.fit import load_poly_lens
 from pota_tpu_torch.optics.focus import setup_po_camera
 from pota_tpu_torch.render import scene as sc
+from pota_tpu_torch.render import splat as tsplat
 from pota_tpu_torch.render.renderer import (
     look_at,
     render_frame,
@@ -329,41 +330,50 @@ def _queue(case: str, seed: int = 3):
     """A seeded splat queue.  ``cut``: budgets that overflow a 60-slot
     queue, so the >= 1-unit clamp cuts the last sources at the queue end;
     ``short``: a queue longer than its sources' slots, whose tail slots
-    read the last source."""
+    read the last source; ``dead``: as ``short``, with its live end at
+    ~10% of the queue (a four-card rank's band, which asks for 8.5% of its
+    queue).  ``bounds`` int32 [2, n_src] are the compact sources' slot
+    ranges cut at the queue end, as ``splat_frame`` hands them to
+    ``ExpandFn``."""
     rng = np.random.default_rng(seed)
     n = 50
     budget = np.where(rng.uniform(size=n) < 0.5, 4, 400).astype(np.int32)
     redistribute = rng.uniform(size=n) < 0.9
-    if case == "short":
+    if case in ("short", "dead"):
         budget = rng.integers(4, 9, n).astype(np.int32)
-    s_cap = 60 if case == "cut" else 600
+    s_cap = {"cut": 60, "short": 600, "dead": 3000}[case]
     src, slot_on, slots = splat_queue_compact(
         torch.as_tensor(budget), torch.as_tensor(redistribute), s_cap)
     n_src = int((slots > 0).sum())
+    offs = torch.cumsum(slots[slots > 0], 0)
+    bounds = torch.stack([offs - slots[slots > 0], offs]).clamp(
+        max=s_cap).to(torch.int32)
     table_f = torch.as_tensor(rng.standard_normal((12, n_src)),
                               dtype=torch.float32)
     table_i = torch.as_tensor(rng.integers(0, 100, (4, n_src)),
                               dtype=torch.int32)
     d_ex = torch.as_tensor(rng.standard_normal((12, s_cap)),
                            dtype=torch.float32)
-    return src.to(torch.int32), slot_on, slots, table_f, table_i, d_ex
+    return src.to(torch.int32), slot_on, slots, bounds, table_f, table_i, d_ex
 
 
-@pytest.mark.parametrize("case", ["cut", "short"])
+@pytest.mark.parametrize("case", ["cut", "short", "dead"])
 def test_expand_fn_backward(case):
     """``ExpandFn``'s gradient of ``table_f`` against autograd of the plain
     expand (a gather) with the slots past the queue end masked out, and
     against a float64 per-source sum over each source's slot range
     [start, end) cut at the queue end, as JAX's transpose sums it."""
-    src, slot_on, slots, table_f, table_i, d_ex = _queue(case)
+    src, slot_on, slots, bounds, table_f, table_i, d_ex = _queue(case)
     s_cap = src.shape[0]
     offs = torch.cumsum(slots[slots > 0], 0)
     if case == "cut":
         assert int(offs[-1]) > s_cap and bool(slot_on.all())
     else:
         assert int(offs[-1]) < s_cap and not bool(slot_on.all())
+    if case == "dead":
+        assert 0.05 < float(slot_on.double().mean()) < 0.15
     tf = table_f.clone().requires_grad_(True)
-    ex_f, ex_i = pk.ExpandFn.apply(tf, src, table_i, slot_on, pk.expand)
+    ex_f, ex_i = pk.ExpandFn.apply(tf, src, table_i, bounds, pk.expand)
     want_f, want_i = pk.expand_plain(src, table_f, table_i)
     assert torch.equal(ex_f.detach(), want_f) and torch.equal(ex_i, want_i)
     (got,) = torch.autograd.grad(ex_f, tf, d_ex)
@@ -380,6 +390,93 @@ def test_expand_fn_backward(case):
     for c, (a, b) in enumerate(zip(starts, offs.tolist())):
         oracle[:, c] = d64[:, min(a, s_cap):min(b, s_cap)].sum(1)
     assert float(np.abs(got.double().numpy() - oracle).max()) <= 1e-6 * scale
+
+
+def test_expand_fn_backward_sums_only_the_rows_named():
+    """With ``rows`` (the source table's rows whose values carry a
+    gradient), ``ExpandFn`` sums those rows as it sums every row without,
+    and gives the others 0."""
+    src, _, _, bounds, table_f, table_i, d_ex = _queue("short")
+    rows = (7, 8, 9, 10)
+    grads = []
+    for r in (None, rows):
+        tf = table_f.clone().requires_grad_(True)
+        ex_f, _ = pk.ExpandFn.apply(tf, src, table_i, bounds, pk.expand, r)
+        grads.append(torch.autograd.grad(ex_f, tf, d_ex)[0])
+    assert torch.equal(grads[1][list(rows)], grads[0][list(rows)])
+    others = [k for k in range(12) if k not in rows]
+    assert grads[0][others].any() and not grads[1][others].any()
+
+
+@pytest.mark.parametrize("case", ["cut", "dead"])
+def test_expand_fn_backward_same_bits_twice(case):
+    """Two backwards of one ``ExpandFn`` give the same bits: no atomics,
+    and the range sums' scans add in a fixed order."""
+    src, _, _, bounds, table_f, table_i, d_ex = _queue(case)
+    tf = table_f.clone().requires_grad_(True)
+    ex_f, _ = pk.ExpandFn.apply(tf, src, table_i, bounds, pk.expand)
+    first = torch.autograd.grad(ex_f, tf, d_ex, retain_graph=True)[0]
+    assert torch.equal(first, torch.autograd.grad(ex_f, tf, d_ex)[0])
+
+
+@pytest.mark.parametrize("s", [5, 1024, 1025, 3 * 1024 * 1024 + 7])
+def test_range_sums_against_float64(s):
+    """``range_sums`` over queues shorter than one scan row, of one row,
+    and of three levels of rows (1024^2 slots and more): each range's
+    float64 sum rounded once, empty ranges 0, the slots outside every
+    range never read (NaN there)."""
+    rng = np.random.default_rng(s)
+    x = rng.standard_normal((2, s)).astype(np.float32)
+    x[:, s - s // 5:] = np.nan
+    live = s - s // 5
+    cuts = np.sort(rng.integers(0, live + 1, 400))
+    lo, hi = cuts[:-1].copy(), cuts[1:].copy()
+    # long ranges too, across many scan rows
+    lo[::7] = np.minimum(lo[::7], rng.integers(0, live + 1, lo[::7].size))
+    hi[3::11] = lo[3::11]
+    bounds = torch.as_tensor(np.stack([lo, hi]), dtype=torch.int32)
+    got = pk.range_sums(torch.as_tensor(x), bounds)
+    c = np.concatenate([np.zeros((2, 1)), np.cumsum(
+        x[:, :live].astype(np.float64), 1)], 1)
+    want = (c[:, hi] - c[:, lo]).astype(np.float32)
+    scale = float(np.abs(x[:, :live]).sum(1).max()) * 1e-15
+    assert np.all(np.abs(got.double().numpy() - want) <= np.abs(want) * 2**-23
+                  + scale)
+    assert (lo == hi).any() and not got[:, lo == hi].any()
+
+
+def test_source_table_gradient_is_the_indexing_gradient():
+    """``_source_table``'s float rows carry the same gradient as autograd
+    of ``cols_f[:, order]`` (the stable reorder on a has-slots mask with
+    ties): its backward gathers by the inverse permutation."""
+    rng = np.random.default_rng(12)
+    n = 5000
+    has = torch.as_tensor(rng.uniform(size=n) < 0.6)
+    leaves = [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+              for shape in ((n, 3), (n, 3), (n, 4), (n,))]
+    sky = torch.as_tensor(rng.uniform(size=n) < 0.1)
+    stream = {"px": torch.as_tensor(rng.integers(0, 64, n)),
+              "py": torch.as_tensor(rng.integers(0, 64, n))}
+    starts = torch.as_tensor(rng.integers(0, 4 * n, n))
+    ct = torch.as_tensor(rng.standard_normal((12, n)), dtype=torch.float32)
+
+    got = [t.clone().requires_grad_(True) for t in leaves]
+    table_f, _, rows = tsplat._source_table(
+        stream, got[0], got[1], sky, got[2], got[3], starts, has)
+    assert rows == tuple(range(12)[:6]) + tuple(range(7, 12))
+    table_f.backward(ct)
+
+    want = [t.clone().requires_grad_(True) for t in leaves]
+    p_cam, p_ws, vals, depth = want
+    cols_f = torch.stack([
+        p_cam[:, 0], p_cam[:, 1], p_cam[:, 2], p_ws[:, 0], p_ws[:, 1],
+        p_ws[:, 2], sky.to(torch.float32), vals[:, 0], vals[:, 1],
+        vals[:, 2], vals[:, 3], depth], 0)
+    order = torch.argsort((~has).to(torch.int8), stable=True)
+    assert torch.equal(table_f.detach(), cols_f[:, order].detach())
+    cols_f[:, order].backward(ct)
+    for g, w in zip(got, want):
+        assert torch.equal(g.grad, w.grad)
 
 
 # ------------------------------------------------------ (c) K4's transpose

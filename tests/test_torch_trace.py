@@ -136,14 +136,17 @@ def test_frame_spans_and_splat_counts(tmp_path, truck):
     assert c["splat.valid_splats"] == int(fb["_n_valid_splats"]) > 0
     assert c["splat.issued_slots"] == int(fb["_n_issued_slots"]) > 0
     assert c["splat.queue_slots"] == CFG.splat_queue_mult * 32 * 32
-    # a CPU tensor is neither read from nor copied to a device
+    # a CPU tensor is neither read from nor copied to a device; a frame
+    # without a gradient builds no slot ranges for ExpandFn's backward
     assert "host_reads" not in c and "host_writes" not in c
+    assert "expand.vjp_dead_slots" not in c
 
 
 def test_step_spans_forward_and_backward(tmp_path):
     """A 32x32 differentiable step with 4 trace chunks: 4
     ``pota.trace.chunk`` spans outside ``loss.backward`` and 4 inside it
-    (the checkpoint's recompute), with K1v's, K2's and K4's VJP spans."""
+    (the checkpoint's recompute), with K1v's, K2's, K4's and the source
+    table's VJP spans, and the queue's slots past its live end counted."""
     scene = sc.teapot_scene(device="cpu")
     lens = load_poly_lens(FLAGSHIP, device="cpu")
     for c in (lens.pt.coeffs, lens.ap.coeffs):
@@ -161,9 +164,13 @@ def test_step_spans_forward_and_backward(tmp_path):
     chunks = named(rs, "pota.trace.chunk")
     assert sum(within(r, back) for r in chunks) == 4
     assert sum(not within(r, back) for r in chunks) == 4
-    for vjp in ("pota.k1v", "pota.expand.vjp", "pota.accum.vjp"):
+    for vjp in ("pota.k1v", "pota.expand.vjp", "pota.accum.vjp",
+                "pota.source_table.vjp"):
         got = named(rs, vjp)
         assert got and all(within(r, back) for r in got), vjp
+    c = trace.snapshot()
+    assert c["expand.vjp_dead_slots"] == (c["splat.queue_slots"]
+                                          - c["splat.issued_slots"])
     (frame,) = named(rs, "pota.frame")
     assert frame[2] <= back[1]
 
@@ -218,12 +225,23 @@ def test_count_keeps_a_copy_capped_when_read():
         trace.count("tail", offs[-1], most=12)
         trace.count("tail", offs[0], most=12)
         trace.count("n", 5)
-    (kept, _), _ = trace.COUNTERS["tail"]
+    (kept, _, _), _ = trace.COUNTERS["tail"]
     assert kept.shape == (1,) and kept.dtype == offs.dtype
     assert kept.untyped_storage().data_ptr() != offs.untyped_storage(
     ).data_ptr()
     offs[-1] = 0
     assert trace.snapshot() == {"tail": 15, "n": 5}
+
+
+def test_count_of_a_size_keeps_the_rest():
+    """With ``of``, a count is what its value, capped by ``most``, leaves
+    of that size: the queue's slots past its live end."""
+    offs = torch.tensor([3, 9, 14])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        trace.count("dead", offs[-1], most=20, of=20)
+        trace.count("dead", offs[-1], most=12, of=12)
+    assert trace.snapshot() == {"dead": 6}
 
 
 # ------------------------------------------------------------ on the card
