@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import trace
 
 # ------------------------------------------------------------ name hashing --
 
@@ -127,27 +128,38 @@ def crypto_topk(pix, obj_id, w, npix: int, k: int = 6):
     float32, total [npix] float32).  Each run's coverage and each pixel's
     total are float64 sums of the live weights (prefix differences),
     rounded once to float32; equal coverages of one pixel rank by
-    ascending id.
+    ascending id.  While a profiler records it counts the records
+    (``crypto.records``), the live ones (``crypto.live``), the (pixel, id)
+    runs (``crypto.runs``), the rank slots written (``crypto.ranked``) and
+    its boolean indexes' reads to the host (``host_reads``).
     """
     dev = w.device
     pix = pix.to(torch.int64)
     obj_id = obj_id.to(torch.int64)
     live = (w > 0.0) & (obj_id >= 0) & (pix >= 0) & (pix < npix)
+    # each boolean index reads the count of its True entries
+    trace.host_read(live, 3)
     key, order = torch.sort((pix[live] << 32) | obj_id[live], stable=True)
     csum = torch.cumsum(w[live][order].to(torch.float64), 0)
+    trace.count("crypto.records", pix.shape[0])
+    trace.count("crypto.live", key.shape[0])
 
     # ---- pass 1: each (pixel, id) run's coverage, a float64 sum --------
     last = _run_last(key)
+    trace.host_read(last, 2)
     run_key, run_end = key[last], csum[last]
+    trace.count("crypto.runs", run_key.shape[0])
     run_w = _diff0(run_end).to(torch.float32)
     run_pix = run_key >> 32
     # the pixel total: the prefix at each pixel's last run, differenced
     pix_last = _run_last(run_pix)
+    trace.host_read(pix_last, 2)
     total = torch.zeros((npix,), dtype=torch.float32, device=dev)
     total[run_pix[pix_last]] = _diff0(run_end[pix_last]).to(torch.float32)
 
     # ---- pass 2: rank each pixel's runs by descending coverage ---------
     on = run_w > 0.0
+    trace.host_read(on, 3)
     run_pix, run_id, run_w = run_pix[on], (run_key[on] & 0xFFFFFFFF), run_w[on]
     neg_bits = 0x7FFFFFFF - run_w.view(torch.int32).to(torch.int64)
     key2, order2 = torch.sort((run_pix << 32) | neg_bits, stable=True)
@@ -156,7 +168,9 @@ def crypto_topk(pix, obj_id, w, npix: int, k: int = 6):
     rank = (torch.arange(pix2.shape[0], device=dev)
             - torch.searchsorted(pix2, pix2))
     keep = rank < k
+    trace.host_read(keep, 4)
     slot = pix2[keep] * k + rank[keep]
+    trace.count("crypto.ranked", slot.shape[0])
     rank_id = torch.full((npix * k,), -1, dtype=torch.int32, device=dev)
     rank_w = torch.zeros((npix * k,), dtype=torch.float32, device=dev)
     rank_id[slot] = run_id[order2][keep].to(torch.int32)

@@ -775,7 +775,7 @@ def splat_frame(cfg: CameraConfig, rc: RenderConfig, scene, stream,
     if n_crypto_ids:
         from .crypto import crypto_topk
 
-        with torch.no_grad():
+        with torch.no_grad(), span("pota.splat.idmatte"):
             rank_id, rank_w, total = crypto_topk(
                 *id_matte_records(stream, lin_splat, lin_source, oid, w_slot,
                                   w_src), npix, k=6)
@@ -816,6 +816,7 @@ def id_matte_records(stream, lin_splat, lin_source, oid, w_slot, w_src):
     return (pix.repeat(ids_d.shape[1]), torch.cat(ids), torch.cat(wts))
 
 
+@span("pota.resolve.crypto")
 def resolve_crypto(fb: dict, ranks: int = 3, id_hashes=None) -> list:
     """The id-matte's cryptomatte layers: ``ranks`` RGBA planes [H, W, 4],
     each holding two (id, normalised coverage) pairs (the reference

@@ -4,7 +4,10 @@ Without a profiler a span records nothing and a count keeps nothing.
 Under ``torch.profiler`` (the CPU here) a frame and a differentiable step
 show the layers' ``pota.*`` ranges where they run, the backward's own
 spans inside ``loss.backward``, the fold cache's misses by key and the
-splat queue's counts, equal to what ``with_diagnostics`` returns.
+splat queue's counts, equal to what ``with_diagnostics`` returns; a glass
+frame with the id-matte shows its stage's span and ``resolve_crypto``'s,
+its ``crypto.*`` counts equal to the records' counted by hand, one host
+read a boolean index of ``crypto_topk``, and the untraced frame's bits.
 
 The ``cuda`` cases run on the card (this file imports no JAX, so they run
 there without the suite's conftest):
@@ -13,10 +16,11 @@ there without the suite's conftest):
 
 They hold ``host_reads`` and ``host_writes`` together to the synchronising
 calls of the program that ``torch.cuda.set_sync_debug_mode("warn")``
-reports over a small fit step,
+reports over a small fit step and over an id-matte frame,
 K1v's ``k1v.live`` to the plain predicate's count, and K1v's gradients to
 the same bits with and without its count.
 """
+import dataclasses
 import json
 import warnings
 
@@ -30,8 +34,11 @@ from pota_tpu_torch.optics.fit import load_poly_lens
 from pota_tpu_torch.optics.focus import POState
 from pota_tpu_torch.render import renderer
 from pota_tpu_torch.render import scene as sc
+from pota_tpu_torch.render import splat as splat_mod
+from pota_tpu_torch.render.crypto import crypto_topk
 from pota_tpu_torch.render.renderer import look_at, render_frame
-from pota_tpu_torch.render.splat import resolve_aovs, splat_frame
+from pota_tpu_torch.render.splat import (resolve_aovs, resolve_crypto,
+                                         splat_frame)
 from pota_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
@@ -244,6 +251,116 @@ def test_count_of_a_size_keeps_the_rest():
     assert trace.snapshot() == {"dead": 6}
 
 
+# ------------------------------------------------------------ the id-matte
+
+IDMATTE_RC = pt.RenderConfig(xres=32, yres=24, spp=1, enable_id_matte=True)
+
+
+def glass_world(dev):
+    """``teapot_scene()`` with thin glass of grey 0.5 on spheres 0 and 1
+    (the ``po_bidir_1080p.idmatte`` cell's scene), the fit, the camera."""
+    scene = sc.teapot_scene(device=dev)
+    trans = torch.zeros((scene.n_objects, 3), device=dev)
+    trans[:2] = 0.5
+    scene = dataclasses.replace(scene, transmission=trans)
+    return (scene, load_poly_lens(FLAGSHIP, device=dev),
+            look_at([0, 0, 0], [0, 0, -1], device=dev))
+
+
+def idmatte_frame(scene, lens, m, rc=IDMATTE_RC):
+    """An id-matte frame's framebuffer, resolved planes and Cryptomatte
+    layers."""
+    with torch.no_grad():
+        _, fb = render_frame(CFG, rc, scene, m, seed=11, po_lens=lens,
+                             po_state=STATE)
+        planes = resolve_aovs(rc, fb)
+        layers = resolve_crypto(fb, ranks=3)
+    return fb, planes, layers
+
+
+@pytest.fixture
+def id_records(monkeypatch):
+    """The (pixel, id, weight) records of each id-matte frame rendered."""
+    captured = []
+    records = splat_mod.id_matte_records
+
+    def capture(*a):
+        captured.append(records(*a))
+        return captured[-1]
+
+    monkeypatch.setattr(splat_mod, "id_matte_records", capture)
+    return captured
+
+
+def test_idmatte_spans_and_counts(tmp_path, id_records):
+    """A glass-teapot frame with the id-matte under the profiler: one
+    ``pota.splat.idmatte`` inside ``pota.splat`` and one
+    ``pota.resolve.crypto``; ``crypto.records``, ``.live``, ``.runs`` and
+    ``.ranked`` equal what the frame's records give counted by hand; the
+    planes and layers the untraced frame's bits."""
+    world = glass_world("cpu")
+    fb0, planes0, layers0 = idmatte_frame(*world)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fb1, planes1, layers1 = idmatte_frame(*world)
+    rs = ranges(prof, tmp_path)
+    (splat,) = named(rs, "pota.splat")
+    (stage,) = named(rs, "pota.splat.idmatte")
+    assert within(stage, splat)
+    assert len(named(rs, "pota.resolve.crypto")) == 1
+    for k in fb0:
+        assert torch.equal(fb0[k], fb1[k]), k
+    for k in planes0:
+        assert torch.equal(planes0[k], planes1[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(layers0, layers1))
+
+    (pix, ids, w) = id_records[-1]
+    npix = IDMATTE_RC.xres * IDMATTE_RC.yres
+    n = npix * IDMATTE_RC.spp
+    live = (w > 0) & (ids >= 0) & (pix >= 0) & (pix < npix)
+    runs, inv = torch.unique((pix[live].long() << 32) | ids[live].long(),
+                             return_inverse=True)
+    run_w = torch.zeros(runs.shape[0], dtype=torch.float64).index_add_(
+        0, inv, w[live].double())
+    per_pixel = torch.bincount(runs[run_w.float() > 0] >> 32,
+                               minlength=npix)
+    c = trace.snapshot()
+    assert {k: c[k] for k in c if k.startswith("crypto.")} == {
+        "crypto.records": (CFG.splat_queue_mult + 1) * n * 2,
+        "crypto.live": int(live.sum()),
+        "crypto.runs": runs.shape[0],
+        "crypto.ranked": int(per_pixel.clamp(max=6).sum())}
+    assert 0 < runs.shape[0] < int(live.sum())
+
+
+def test_idmatte_host_reads_are_its_boolean_indexes(monkeypatch,
+                                                     id_records):
+    """``crypto_topk`` counts one host read a boolean index it makes (each
+    reads the count of its True entries from the device): the reads it
+    counts equal the boolean indexes the dispatcher sees."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    idmatte_frame(*glass_world("cpu"))
+
+    class BoolIndexes(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.index.Tensor and any(
+                    i is not None and i.dtype == torch.bool
+                    for i in args[1]):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    reads = []
+    monkeypatch.setattr(trace, "host_read",
+                        lambda t, n=1: reads.append(n))
+    npix = IDMATTE_RC.xres * IDMATTE_RC.yres
+    with BoolIndexes() as seen:
+        crypto_topk(*id_records[0], npix, k=6)
+    assert seen.n > 0 and sum(reads) == seen.n
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -329,3 +446,31 @@ def test_k1v_live_count_and_bits(dev):
     c = trace.snapshot()
     assert c["k1v.candidates"] == n
     assert c["k1v.live"] == int((g4 != 0).any(1).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_host_reads_and_writes_are_the_syncs_of_an_idmatte_frame(dev):
+    """Over one traced glass-teapot frame with the id-matte (a warm frame
+    first), ``host_reads`` and ``host_writes`` add up to the synchronising
+    calls in the program's files that the sync debug mode reports: each
+    of ``crypto_topk``'s boolean indexes is one."""
+    rc = pt.RenderConfig(xres=96, yres=64, spp=1, enable_id_matte=True)
+    world = glass_world(dev)
+    idmatte_frame(*world, rc=rc)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                idmatte_frame(*world, rc=rc)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchronizing" in str(w.message)
+             and "pota_tpu_torch" in w.filename]
+    c = trace.snapshot()
+    in_crypto = [w for w in syncs if w.filename.endswith("crypto.py")]
+    assert len(in_crypto) == 14
+    assert c["host_reads"] + c["host_writes"] == len(syncs)
